@@ -1,0 +1,249 @@
+"""Genotyper stage on PyTorch / CUDA.
+
+Counterpart of ``t1k_tpu/core/pipeline.py``'s genotyper stage: read
+ingest -> unique-read dedupe -> seed / chain / deferred banded DP (the
+native engine with the band kernel scoring the deferred items) ->
+fragment pairing and EC construction -> SQUAREM EM -> allele selection ->
+outputs.  EM, selection and outputs reuse ``finish_genotyper`` as it is;
+the EM runs through this package's ``Genotyper``.
+
+Backends: "native" keeps every DP on the host engine, "gpu" scores the
+deferred items on ``opts.device`` (a CUDA card, or the CPU through the
+kernel's plain version), "auto" is "gpu" when a card is present.  Every
+route writes byte-identical outputs.
+"""
+
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass
+from typing import List, Optional, Tuple
+
+import numpy as np
+
+from t1k_tpu.constants import GENOTYPER_KMER_LENGTH, encode_seq
+from t1k_tpu.core.genotyper import GenotyperConfig
+from t1k_tpu.core.pipeline import GenotypeOptions as _HostOptions
+from t1k_tpu.core.pipeline import (GenotypeResult, PreparedGenotype,
+                                   finish_genotyper, log)
+from t1k_tpu.io.reads import read_seq_files
+from t1k_tpu.io.refset import RefSet
+from t1k_tpu.native import NativeEngine
+from t1k_tpu.utils.observability import reset_metrics, stage
+
+from ..device import BACKENDS, resolve_backend, resolve_device
+from ..ops import align_band
+from ..ops.align_band import DeferredDescService
+from .genotyper import Genotyper
+
+
+@dataclass
+class GenotypeOptions(_HostOptions):
+    """The reference options plus the torch device the gpu routes use.
+    `backend` and `em_backend` take "auto", "native" or "gpu"."""
+    device: str = "cuda"
+
+
+def assign_unique_reads(
+    engine, seqs: List[str], backend: str = "native",
+    desc_service: Optional[DeferredDescService] = None,
+    store_results: bool = True, defer_chunk: int = 0,
+) -> Tuple[List[str], np.ndarray, np.ndarray, np.ndarray]:
+    """Group identical read sequences and run the engine once per unique
+    sequence with the group size as its weight (Genotyper.cpp:450-479).
+
+    With backend "gpu" the gap-fill and overhang alignments go to
+    `desc_service` through the engine's deferred descriptor mode."""
+    order = sorted(range(len(seqs)), key=lambda i: seqs[i])
+    uniq: List[str] = []
+    weights: List[int] = []
+    group_of = np.zeros(len(seqs), dtype=np.int64)
+    i = 0
+    while i < len(order):
+        j = i + 1
+        while j < len(order) and seqs[order[j]] == seqs[order[i]]:
+            j += 1
+        for k in range(i, j):
+            group_of[order[k]] = len(uniq)
+        uniq.append(seqs[order[i]])
+        weights.append(j - i)
+        i = j
+
+    if uniq:
+        codes = np.concatenate([encode_seq(s) for s in uniq])
+    else:
+        codes = np.zeros(0, dtype=np.int8)
+    lens = np.array([len(s) for s in uniq], dtype=np.int32)
+    starts = np.zeros(len(lens), dtype=np.int64)
+    if len(lens):
+        starts[1:] = np.cumsum(lens[:-1])
+    w = np.array(weights, dtype=np.int32)
+    if backend == "gpu":
+        if desc_service is None:
+            raise ValueError("the gpu backend needs a desc_service")
+        rec, off = engine.assign_batch_deferred(
+            codes, starts, lens, w, desc_service=desc_service,
+            store_results=store_results,
+            chunk_size=defer_chunk if not store_results else 0)
+    elif backend == "native":
+        rec, off = engine.assign_batch(codes, starts, lens, w,
+                                       store_results=store_results)
+    else:
+        raise ValueError(f"unknown alignment backend {backend!r}")
+    return uniq, group_of, rec, off
+
+
+def run_genotyper(
+    ref_fasta: str,
+    reads1: List[str],
+    reads2: Optional[List[str]],
+    output_prefix: str,
+    opts: Optional[GenotypeOptions] = None,
+    refset: Optional[RefSet] = None,
+) -> GenotypeResult:
+    prep = prepare_genotyper(ref_fasta, reads1, reads2, opts, refset)
+    return finish_genotyper(prep, output_prefix)
+
+
+def prepare_genotyper(
+    ref_fasta: str,
+    reads1: List[str],
+    reads2: Optional[List[str]],
+    opts: Optional[GenotypeOptions] = None,
+    refset: Optional[RefSet] = None,
+    desc_service: Optional[DeferredDescService] = None,
+) -> PreparedGenotype:
+    """Load reference and reads, run read and fragment assignment and EC
+    construction; stop at the EM boundary (Genotyper.cpp:194-637).
+    `desc_service` replaces the band-kernel service the gpu backend
+    would build on `opts.device`."""
+    opts = opts or GenotypeOptions()
+    if opts.device_candidates:
+        raise ValueError("device candidate pruning is not ported yet")
+    if os.environ.get("T1K_PROFILE_DIR"):
+        raise ValueError("T1K_PROFILE_DIR traces through jax.profiler, "
+                         "which this package does not use; unset it")
+    backend = resolve_backend(opts.backend)
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown alignment backend {backend!r}")
+    device = opts.device
+    if backend == "gpu" or opts.em_backend == "gpu":
+        device = resolve_device(opts.device)
+    if backend == "gpu" and desc_service is None:
+        desc_service = DeferredDescService(device)
+    if refset is None:
+        refset = RefSet.from_fasta(ref_fasta, opts.digit_units, opts.delimiter)
+    packed = refset.packed()
+    engine = NativeEngine(
+        packed, GENOTYPER_KMER_LENGTH,
+        ref_seq_similarity=opts.ref_seq_similarity,
+        relax_intron_align=opts.relax_intron_align,
+        threads=opts.threads,
+    )
+    has_mate = reads2 is not None
+
+    # Ingest reads (+ optional per-read barcodes).
+    ids1, seqs1, ids2, seqs2 = [], [], [], []
+    barcodes: Optional[List[str]] = [] if opts.barcode_file else None
+    bc_files = (opts.barcode_file
+                if isinstance(opts.barcode_file, (list, tuple))
+                else [opts.barcode_file])
+    bc_iter = (iter(read_seq_files(bc_files))
+               if opts.barcode_file else None)
+    it2 = read_seq_files(reads2) if has_mate else None
+    for rec1 in read_seq_files(reads1):
+        rec2 = next(it2) if has_mate else None
+        if bc_iter is not None:
+            bc = next(bc_iter)
+            if bc.seq == "missing_barcode":
+                continue
+            barcodes.append(bc.seq)
+        ids1.append(rec1.id)
+        seqs1.append(rec1.seq)
+        if has_mate:
+            ids2.append(rec2.id)
+            seqs2.append(rec2.seq)
+    read_cnt = len(seqs1)
+    max_read_length = max((len(s) for s in seqs1 + seqs2), default=0)
+
+    gcfg = GenotyperConfig(
+        filter_frac=opts.filter_frac, filter_cov=opts.filter_cov,
+        cross_gene_rate=opts.cross_gene_rate,
+        max_assign_cnt=opts.max_assign_cnt,
+        min_squarem_alpha=opts.min_squarem_alpha,
+        read_length=max_read_length, em_backend=opts.em_backend,
+    )
+    genotyper = Genotyper(refset, gcfg, device=device)
+    if opts.allele_whitelist:
+        with open(opts.allele_whitelist) as f:
+            genotyper.set_allele_whitelist(f.read().split())
+    whitelist = genotyper.whitelist if opts.allele_whitelist else None
+
+    reset_metrics()
+    log(f"Found {read_cnt} read fragments. Start read assignment.")
+    all_seqs = seqs1 + seqs2
+    launches0 = align_band.launch_counts["band_stats"]
+    items0 = desc_service.items_scored if desc_service is not None else 0
+    with stage("read_assignment") as ctx:
+        uniq, group_of, _, _ = assign_unique_reads(
+            engine, all_seqs, backend, desc_service, store_results=False,
+            defer_chunk=opts.defer_chunk)
+        ctx["read_count"] = len(all_seqs)
+        ctx["unique_read_count"] = len(uniq)
+        ctx["alignment_count"] = engine.last_assign_count
+        ctx["deferred_item_count"] = (
+            desc_service.items_scored - items0
+            if backend == "gpu" else 0)
+        ctx["band_kernel_launches"] = (align_band.launch_counts["band_stats"]
+                                       - launches0)
+    log("Finish read end assignments.")
+
+    has_n = np.array(
+        [("N" in s1) or (has_mate and "N" in s2)
+         for s1, s2 in zip(seqs1, seqs2 if has_mate else [""] * read_cnt)],
+        dtype=np.uint8)
+    uid1 = group_of[:read_cnt]
+    uid2 = (group_of[read_cnt:] if has_mate
+            else np.full(read_cnt, -1, dtype=np.int64))
+
+    with stage("fragment_assignment") as sctx:
+        frag_rec = frag_counts = None
+        if opts.output_read_assignment:
+            # the per-fragment records cross into Python for the dump
+            frag_rec, frag_counts, aligned_flags_arr = engine.fragment_batch(
+                uid1, uid2, has_n, has_mate, opts.max_assign_cnt, whitelist)
+            aligned_fragment_cnt = genotyper.coalesce_arrays(
+                frag_rec, frag_counts)
+        else:
+            coalesced, assigned_cnt, frag_counts, aligned_flags_arr = (
+                engine.fragment_batch_coalesced(
+                    uid1, uid2, has_n, has_mate, opts.max_assign_cnt,
+                    whitelist))
+            aligned_fragment_cnt = genotyper.adopt_coalesced(
+                coalesced, assigned_cnt)
+        aligned_flags = aligned_flags_arr.tolist()
+        genotyper.finalize(engine.pos_weight(), packed)
+        sctx["fragment_count"] = read_cnt
+        sctx["aligned_fragment_count"] = aligned_fragment_cnt
+        sctx["read_group_count"] = genotyper.read_group_count
+        sctx["equivalence_class_count"] = len(genotyper.ec_to_alleles)
+
+    assign_rows = None
+    if opts.output_read_assignment:
+        assign_rows = []
+        off = np.zeros(read_cnt + 1, dtype=np.int64)
+        off[1:] = np.cumsum(frag_counts)
+        for i in range(read_cnt):
+            for k in range(off[i], off[i + 1]):
+                r = frag_rec[k]
+                assign_rows.append(
+                    f"{ids1[i]}\t{refset.alleles[int(r[0])].name}"
+                    f"\t{int(r[1])}\t{int(r[2])}")
+    log(f"Finish read fragment assignments. {aligned_fragment_cnt} read "
+        f"fragments can be assigned.")
+    return PreparedGenotype(
+        genotyper=genotyper, refset=refset, opts=opts,
+        aligned_flags=aligned_flags, read_ids1=ids1, read_ids2=ids2,
+        read_seqs1=seqs1, read_seqs2=seqs2, barcodes=barcodes,
+        aligned_fragment_cnt=aligned_fragment_cnt, assign_rows=assign_rows,
+        has_mate=has_mate)

@@ -1,0 +1,298 @@
+"""SQUAREM-accelerated EM on a torch device, in the native oracle's order.
+
+Counterpart of the device EM of ``t1k_tpu/ops/em.py`` (``_em_loop_dense``
+with ``_squarem_while`` and ``_make_mask_reset``), with the contract of
+``t1k_tpu/native/em.cc`` (reference Genotyper.hpp:372-437, 1142-1328):
+two EM updates, the SQUAREM extrapolation, one stabilizing update, L1
+convergence below 1e-5 with one forced extra round, and the
+every-10-rounds low-abundance major-allele mask.
+
+Every floating-point sum runs in em.cc's order, so the f64 result is
+bit-identical to the native loop.  That is what keeps the genotyper's
+printed abundances byte-identical: on the H100, a dense-matvec E-step
+(the JAX route's formulation, summed by cuBLAS) moved the sixth decimal
+of HLA-scale abundances.  The incidence is kept as lists: per read group
+its ECs (CSR, in the group's own order) and per EC its read groups (CSC,
+ascending, the order in which em.cc's scatter reaches the EC).
+
+CUDA tensors run the kernel ``csrc/em_squarem.cu`` (the whole loop in one
+launch); CPU tensors run ``squarem_plain``, the same order in PyTorch ops
+(bit-exact in f64 on the CPU, whose cumsum is a sequential sum).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import itertools
+from typing import List, Tuple
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+
+MASK_ROUND = 10
+
+# Kernel launches, counted by the CUDA wrapper where it launches.
+launch_counts = {"em_squarem": 0}
+
+
+def em_tables(ec_to_alleles, rg_ecs_csr, rg_counts, allele_eff_len,
+              allele_weight, allele_gene, allele_major, n_genes: int,
+              n_majors: int) -> dict:
+    """Host tables of one EM problem, as squarem_cuda and squarem_plain
+    take them: the incidence both ways, the EC -> alleles CSR, each EC's
+    shortest effective length and the allele-weight initial abundance."""
+    ec_cnt = len(ec_to_alleles)
+    rg_off = np.asarray(rg_ecs_csr[0], np.int64)
+    rg_ecs = np.asarray(rg_ecs_csr[1], np.int32)
+    col_off, col_rgs = incidence_lists(rg_off, rg_ecs, ec_cnt)
+    ec_off = np.zeros(ec_cnt + 1, dtype=np.int64)
+    ec_off[1:] = np.cumsum([len(a) for a in ec_to_alleles])
+    if (np.diff(ec_off) == 0).any():
+        raise ValueError("empty equivalence class")
+    ec_alleles = np.fromiter(itertools.chain.from_iterable(ec_to_alleles),
+                             dtype=np.int32, count=int(ec_off[-1]))
+    allele_gene = np.asarray(allele_gene, np.int64)
+    allele_major = np.asarray(allele_major, np.int64)
+    allele_cnt = len(allele_gene)
+    if len(rg_off) != len(rg_counts) + 1:
+        raise ValueError("read-group offsets and counts disagree")
+    if not (len(allele_eff_len) == len(allele_weight) == len(allele_major)
+            == allele_cnt):
+        raise ValueError("per-allele arrays differ in length")
+    for name, v, n in (("EC allele", ec_alleles, allele_cnt),
+                       ("gene", allele_gene, n_genes),
+                       ("major allele", allele_major, n_majors)):
+        if len(v) and (v.min() < 0 or v.max() >= n):
+            raise ValueError(f"{name} index out of range")
+    return dict(
+        rg_off=rg_off, rg_ecs=rg_ecs,
+        rg_counts=np.asarray(rg_counts, np.float64),
+        col_off=col_off, col_rgs=col_rgs, ec_off=ec_off,
+        ec_alleles=ec_alleles,
+        ec_len=np.minimum.reduceat(
+            np.asarray(allele_eff_len, np.int64)[ec_alleles],
+            ec_off[:-1]).astype(np.float64),
+        allele_gene=allele_gene, allele_major=allele_major,
+        # integer sums, exact in f64 as em.cc's running double sum is
+        init_x=np.add.reduceat(np.asarray(allele_weight, np.int64)[ec_alleles],
+                               ec_off[:-1]).astype(np.float64),
+        gene_cnt=n_genes, major_cnt=n_majors)
+
+
+def incidence_lists(rg_off, rg_ecs, ec_cnt: int):
+    """Per-EC read groups, ascending (CSC), from the per-read-group EC
+    lists (CSR).  Each (read group, EC) pair must appear once: a repeat
+    would count the group twice for that EC."""
+    rg_off = np.asarray(rg_off, np.int64)
+    rg_ecs = np.asarray(rg_ecs, np.int64)
+    rg_cnt = len(rg_off) - 1
+    if len(rg_ecs) and (rg_ecs.min() < 0 or rg_ecs.max() >= ec_cnt):
+        raise ValueError("EC index out of range in the read-group lists")
+    seg_rg = np.repeat(np.arange(rg_cnt, dtype=np.int64), np.diff(rg_off))
+    if np.unique(seg_rg * ec_cnt + rg_ecs).size != rg_ecs.size:
+        raise ValueError("duplicate (read group, EC) pair in the incidence")
+    perm = np.argsort(rg_ecs, kind="stable")
+    col_off = np.zeros(ec_cnt + 1, dtype=np.int64)
+    np.cumsum(np.bincount(rg_ecs, minlength=ec_cnt), out=col_off[1:])
+    return col_off, seg_rg[perm].astype(np.int32)
+
+
+def _padded(off: np.ndarray, idx: np.ndarray, pad: int) -> np.ndarray:
+    """CSR -> [rows, longest row] index matrix, short rows filled with
+    `pad` (an index whose contribution is an exact zero)."""
+    lens = np.diff(off)
+    out = np.full((len(lens), int(lens.max(initial=0))), pad, np.int64)
+    rows = np.repeat(np.arange(len(lens)), lens)
+    out[rows, np.arange(len(idx)) - np.repeat(off[:-1], lens)] = idx
+    return out
+
+
+def _seq_sum(v: torch.Tensor) -> torch.Tensor:
+    """Left-to-right sum.  On the CPU, torch's cumsum is sequential, and
+    exact in f64; it accumulates f32 in f64, so f32 sums round once."""
+    if v.numel() == 0:
+        return torch.zeros((), dtype=v.dtype, device=v.device)
+    return torch.cumsum(v, 0)[-1]
+
+
+def squarem_plain(rg_off, rg_ecs, rg_counts, col_off, col_rgs, ec_off,
+                  ec_alleles, ec_len, allele_gene, allele_major, init_x,
+                  gene_cnt: int, major_cnt: int, filter_frac: float,
+                  min_squarem_alpha: float, max_iterations: int,
+                  device, dtype) -> Tuple[int, torch.Tensor]:
+    """Plain PyTorch version of csrc/em_squarem.cu: em.cc's loop with each
+    order-sensitive sum written as a left-to-right chain of tensor adds."""
+    ec_cnt, rg_cnt = len(ec_len), len(rg_counts)
+    allele_cnt = len(allele_gene)
+
+    def put(x, dt):
+        return torch.as_tensor(np.asarray(x)).to(device=device, dtype=dt)
+
+    i64 = torch.int64
+    row_ecs = put(_padded(rg_off, rg_ecs, ec_cnt), i64)       # [R, K]
+    col_rg = put(_padded(col_off, col_rgs, rg_cnt), i64)      # [E, L]
+    order = np.argsort(allele_major, kind="stable")
+    maj_off = np.zeros(major_cnt + 1, np.int64)
+    np.cumsum(np.bincount(allele_major, minlength=major_cnt), out=maj_off[1:])
+    maj_alleles = put(_padded(maj_off, order, allele_cnt), i64)  # [M, Lm]
+    cts_z = put(np.append(rg_counts, 0.0), dtype)
+    ec_len_t, ec_size_t = put(ec_len, dtype), put(np.diff(ec_off), dtype)
+    ec_first = put(ec_alleles[ec_off[:-1]], i64)
+    ec_of_allele = put(np.repeat(np.arange(ec_cnt), np.diff(ec_off)), i64)
+    ec_alleles_t = put(ec_alleles, i64)
+    gene_t, major_t = put(allele_gene, i64), put(allele_major, i64)
+    zero1 = torch.zeros(1, dtype=dtype, device=device)
+    one1 = torch.ones(1, dtype=dtype, device=device)
+
+    def em_update(x):
+        g = torch.cat([x, zero1])[row_ecs]
+        psum = torch.zeros(rg_cnt, dtype=dtype, device=device)
+        for k in range(g.shape[1]):
+            psum = psum + g[:, k]
+        psum = torch.where(psum == 0, 1.0, psum)
+        psum_z = torch.cat([psum, one1])
+        count = torch.zeros(ec_cnt, dtype=dtype, device=device)
+        for k in range(col_rg.shape[1]):
+            r = col_rg[:, k]
+            count = count + cts_z[r] * (x / psum_z[r])
+        per_len = count / ec_len_t
+        return per_len / _seq_sum(per_len), count
+
+    def mask_reset(count):
+        ec_abund = count / ec_len_t * 1000.0
+        allele_abund = torch.zeros(allele_cnt + 1, dtype=dtype, device=device)
+        allele_ec_abund = torch.zeros(allele_cnt, dtype=dtype, device=device)
+        allele_abund[ec_alleles_t] = (ec_abund / ec_size_t)[ec_of_allele]
+        allele_ec_abund[ec_alleles_t] = ec_abund[ec_of_allele]
+        g = allele_abund[maj_alleles]
+        major_abund = torch.zeros(major_cnt, dtype=dtype, device=device)
+        for k in range(g.shape[1]):
+            major_abund = major_abund + g[:, k]
+        per_allele = major_abund[major_t]
+        gene_max = torch.zeros(gene_cnt, dtype=dtype, device=device)
+        gene_max = gene_max.scatter_reduce(0, gene_t, per_allele, "amax")
+        masked = per_allele < filter_frac * 0.5 * gene_max[gene_t]
+        return torch.where(masked, 0.0, allele_ec_abund)[ec_first]
+
+    x0 = put(init_x, dtype)
+    count = torch.zeros(ec_cnt, dtype=dtype, device=device)
+    iters = 0
+    t = 0
+    while t < max_iterations:
+        iters += 1
+        x1, _ = em_update(x0)
+        x2, _ = em_update(x1)
+        r = x1 - x0
+        v = x2 - 2 * x1 + x0
+        sum_r, sum_v = _seq_sum(r * r), _seq_sum(v * v)
+        alpha = torch.where(sum_v == 0, -1.0,
+                            -torch.sqrt(sum_r) / torch.sqrt(sum_v))
+        if min_squarem_alpha < 0:
+            alpha = torch.where(alpha < min_squarem_alpha,
+                                min_squarem_alpha, alpha)
+        x3 = x0 - 2 * alpha * (x1 - x0) + alpha * alpha * (x2 - 2 * x1 + x0)
+        x1b, count = em_update(x3)
+        diff = float(_seq_sum(torch.abs(x1b - x0)))  # the round's host sync
+        x0 = x1b
+        if diff < 1e-5 and t < max_iterations - 2:
+            t = max_iterations - 2
+        if t > 0 and t % MASK_ROUND == 0:
+            x0 = mask_reset(count)
+        t += 1
+    return iters, count
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_lib() -> ctypes.CDLL:
+    from ._build import load
+
+    lib = load("em_squarem")
+    lib.t1k_em_squarem.restype = ctypes.c_int
+    lib.t1k_em_squarem.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_double,
+        ctypes.c_double, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    return lib
+
+
+def squarem_cuda(rg_off, rg_ecs, rg_counts, col_off, col_rgs, ec_off,
+                 ec_alleles, ec_len, allele_gene, allele_major, init_x,
+                 gene_cnt: int, major_cnt: int, filter_frac: float,
+                 min_squarem_alpha: float, max_iterations: int, device,
+                 dtype) -> Tuple[int, torch.Tensor]:
+    """Launch csrc/em_squarem.cu once for the whole loop; same result as
+    squarem_plain on the CPU, bit for bit."""
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"unsupported EM dtype {dtype}")
+    ec_cnt, rg_cnt = len(ec_len), len(rg_counts)
+    allele_cnt = len(allele_gene)
+
+    def put(x, dt):
+        return torch.as_tensor(np.ascontiguousarray(x)).to(
+            device=device, dtype=dt).contiguous()
+
+    i32, i64 = torch.int32, torch.int64
+    ins = [put(rg_off, i64), put(rg_ecs, i32), put(rg_counts, dtype),
+           put(col_off, i64), put(col_rgs, i32), put(ec_off, i64),
+           put(ec_alleles, i32), put(ec_len, dtype), put(allele_gene, i32),
+           put(allele_major, i32)]
+
+    def buf(n):
+        return torch.empty(max(n, 1), dtype=dtype, device=device)
+
+    scratch = [put(init_x, dtype)] + [buf(ec_cnt) for _ in range(4)] + [
+        buf(rg_cnt), buf(ec_cnt), buf(allele_cnt), buf(allele_cnt),
+        buf(major_cnt), buf(gene_cnt)]
+    iters = torch.zeros(1, dtype=i32, device=device)
+    dims = (ctypes.c_int64 * 6)(ec_cnt, allele_cnt, gene_cnt, major_cnt,
+                                rg_cnt, max_iterations)
+    lib = _kernel_lib()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = lib.t1k_em_squarem(
+            (ctypes.c_void_p * len(ins))(*[t.data_ptr() for t in ins]),
+            (ctypes.c_void_p * len(scratch))(*[t.data_ptr()
+                                               for t in scratch]),
+            dims, float(filter_frac), float(min_squarem_alpha),
+            int(dtype == torch.float64), iters.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"em_squarem kernel launch failed: CUDA error {rc}")
+    launch_counts["em_squarem"] += 1
+    return int(iters.item()), scratch[4][:ec_cnt]
+
+
+def em_quantify_gpu(
+    ec_to_alleles: List[List[int]],
+    rg_ecs_csr: Tuple[np.ndarray, np.ndarray],
+    rg_counts: np.ndarray,
+    allele_eff_len: np.ndarray,
+    allele_missing: np.ndarray,
+    allele_weight: np.ndarray,
+    allele_gene: np.ndarray,
+    allele_major: np.ndarray,
+    n_genes: int,
+    n_majors: int,
+    filter_frac: float = 0.15,
+    min_squarem_alpha: float = 0.0,
+    max_iterations: int = 1000,
+    device="cuda",
+    dtype=torch.float64,
+) -> Tuple[int, np.ndarray]:
+    """Drop-in for native.em_quantify / ops.em.em_quantify_jax on a torch
+    device; returns (iterations, per-EC read counts as f64 numpy).
+    `allele_missing` is accepted for signature parity and unused, as in
+    both reference routes."""
+    if len(ec_to_alleles) == 0:
+        return 0, np.zeros(0)
+    dev = resolve_device(device)
+    tables = em_tables(ec_to_alleles, rg_ecs_csr, rg_counts, allele_eff_len,
+                       allele_weight, allele_gene, allele_major, n_genes,
+                       n_majors)
+    run = squarem_cuda if dev.type == "cuda" else squarem_plain
+    iters, count = run(**tables, filter_frac=filter_frac,
+                       min_squarem_alpha=min_squarem_alpha,
+                       max_iterations=max_iterations, device=dev,
+                       dtype=dtype)
+    return iters, count.cpu().numpy().astype(np.float64)

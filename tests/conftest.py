@@ -27,6 +27,8 @@ DATA_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "tpu: needs real TPU hardware (auto-skips elsewhere)")
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card (auto-skips elsewhere)")
 
 
 def pytest_terminal_summary(terminalreporter, exitstatus, config):
