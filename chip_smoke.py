@@ -4,25 +4,47 @@
   python3 chip_smoke.py
 
 Phases, in order; any failure raises and the exit code is non-zero:
-  1. card      nvidia-smi name and power limit, torch and CUDA versions
-  2. build     nvcc builds csrc/band_stats.cu and csrc/em_squarem.cu for
-               sm_90a and loads them
-  3. kernel    band kernel vs its plain PyTorch version on the card, exact:
-               the 400 golden alignment cases, 100,000 seeded deferred
-               items through the descriptor service (W=32, rc-half
-               descriptors included), and batches at W = 64, 128, 256
-  4. em        f64 SQUAREM EM kernel on a seeded 5,000 read group x 900 EC
-               problem (the HLA-scale EC matrix): the native f64 loop's
-               iteration count and counts, bit for bit, and equal to the
-               plain version on the CPU; kernel vs plain version on the
-               card timed in turns
-  5. main      the genotyper stage at HLA scale (24 genes x 240 alleles,
-               12,000 read pairs of 100 bp) through
-               t1k_tpu_torch.cli.genotype --backend gpu --emBackend gpu,
-               byte-compared with the native route of t1k_tpu; both
-               kernels' launch counts over the run must be > 0
-  6. timing    band kernel vs plain version, in turns, on the largest
-               deferred-item batch one engine chunk of the main path sends
+  1. card          nvidia-smi name and power limit, torch and CUDA versions
+  2. build         nvcc builds the five kernels of csrc/ for sm_90a, one
+                   process per source, all at once, and loads them
+  3. kernel        band kernel vs its plain PyTorch version on the card,
+                   exact: the 400 golden alignment cases, 100,000 seeded
+                   deferred items through the descriptor service (W=32,
+                   rc-half descriptors included), and W = 64, 128, 256
+  4. em            f64 SQUAREM EM kernel on a seeded 5,000 read group x
+                   900 EC problem: the native f64 loop's iteration count
+                   and counts, bit for bit, and equal to the plain version
+                   on the CPU; kernel vs plain version timed in turns
+  5. v1            the v1 full-row aligner (align_full.cu) through
+                   banded_scores_full: the 400 golden cases and 65,536
+                   seeded read/window pairs, exact against its plain
+                   version and, where the band fits, the band kernel;
+                   kernel vs plain version timed in turns
+  6. screen        the phase-A DeviceScreen on the card against its plain
+                   version on the CPU (verdict and decided) and the native
+                   engine (every decided read) on seeded panels: random
+                   panels, the skip heuristic, tandem repeats, the k=13
+                   hashed table, edge cases, overflow
+  7. main          the genotyper stage at HLA scale (24 genes x 240
+                   alleles, 12,000 read pairs of 100 bp) through
+                   t1k_tpu_torch.cli.genotype --backend gpu --emBackend
+                   gpu, byte-compared with the native route of t1k_tpu;
+                   both kernels' launch counts over the run must be > 0
+  8. timing        band kernel vs plain version, in turns, on the largest
+                   deferred-item batch one engine chunk of the main path
+                   sends
+  9. extract       the FASTQ extraction stage on the same panel (k = 13,
+                   hashed table): 1,000,000 read pairs of 2 x 100 bp
+                   (20,000 simulated on-panel pairs, 80,000 near-miss
+                   pairs, 900,000 random pairs, shuffled) through
+                   t1k_tpu_torch.cli.extract --backend gpu in this process
+                   (so its kernel launches are counted here; its stage
+                   time is a warm one), byte-compared with
+                   t1k_tpu.cli.extract --backend native run in a child
+                   process; both phase-A kernels must launch and the
+                   device must decide a share of the screened reads
+ 10. screen_timing probe and chain kernels vs their plain versions, in
+                   turns, on one full 1024-row chunk of the extract inputs
 Then the card line, one JSON line describing the kernels, and
 {"ok": true, "device": {...}} as the last line.  Work files go to a
 temporary directory that is removed at exit.
@@ -49,6 +71,9 @@ PANEL_COPIES = 2          # x 120 source alleles = 240 alleles per gene
 SIM_PAIRS = 12000
 EM_RG, EM_EC = 5000, 900
 RANDOM_ITEMS = 100_000
+V1_PAIRS = 65_536
+EXTRACT_PAIRS = (20_000, 80_000, 900_000)   # simulated, near-miss, random
+READ_LEN = 100
 
 _LUT = np.full(256, 4, np.int8)
 for _i, _b in enumerate(b"ACGT"):
@@ -450,6 +475,498 @@ def phase_timing(dev, check: Checker, work: str, n_reads: int,
     return float(np.mean(kernel_ms)), float(np.mean(plain_ms))
 
 
+# ------------------------------------------------------------- v1 aligner
+
+def seeded_v1_pairs(n: int, rng):
+    """Reads of 100-150 bp against panel-like windows of read length +-10
+    (one pair in eight against a window of up to 512 bp), cut from one
+    random reference with 0.2% N; the reads carry 5% substitutions and a
+    shift of up to 3 bases, so the alignments open gaps."""
+    lt, lp = 512, 150
+    ref = rng.integers(0, 4, 2_000_000).astype(np.int8)
+    ref[rng.random(ref.size) < 0.002] = 4
+    p_len = rng.integers(100, lp + 1, n).astype(np.int32)
+    long = rng.random(n) < 0.125
+    t_len = np.where(long, rng.integers(p_len, lt + 1),
+                     np.clip(p_len + rng.integers(-10, 11, n), 1, lt))
+    t_len = t_len.astype(np.int32)
+    t_off = rng.integers(8, ref.size - lt - 8, n)
+    tc = ref[t_off[:, None] + np.arange(lt)[None, :]]
+    shift = rng.integers(-3, 4, n)
+    pc = ref[(t_off + shift)[:, None] + np.arange(lp)[None, :]].copy()
+    mut = rng.random(pc.shape) < 0.05
+    pc[mut] = rng.integers(0, 5, int(mut.sum()))
+    return tc, t_len, pc, p_len
+
+
+def phase_v1(dev, check: Checker, n_pairs: int, info: dict):
+    """Returns (main-path launches, kernel ms, plain ms)."""
+    from t1k_tpu_torch.ops import align as v1
+    from t1k_tpu_torch.ops import align_band as ab
+
+    tc, tl, pc, pl, want = golden_windows()
+    got = v1.banded_scores_full(tc, tl, pc, pl, device=dev)
+    if not (got == want).all():
+        raise AssertionError("v1 kernel differs from the golden table")
+    import torch
+    check(torch.from_numpy(got), torch.from_numpy(
+        v1.banded_scores(tc, tl, pc, pl, device=dev)), "v1 golden")
+
+    tc, tl, pc, pl = seeded_v1_pairs(n_pairs, np.random.default_rng(2026))
+    v1.launch_counts["align_full"] = 0
+    scores = v1.banded_scores_full(tc, tl, pc, pl, device=dev)
+    launches = v1.launch_counts["align_full"]
+    plain = v1.banded_scores(tc, tl, pc, pl, device=dev)
+    check(torch.from_numpy(scores), torch.from_numpy(plain), "v1 seeded")
+    fit = np.abs(tl - pl) <= ab.DEFER_MAX_DIFF
+    band = ab.banded_scores_band(tc[fit], tl[fit], pc[fit], pl[fit],
+                                 device=dev)
+    if not (band == scores[fit]).all():
+        raise AssertionError("v1 and band kernels disagree")
+
+    args = v1._as_tensors(tc, tl, pc, pl, dev)
+    max_diff = int(np.abs(tl - pl).max())
+    if dev.type == "cuda":
+        def kernel():
+            return v1.banded_scores_cuda(*args, max_diff)
+    else:  # CPU rehearsal: both sides are the plain version
+        def kernel():
+            return v1.banded_scores_plain(*args)
+
+    def plain_fn():
+        return v1.banded_scores_plain(*args)
+
+    plain_ms = [time_ms(plain_fn, 1, dev)]
+    kernel_ms = [time_ms(kernel, 20, dev), time_ms(kernel, 20, dev)]
+    plain_ms.append(time_ms(plain_fn, 1, dev))
+    info["golden"] = len(want)
+    info["pairs"] = n_pairs
+    info["band_checked"] = int(fit.sum())
+    info["launches"] = launches
+    info["kernel_ms"] = " ".join(f"{t:.4f}" for t in kernel_ms)
+    info["plain_ms"] = " ".join(f"{t:.2f}" for t in plain_ms)
+    return launches, float(np.mean(kernel_ms)), float(np.mean(plain_ms))
+
+
+# --------------------------------------------------------- phase-A screen
+# Seeded panels and reads of tests/test_phase_a.py, copied.
+
+BASES = "ACGT"
+
+
+def rand_seq(rng, n):
+    return "".join(BASES[i] for i in rng.integers(0, 4, n))
+
+
+def mutate(rng, s, rate=0.05, n_rate=0.2):
+    out = list(s)
+    for i in range(len(out)):
+        r = rng.random()
+        if r < rate:
+            out[i] = BASES[rng.integers(0, 4)]
+        elif r < rate * (1 + n_rate):
+            out[i] = "N"
+    return "".join(out)
+
+
+def revcomp(s):
+    comp = {"A": "T", "C": "G", "G": "C", "T": "A", "N": "N"}
+    return "".join(comp[c] for c in reversed(s))
+
+
+def make_reads(rng, seqs, n):
+    reads = []
+    for _ in range(n):
+        kind = rng.integers(0, 6)
+        s = seqs[rng.integers(0, len(seqs))]
+        if kind == 0:
+            reads.append(rand_seq(rng, int(rng.integers(30, 150))))
+        elif kind == 1:
+            st = rng.integers(0, max(1, len(s) - 100))
+            reads.append(mutate(rng, s[st:st + 100], rng.random() * 0.2))
+        elif kind == 2:
+            st = rng.integers(0, max(1, len(s) - 100))
+            reads.append(revcomp(mutate(rng, s[st:st + 100],
+                                        rng.random() * 0.1)))
+        elif kind == 3 and len(s) > 250:
+            reads.append(mutate(rng, s[:60] + s[-60:], 0.02))
+        elif kind == 4:
+            reads.append("A" * int(rng.integers(5, 40)))  # code-0 quirk
+        else:
+            st = rng.integers(0, max(1, len(s) - 60))
+            reads.append(mutate(rng, s[st:st + 60], 0.05))
+    return reads
+
+
+def screen_cases():
+    """(name, seqs, reads, k, hit_len, sim, caps) of the seeded cases."""
+    cases = []
+    for trial in range(4):
+        rng = np.random.default_rng(500 + trial)
+        base = rand_seq(rng, int(rng.integers(300, 700)))
+        seqs = []
+        for _ in range(int(rng.integers(3, 25))):
+            if rng.random() < 0.7:
+                seqs.append(mutate(rng, base, 0.03).replace("N", "A"))
+            else:
+                seqs.append(rand_seq(rng, int(rng.integers(200, 600))))
+        cases.append((f"random{trial}", seqs, make_reads(rng, seqs, 60), 9,
+                      23, [0.8, 0.9, 0.97][trial % 3], dict(bucket_cap=128)))
+    rng = np.random.default_rng(77)
+    base = rand_seq(rng, 500)
+    seqs = [mutate(rng, base, 0.01).replace("N", "C") for _ in range(120)]
+    cases.append(("skip", seqs, make_reads(rng, seqs, 50), 9, 23, 0.8,
+                  dict(bucket_cap=256)))
+    rng = np.random.default_rng(91)
+    motif = rand_seq(rng, 25)
+    seqs = [rand_seq(rng, 40) + motif * int(rng.integers(3, 7))
+            + rand_seq(rng, 60) + motif + rand_seq(rng, 40)
+            for _ in range(10)]
+    cases.append(("repeats", seqs, make_reads(rng, seqs, 50), 9, 23, 0.8,
+                  dict(bucket_cap=128)))
+    base = rand_seq(rng, 600)
+    seqs = [mutate(rng, base, 0.02).replace("N", "G") for _ in range(15)]
+    cases.append(("hashed13", seqs, make_reads(rng, seqs, 40), 13, 23, 0.9,
+                  dict(bucket_cap=128)))
+    rng = np.random.default_rng(13)
+    seqs = [rand_seq(rng, 300)]
+    cases.append(("edges", seqs, ["ACGT", seqs[0][:9], "N" * 50, "A" * 9,
+                                  seqs[0][10:19]], 9, 9, 0.8,
+                  dict(bucket_cap=128)))
+    rng = np.random.default_rng(5)
+    base = rand_seq(rng, 400)
+    seqs = [mutate(rng, base, 0.005).replace("N", "T") for _ in range(110)]
+    cases.append(("overflow", seqs,
+                  [mutate(rng, base[:100], 0.01) for _ in range(8)], 9, 23,
+                  0.8, dict(hit_cap=256, bucket_cap=32)))
+    return cases
+
+
+def pad_reads(reads):
+    L = max(len(r) for r in reads)
+    codes = np.full((len(reads), L), 4, np.int8)
+    lens = np.array([len(r) for r in reads], np.int32)
+    for i, r in enumerate(reads):
+        codes[i, :len(r)] = encode(r)
+    return codes, lens
+
+
+def phase_screen(dev, info: dict) -> None:
+    from t1k_tpu_torch.core import extractor as tx
+    from t1k_tpu_torch.ops import phase_a as pa
+
+    decided = screened = 0
+    for name, seqs, reads, k, hlr, sim, caps in screen_cases():
+        rs = tx.RefSet(digit_units=-1, delimiter="")
+        for i, s in enumerate(seqs):
+            rs.add_allele(f"G{i % 3}*{i:03d}", s, None)
+        packed = rs.packed()
+        codes, lens = pad_reads(reads)
+        gv, gd = pa.DeviceScreen.build(packed, k, hlr, sim, device=dev,
+                                       **caps).screen(codes, lens)
+        cv, cd = pa.DeviceScreen.build(packed, k, hlr, sim, device="cpu",
+                                       **caps).screen(codes, lens)
+        if not (gd == cd).all() or not (gv[gd] == cv[gd]).all():
+            raise AssertionError(f"screen {name}: card differs from plain")
+        eng = tx.NativeEngine(packed, k, ref_seq_similarity=sim,
+                              hit_len_required=hlr)
+        starts = np.zeros(len(lens), np.int64)
+        starts[1:] = np.cumsum(lens[:-1])
+        flags = eng.screen_batch(np.concatenate([encode(r) for r in reads]),
+                                 starts, lens).astype(bool)
+        if not (gv[gd] == flags[gd]).all():
+            raise AssertionError(f"screen {name}: card differs from the "
+                                 "native engine")
+        if name == "overflow" and gd.any():
+            raise AssertionError("overflowing reads were decided")
+        decided += int(gd.sum())
+        screened += len(reads)
+    info["cases"] = len(screen_cases())
+    info["reads"] = screened
+    info["decided"] = decided
+
+
+# ------------------------------------------------------------- extraction
+
+def write_fastq(path: str, names, seqs: np.ndarray, quals: np.ndarray):
+    """Records from [n, L] ASCII byte arrays."""
+    with open(path, "wb") as f:
+        for name, s, q in zip(names, seqs, quals):
+            f.write(b"@%s\n%s\n+\n%s\n" % (name, s.tobytes(), q.tobytes()))
+
+
+def read_fastq_seqs(path: str, n: int):
+    seqs = []
+    with open(path, "rb") as f:
+        for i, line in enumerate(f):
+            if i % 4 == 1:
+                seqs.append(line.rstrip(b"\n"))
+                if len(seqs) == n:
+                    break
+    return seqs
+
+
+def extract_inputs(work: str, panel: str, counts=EXTRACT_PAIRS) -> str:
+    """1,000,000 read pairs of 2 x 100 bp with qualities, fixed seeds:
+    simulated on-panel pairs (two alleles from each of 8 genes), near-miss
+    pairs cut from panel alleles with 25-35% substitutions, and uniform
+    random pairs (1% of them low-complexity or N-rich), shuffled.
+    Returns the prefix of <prefix>_1.fq / <prefix>_2.fq."""
+    n_sim, n_near, n_rand = counts
+    rng = np.random.default_rng(99)
+    acgt = np.frombuffer(b"ACGTN", np.uint8)
+    comp = np.array([3, 2, 1, 0, 4], np.int8)
+    sim = os.path.join(work, "xsim")
+    simulate_reads(panel, sim, n_sim)
+    m1 = np.stack([encode(s.decode()) for s in
+                   read_fastq_seqs(sim + "_1.fq", n_sim)])
+    m2 = np.stack([encode(s.decode()) for s in
+                   read_fastq_seqs(sim + "_2.fq", n_sim)])
+
+    alleles = [encode(r[2]) for r in read_fasta(panel)]
+    ai = rng.integers(0, len(alleles), n_near)
+    flen = rng.integers(200, 351, n_near)
+    n1 = np.empty((n_near, READ_LEN), np.int8)
+    n2 = np.empty((n_near, READ_LEN), np.int8)
+    for i in range(n_near):
+        a = alleles[ai[i]]
+        st = int(rng.integers(0, len(a) - flen[i] + 1))
+        n1[i] = a[st:st + READ_LEN]
+        n2[i] = comp[a[st + flen[i] - READ_LEN:st + flen[i]][::-1]]
+    rate = rng.uniform(0.25, 0.35, n_near)[:, None]
+    for mate in (n1, n2):
+        sub = rng.random(mate.shape) < rate
+        mate[sub] = (mate[sub] + rng.integers(1, 4, int(sub.sum()))) % 4
+
+    r1 = rng.integers(0, 4, (n_rand, READ_LEN)).astype(np.int8)
+    r2 = rng.integers(0, 4, (n_rand, READ_LEN)).astype(np.int8)
+    odd = np.nonzero(rng.random(n_rand) < 0.01)[0]
+    for j, i in enumerate(odd):
+        mask = rng.random(READ_LEN) < 0.6
+        if j % 2:
+            r1[i, mask] = 0                       # one base dominates
+        else:
+            r1[i, rng.random(READ_LEN) < 0.15] = 4  # N-rich
+
+    mate1 = np.concatenate([m1, n1, r1])
+    mate2 = np.concatenate([m2, n2, r2])
+    order = rng.permutation(len(mate1))
+    quals = rng.integers(35, 74, (len(mate1), READ_LEN)).astype(np.uint8)
+    names = [b"x%d" % i for i in range(len(mate1))]
+    prefix = os.path.join(work, "x")
+    write_fastq(prefix + "_1.fq", names, acgt[mate1[order]], quals)
+    write_fastq(prefix + "_2.fq", names, acgt[mate2[order]], quals[::-1])
+    return prefix
+
+
+def stage_line(text: str, name: str) -> dict:
+    """The counters of the last `stage <name> finished` line in a log."""
+    out = None
+    for line in text.splitlines():
+        if f"stage {name} finished in " in line:
+            head, _, rest = line.partition(f"stage {name} finished in ")
+            secs, *pairs = rest.split()
+            out = {"seconds": float(secs.rstrip("s"))}
+            out.update(p.split("=", 1) for p in pairs if "=" in p)
+    if out is None:
+        raise AssertionError(f"no {name} stage line")
+    return out
+
+
+def phase_extract(dev, work: str, info: dict, counts=EXTRACT_PAIRS):
+    """Port CLI in this process vs native CLI in a child process; returns
+    the phase-A kernels' launch counts over the port's run and the reads
+    of the first 1024-row screen chunk."""
+    import io
+
+    from t1k_tpu_torch.cli import extract as cli
+    from t1k_tpu_torch.ops import phase_a as pa
+
+    panel = os.path.join(work, "panel.fa")
+    t0 = time.perf_counter()
+    prefix = extract_inputs(work, panel, counts)
+    info["inputs_s"] = f"{time.perf_counter() - t0:.1f}"
+    args = ["-f", panel, "-1", prefix + "_1.fq", "-2", prefix + "_2.fq"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "t1k_tpu.cli.extract", *args, "-o",
+         os.path.join(work, "xnative"), "--backend", "native"],
+        cwd=ROOT, env=child_env(), capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"native extraction failed:\n{proc.stderr[-4000:]}")
+    native = stage_line(proc.stderr, "extraction_screen")
+    info["native_process_s"] = f"{time.perf_counter() - t0:.2f}"
+
+    log = io.StringIO()
+    pa.launch_counts.update(phase_a_probe=0, phase_a_chain=0)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(log):
+        cli.main([*args, "-o", os.path.join(work, "xport"), "--backend",
+                  "gpu", "--device", str(dev)])
+    info["port_call_s"] = f"{time.perf_counter() - t0:.2f}"
+    launches = dict(pa.launch_counts)
+    port = stage_line(log.getvalue(), "extraction_screen")
+    for suffix in ("_1.fq", "_2.fq"):
+        with open(os.path.join(work, "xnative" + suffix), "rb") as f:
+            a = f.read()
+        with open(os.path.join(work, "xport" + suffix), "rb") as f:
+            b = f.read()
+        if a != b:
+            raise AssertionError(f"extraction {suffix} differs from the "
+                                 "native route")
+    if dev.type == "cuda" and min(launches.values()) <= 0:
+        raise AssertionError(f"a phase-A kernel never launched: {launches}")
+    screened = int(port["device_screened_reads"])
+    decided = int(port["device_decided_reads"])
+    if decided <= 0:
+        raise AssertionError("the device decided no read")
+    info["pairs"] = sum(counts)
+    info["candidates"] = port["candidate_count"]
+    info["reads_screened"] = port["read_count"]
+    info["device_screened"] = screened
+    info["device_decided"] = decided
+    info["device_decided_share"] = f"{decided / screened:.6f}"
+    info["port_stage_s"] = port["seconds"]
+    info["native_stage_s"] = native["seconds"]
+    info.update({f"{k}_launches": v for k, v in launches.items()})
+    return launches, prefix
+
+
+def phase_screen_timing(dev, check_probe: Checker,
+                        check_chain: Checker, work: str, prefix: str,
+                        info: dict):
+    """Probe and chain kernels vs their plain versions, in turns (plain,
+    kernel, kernel, plain), on the first full 1024-row chunk of the
+    extract inputs with the extractor's table and thresholds.  Returns
+    ((probe ms, plain ms), (chain ms, plain ms))."""
+    import torch
+
+    from t1k_tpu_torch.core import extractor as tx
+    from t1k_tpu_torch.ops import phase_a as pa
+
+    rs = tx.RefSet(digit_units=-1, delimiter="")
+    for name, comment, seq in read_fasta(os.path.join(work, "panel.fa")):
+        rs.add_allele(name, seq, comment)
+    k = max(tx.EXTRACTOR_KMER_LENGTH, rs.infer_kmer_length())
+    hlr = max(tx.EXTRACTOR_HIT_LEN_PAIRED, READ_LEN // 5, k)
+    index = pa.PhaseAIndex.build(rs.packed(), k, dev)
+    reads = read_fastq_seqs(prefix + "_1.fq", 1024)
+    codes, lens = pad_reads([r.decode() for r in reads])
+    codes_d = torch.from_numpy(codes).to(dev)
+    lens_d = torch.from_numpy(lens).to(dev)
+    budgets = torch.from_numpy(np.trunc(lens * 0.2).astype(np.int32)
+                               * k).to(dev)
+    cuda = dev.type == "cuda"
+    got = (pa.probe_cuda if cuda else pa.probe_plain)(codes_d, lens_d, index)
+    want = pa.probe_plain(codes_d, lens_d, index)
+    for g, w in zip(got, want):
+        check_probe(g, w, "probe chunk")
+    total = int(got[2].sum())
+    a, b, nb, _, _ = pa.expand_buckets(got[0], got[1], total, index, hlr,
+                                       512)
+    kw = dict(k=k, radius=10, hit_len_required=hlr)
+    chain_k = pa.chain_rows_cuda if cuda else pa.chain_rows
+
+    def chain_plain():
+        core, budget = pa.chain_rows_plain(a, b, nb, lens_d, budgets, **kw)
+        return torch.stack([(core & budget).any(dim=1),
+                            core.any(dim=1)]).to(torch.int32)
+
+    check_chain(chain_k(a, b, nb, lens_d, budgets, **kw), chain_plain(),
+                "chain chunk")
+    out = []
+    for kernel, plain in (
+            (lambda: (pa.probe_cuda if cuda else pa.probe_plain)(
+                codes_d, lens_d, index),
+             lambda: pa.probe_plain(codes_d, lens_d, index)),
+            (lambda: chain_k(a, b, nb, lens_d, budgets, **kw), chain_plain)):
+        plain_ms = [time_ms(plain, 1, dev)]
+        kernel_ms = [time_ms(kernel, 20, dev), time_ms(kernel, 20, dev)]
+        plain_ms.append(time_ms(plain, 1, dev))
+        out.append((kernel_ms, plain_ms))
+    info["k"] = k
+    info["hits"] = total
+    info["max_nb"] = int(nb.max())
+    for name, (kernel_ms, plain_ms) in zip(("probe", "chain"), out):
+        info[f"{name}_ms"] = " ".join(f"{t:.4f}" for t in kernel_ms)
+        info[f"{name}_plain_ms"] = " ".join(f"{t:.2f}" for t in plain_ms)
+    return tuple((float(np.mean(km)), float(np.mean(pm))) for km, pm in out)
+
+
+KERNELS = ("band_stats", "em_squarem", "align_full", "phase_a_probe",
+           "phase_a_chain")
+
+
+def run(dev, sizes: dict) -> list:
+    """Every phase after `card` on `dev`; returns the kernels' records."""
+    import torch
+
+    from t1k_tpu_torch.ops import _build
+
+    checks = {name: Checker() for name in KERNELS}
+    cuda = dev.type == "cuda"
+    if cuda:
+        with phase("build") as info:
+            t0 = time.perf_counter()
+            _build.build_all(KERNELS)
+            info["all_s"] = f"{time.perf_counter() - t0:.2f}"
+            for name in KERNELS:
+                with open(os.path.join(_build.BUILD_DIR, f"{name}.log")) as f:
+                    lines = f.read().splitlines()
+                info[f"{name}_s"] = lines[1]
+                for line in lines:
+                    if "registers" in line or "spill" in line:
+                        print(f"  ptxas {name}:", line.strip(), flush=True)
+    with phase("kernel") as info:
+        phase_kernel(dev, checks["band_stats"], sizes["random_items"], info)
+        cuda and torch.cuda.synchronize()
+    with phase("em") as info:
+        em_err, em_ms, em_plain_ms = phase_em(dev, *sizes["em"], info)
+    with phase("v1") as info:
+        v1_launches, v1_ms, v1_plain_ms = phase_v1(
+            dev, checks["align_full"], sizes["v1_pairs"], info)
+    with phase("screen") as info:
+        phase_screen(dev, info)
+    with tempfile.TemporaryDirectory(prefix="t1k_smoke_") as work:
+        with phase("main") as info:
+            launches = phase_main(dev, work, PANEL_GENES, PANEL_COPIES,
+                                  sizes["sim_pairs"], info)
+        with phase("timing") as info:
+            band_ms, band_plain_ms = phase_timing(
+                dev, checks["band_stats"], work, 8192, info)
+        with phase("extract") as info:
+            pa_launches, prefix = phase_extract(dev, work, info,
+                                                sizes["extract"])
+        with phase("screen_timing") as info:
+            (probe_ms, probe_plain), (chain_ms, chain_plain) = \
+                phase_screen_timing(dev, checks["phase_a_probe"],
+                                    checks["phase_a_chain"], work, prefix,
+                                    info)
+    launches.update(pa_launches, align_full=v1_launches)
+    times = {"band_stats": (band_ms, band_plain_ms),
+             "em_squarem": (em_ms, em_plain_ms),
+             "align_full": (v1_ms, v1_plain_ms),
+             "phase_a_probe": (probe_ms, probe_plain),
+             "phase_a_chain": (chain_ms, chain_plain)}
+    replaces = {"band_stats": "t1k_tpu/ops/align_pallas_band.py:55",
+                "em_squarem": "t1k_tpu/ops/em.py:213",
+                "align_full": "t1k_tpu/ops/align_pallas.py:44",
+                "phase_a_probe": "t1k_tpu/ops/phase_a.py:343",
+                "phase_a_chain": "t1k_tpu/ops/phase_a.py:457"}
+    errs = {name: checks[name].max_err for name in KERNELS}
+    errs["em_squarem"] = em_err
+    return [{"name": name, "route": "cuda",
+             "source": f"t1k_tpu_torch/csrc/{name}.cu",
+             "replaces": replaces[name], "launches": launches[name],
+             "max_abs_err": errs[name], "ms": times[name][0],
+             "plain_ms": times[name][1]} for name in KERNELS]
+
+
+FULL_SIZES = dict(random_items=RANDOM_ITEMS, em=(EM_RG, EM_EC),
+                  v1_pairs=V1_PAIRS, sim_pairs=SIM_PAIRS,
+                  extract=EXTRACT_PAIRS)
+
+
 def main() -> int:
     import torch
 
@@ -457,55 +974,16 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
-    from t1k_tpu_torch.ops import _build
-    from t1k_tpu_torch.ops import align_band as ab
-    from t1k_tpu_torch.ops import em
-
-    dev = torch.device("cuda")
-    check = Checker()
     with phase("card") as info:
         print(card_line(), flush=True)
         info["torch"] = torch.__version__
         info["cuda"] = torch.version.cuda
         info["python"] = sys.version.split()[0]
-    with phase("build") as info:
-        for name, lib in (("band_stats", ab._kernel_lib),
-                          ("em_squarem", em._kernel_lib)):
-            t0 = time.perf_counter()
-            lib()
-            info[f"{name}_s"] = f"{time.perf_counter() - t0:.2f}"
-            with open(os.path.join(_build.BUILD_DIR, f"{name}.log")) as f:
-                for line in f:
-                    if "registers" in line or "spill" in line:
-                        print(f"  ptxas {name}:", line.strip(), flush=True)
-    with phase("kernel") as info:
-        phase_kernel(dev, check, RANDOM_ITEMS, info)
-        torch.cuda.synchronize()
-    with phase("em") as info:
-        em_err, em_ms, em_plain_ms = phase_em(dev, EM_RG, EM_EC, info)
-    with tempfile.TemporaryDirectory(prefix="t1k_smoke_") as work:
-        with phase("main") as info:
-            launches = phase_main(dev, work, PANEL_GENES, PANEL_COPIES,
-                                  SIM_PAIRS, info)
-        with phase("timing") as info:
-            kernel_ms, plain_ms = phase_timing(dev, check, work, 8192, info)
-
+    kernels = run(torch.device("cuda"), FULL_SIZES)
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
     print(card_line())
-    print(json.dumps({"kernels": [{
-        "name": "band_stats", "route": "cuda",
-        "source": "t1k_tpu_torch/csrc/band_stats.cu",
-        "replaces": "t1k_tpu/ops/align_pallas_band.py:55",
-        "launches": launches["band_stats"], "max_abs_err": check.max_err,
-        "ms": kernel_ms, "plain_ms": plain_ms,
-    }, {
-        "name": "em_squarem", "route": "cuda",
-        "source": "t1k_tpu_torch/csrc/em_squarem.cu",
-        "replaces": "t1k_tpu/ops/em.py:213",
-        "launches": launches["em_squarem"], "max_abs_err": em_err,
-        "ms": em_ms, "plain_ms": em_plain_ms,
-    }]}))
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

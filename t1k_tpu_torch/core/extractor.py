@@ -1,0 +1,273 @@
+"""Candidate-read extraction on PyTorch / CUDA (the reference
+`fastq-extractor` stage, FastqExtractor.cpp).
+
+Counterpart of ``t1k_tpu/core/extractor.py``: the same streaming ingest,
+hit-length and k-mer rules, low-complexity filter, range slicing and
+barcode correction, with the device screen built from this package's
+``ops.phase_a.DeviceScreen`` on a torch device.  The host-only pieces
+(``low_complexity_flags``, ``screen_flags``, ``ExtractorOptions``,
+``_slice``, the barcode corrector) are imported as they are.
+
+Backends: "native" screens every read on the host engine; "gpu" screens
+on ``opts.device`` from the first batch (a CUDA card, or the CPU through
+the kernels' plain versions); "auto" switches to the device once
+T1K_SCREEN_DEVICE_MIN_READS (default 2,000,000) reads have streamed
+through and a card is present.  Every route writes byte-identical outputs.
+"""
+
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass
+from typing import List, Optional
+
+import numpy as np
+
+from t1k_tpu.constants import (
+    EXTRACTOR_HIT_LEN_PAIRED,
+    EXTRACTOR_HIT_LEN_SINGLE,
+    EXTRACTOR_KMER_LENGTH,
+    encode_seq,
+)
+from t1k_tpu.core.barcode import BarcodeCorrector, format_barcode
+from t1k_tpu.core.extractor import ExtractorOptions as _HostOptions
+from t1k_tpu.core.extractor import _slice, screen_flags
+from t1k_tpu.io.reads import SeqRecord, read_seq_file, read_seq_files
+from t1k_tpu.io.refset import RefSet
+from t1k_tpu.native import NativeEngine
+from t1k_tpu.utils.observability import stage
+
+from ..device import gpu_present, resolve_device
+
+
+@dataclass
+class ExtractorOptions(_HostOptions):
+    """The reference options plus the torch device of the gpu route.
+    `backend` takes "auto", "native" or "gpu"."""
+    device: str = "cuda"
+
+
+# Reads streamed before "auto" engages the card: the JAX package's default.
+DEVICE_MIN_READS = 2_000_000
+
+
+def lazy_device_screen(backend: str, build):
+    """Size-gated lazy device-screen factory (the JAX package's, with the
+    card's presence test).  Returns get(n_new) -> DeviceScreen-or-None:
+    with backend "auto" the device engages once T1K_SCREEN_DEVICE_MIN_READS
+    (default DEVICE_MIN_READS) reads have streamed through and a card is
+    present, since the set-up only pays off on large inputs; the switch
+    is safe mid-run because both routes are byte-identical.  Backend
+    "gpu" builds the screen at the first call.  `build` runs at most
+    once."""
+    state = {"screen": None, "checked": False, "reads": 0}
+    dev_min = int(os.environ.get("T1K_SCREEN_DEVICE_MIN_READS",
+                                 str(DEVICE_MIN_READS)))
+
+    def get(n_new: int):
+        if not state["checked"] and (
+                backend == "gpu"
+                or (backend == "auto" and state["reads"] >= dev_min)):
+            state["checked"] = True
+            if backend == "gpu" or gpu_present():
+                state["screen"] = build()
+        state["reads"] += n_new
+        return state["screen"]
+
+    return get
+
+
+def run_extractor(
+    ref_fasta: str,
+    reads1: List[str],
+    reads2: Optional[List[str]],
+    output_prefix: str,
+    opts: Optional[ExtractorOptions] = None,
+    interleaved: bool = False,
+) -> dict:
+    """Returns counts: {"total": n, "candidates": m}."""
+    opts = opts or ExtractorOptions()
+    if opts.backend not in ("auto", "native", "gpu"):
+        raise ValueError(f"unknown screen backend {opts.backend!r}")
+    has_mate = reads2 is not None or interleaved
+
+    # The extractor indexes every allele record without dedupe
+    # (reference InputRefFa, SeqSet.hpp:872-904).
+    refset = RefSet(digit_units=-1, delimiter="")
+    for rec in read_seq_file(ref_fasta):
+        refset.add_allele(rec.id, rec.seq, rec.comment)
+    packed = refset.packed()
+
+    # Streaming ingest in bounded chunks (FastqExtractor.cpp:483-567).
+    BATCH = int(os.environ.get("T1K_EXTRACT_BATCH", "65536"))
+
+    if interleaved:
+        it1 = read_seq_files(reads1, interleaved_id=1)
+        it2 = read_seq_files(reads1, interleaved_id=2)
+    else:
+        it1 = read_seq_files(reads1)
+        it2 = read_seq_files(reads2) if reads2 else None
+
+    first1: List[SeqRecord] = []
+    for rec in it1:
+        first1.append(rec)
+        if len(first1) >= BATCH:
+            break
+
+    # hit-length threshold from a 1000-read sample (FastqExtractor.cpp:390-407)
+    hit_len = EXTRACTOR_HIT_LEN_PAIRED if has_mate else EXTRACTOR_HIT_LEN_SINGLE
+    sample = first1[:1000]
+    if not sample:
+        raise ValueError("read file is empty")
+    total_len = sum(len(r.seq) for r in sample)
+    if total_len // (len(sample) * 5) > hit_len:
+        hit_len = total_len // (len(sample) * 5)
+
+    kmer_length = EXTRACTOR_KMER_LENGTH
+    inferred = refset.infer_kmer_length()
+    if inferred > kmer_length:
+        kmer_length = inferred
+        if kmer_length > hit_len:
+            hit_len = kmer_length
+
+    engine = NativeEngine(
+        packed, kmer_length,
+        ref_seq_similarity=opts.ref_seq_similarity,
+        hit_len_required=hit_len,
+        threads=opts.threads,
+    )
+
+    corrector = None
+    bc_iter = None
+    has_bc = bool(opts.barcode_file)
+    if has_bc:
+        bc_files = (opts.barcode_file
+                    if isinstance(opts.barcode_file, (list, tuple))
+                    else [opts.barcode_file])
+        if opts.barcode_whitelist:
+            corrector = BarcodeCorrector()
+            corrector.set_whitelist(opts.barcode_whitelist)
+            corrector.collect_background(
+                (r.seq for r in read_seq_files(bc_files)),
+                opts.barcode_start, opts.barcode_end, opts.barcode_revcomp)
+        bc_iter = read_seq_files(bc_files)
+
+    # Device screen: the exact extraction screen (k-mer hits, diagonal
+    # clustering, LIS chaining, the mismatch-budget test) on the torch
+    # device; reads past its caps fall back to the native engine, so the
+    # output is byte-identical by construction.
+    def _build():
+        from ..ops.phase_a import DeviceScreen
+        return DeviceScreen.build(packed, kmer_length, hit_len,
+                                  opts.ref_seq_similarity,
+                                  device=resolve_device(opts.device))
+
+    get_screen = lazy_device_screen(opts.backend, _build)
+    used = []  # the device screen, once it has engaged
+
+    def screen(recs: List[SeqRecord]) -> np.ndarray:
+        n = len(recs)
+        if n == 0:
+            return np.zeros(0, dtype=np.uint8)
+        device_screen = get_screen(n)
+        if device_screen is not None and not used:
+            used.append(device_screen)
+        codes_cat = encode_seq("".join(r.seq for r in recs))
+        lens_all = np.array([len(r.seq) for r in recs], dtype=np.int64)
+        starts_all = np.zeros(n, dtype=np.int64)
+        np.cumsum(lens_all[:-1], out=starts_all[1:])
+        hits, _ = screen_flags(codes_cat, lens_all, starts_all,
+                               device_screen, engine)
+        return hits.astype(np.uint8)
+
+    if has_mate:
+        f1 = open(f"{output_prefix}_1.fq", "w")
+        f2 = open(f"{output_prefix}_2.fq", "w")
+    else:
+        f1 = open(f"{output_prefix}.fq", "w")
+        f2 = None
+    fbc = open(f"{output_prefix}_bc.fa", "w") if has_bc else None
+
+    def write_rec(f, name: str, rec: SeqRecord, start: int, end: int):
+        seq = _slice(rec.seq, start, end)
+        qual = _slice(rec.qual, start, end)
+        if qual is None:
+            f.write(f">{name}\n{seq}\n")
+        else:
+            f.write(f"@{name}\n{seq}\n+\n{qual}\n")
+
+    n_total = 0
+    n_out = 0
+    try:
+        with stage("extraction_screen") as st:
+            chunk1 = first1
+            while chunk1:
+                chunk2 = None
+                if it2 is not None:
+                    chunk2 = []
+                    for rec2 in it2:
+                        chunk2.append(rec2)
+                        if len(chunk2) >= len(chunk1):
+                            break
+                bc_chunk = None
+                if bc_iter is not None:
+                    bc_chunk = []
+                    for recb in bc_iter:
+                        bc_chunk.append(recb)
+                        if len(bc_chunk) >= len(chunk1):
+                            break
+
+                good = screen(chunk1)
+                if chunk2 is not None:
+                    # mate 2 only where mate 1 failed (either-mate rule)
+                    failed = [i for i in range(len(chunk2)) if not good[i]]
+                    if failed:
+                        sub_flags = screen([chunk2[i] for i in failed])
+                        for j, i in enumerate(failed):
+                            if sub_flags[j]:
+                                good[i] = 1
+
+                for i, keep in enumerate(good):
+                    if not keep:
+                        continue
+                    n_out += 1
+                    write_rec(f1, chunk1[i].id, chunk1[i],
+                              opts.read1_start, opts.read1_end)
+                    if f2 is not None:
+                        write_rec(f2, chunk1[i].id, chunk2[i],
+                                  opts.read2_start, opts.read2_end)
+                    if fbc is not None:
+                        raw = bc_chunk[i].seq
+                        if raw:
+                            bc = format_barcode(raw, opts.barcode_start,
+                                                opts.barcode_end,
+                                                opts.barcode_revcomp)
+                            if corrector is not None:
+                                bc = corrector.correct(bc, bc_chunk[i].qual)
+                            # only an uncorrectable barcode becomes
+                            # missing_barcode; a raw barcode sliced to
+                            # empty is an empty line (FastqExtractor.cpp:
+                            # 157-199)
+                            fbc.write(f">{chunk1[i].id}\n"
+                                      f"{bc if bc is not None else 'missing_barcode'}\n")
+                        else:
+                            fbc.write(f">{chunk1[i].id}\nmissing_barcode\n")
+
+                n_total += len(chunk1)
+                chunk1 = []
+                for rec in it1:
+                    chunk1.append(rec)
+                    if len(chunk1) >= BATCH:
+                        break
+            st["read_count"] = n_total
+            st["candidate_count"] = n_out
+            if used:
+                st["device_screened_reads"] = used[0].screened
+                st["device_decided_reads"] = used[0].decided
+    finally:
+        f1.close()
+        if f2 is not None:
+            f2.close()
+        if fbc is not None:
+            fbc.close()
+    return {"total": n_total, "candidates": n_out}

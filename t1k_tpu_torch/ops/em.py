@@ -187,12 +187,16 @@ def squarem_plain(rg_off, rg_ecs, rg_counts, col_off, col_rgs, ec_off,
         x2, _ = em_update(x1)
         r = x1 - x0
         v = x2 - 2 * x1 + x0
-        sum_r, sum_v = _seq_sum(r * r), _seq_sum(v * v)
-        alpha = torch.where(sum_v == 0, -1.0,
-                            -torch.sqrt(sum_r) / torch.sqrt(sum_v))
-        if min_squarem_alpha < 0:
-            alpha = torch.where(alpha < min_squarem_alpha,
-                                min_squarem_alpha, alpha)
+        # alpha's square roots on the host: torch's CPU sqrt of a 0-dim
+        # tensor is not always correctly rounded; em.cc's std::sqrt and the
+        # kernel's sqrt are
+        ft = np.float64 if dtype == torch.float64 else np.float32
+        sum_r = ft(_seq_sum(r * r).item())
+        sum_v = ft(_seq_sum(v * v).item())
+        a = ft(-1.0) if sum_v == 0 else -np.sqrt(sum_r) / np.sqrt(sum_v)
+        if min_squarem_alpha < 0 and float(a) < min_squarem_alpha:
+            a = ft(min_squarem_alpha)
+        alpha = torch.tensor(a, dtype=dtype, device=device)
         x3 = x0 - 2 * alpha * (x1 - x0) + alpha * alpha * (x2 - 2 * x1 + x0)
         x1b, count = em_update(x3)
         diff = float(_seq_sum(torch.abs(x1b - x0)))  # the round's host sync
