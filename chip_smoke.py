@@ -24,7 +24,12 @@ Phases, in order; any failure raises and the exit code is non-zero:
                    version on the CPU (verdict and decided) and the native
                    engine (every decided read) on seeded panels: random
                    panels, the skip heuristic, tandem repeats, the k=13
-                   hashed table, edge cases, overflow
+                   hashed table, edge cases, overflow; then the probe and
+                   chain kernels at their edges, exact against their
+                   plain versions: reads of 13, 44, 45, 76, 100, 150 and
+                   4095 bases for k = 12 (direct) and k = 13 (hashed), and
+                   seed rows of 0, 1, 31, 32, 33, 63, 64, 65, 128 and 512
+                   seeds, one kind on a single diagonal
   7. main          the genotyper stage at HLA scale (24 genes x 240
                    alleles, 12,000 read pairs of 100 bp) through
                    t1k_tpu_torch.cli.genotype --backend gpu --emBackend
@@ -45,8 +50,10 @@ Phases, in order; any failure raises and the exit code is non-zero:
                    device must decide a share of the screened reads
  10. screen_timing probe and chain kernels vs their plain versions, in
                    turns, on one full 1024-row chunk of the extract inputs
-Then the card line, one JSON line describing the kernels, and
-{"ok": true, "device": {...}} as the last line.  Work files go to a
+Then the card line, one JSON line describing the kernels (times, launches
+on the main path, the bound each could reach on the card and what sets
+it; no single PyTorch call computes any of them, so library_ms is null),
+and {"ok": true, "device": {...}} as the last line.  Work files go to a
 temporary directory that is removed at exit.
 """
 
@@ -217,7 +224,10 @@ def random_items(n: int, rng, max_diff: int = 10):
 
 def time_ms(fn, reps: int, dev) -> float:
     """Mean milliseconds of `fn` over `reps` calls: CUDA events on a card,
-    the host clock on the CPU (rehearsals only)."""
+    the host clock on the CPU (rehearsals only).  On the card a spin
+    kernel (about 25 ms) runs first, so the host has queued the calls
+    before the start event is passed and the time is the card's, not the
+    host's launch rate, wherever `fn` does not wait on the card."""
     import torch
 
     if dev.type != "cuda":
@@ -228,12 +238,55 @@ def time_ms(fn, reps: int, dev) -> float:
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    torch.cuda._sleep(50_000_000)
     start.record()
     for _ in range(reps):
         fn()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+# Peak rates of one H100 SXM (NVIDIA's data sheet) for the bounds: HBM3
+# bytes/s, f64 outside the tensor cores, and int32 issue as 132 SMs x 64
+# INT32 lanes x the SM clock (read from the card, 1980 MHz on the CPU).
+HBM_BYTES_PER_S = 3.35e12
+F64_PER_S = 34e12
+# int32 operations per DP cell counted for the aligners' bounds: the
+# affine recurrences (two adds and a max for each of E and F, an add and
+# two maxes for H) and the substitution compare-select; the stats
+# kernel's count propagation is left out, so those bounds are low
+DP_OPS_PER_CELL = 12
+
+
+def int32_per_s() -> float:
+    try:
+        mhz = float(subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.max.sm",
+             "--format=csv,noheader,nounits"], check=True,
+            capture_output=True, text=True).stdout.split()[0])
+    except (OSError, subprocess.CalledProcessError, IndexError, ValueError):
+        mhz = 1980.0
+    return 132 * 64 * mhz * 1e6
+
+
+def bound(n_bytes: float, n_ops: float, ops_per_s: float):
+    """(bound_ms, bound_by): the larger of the bytes over the memory rate
+    and the operations over their peak rate."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def dp_bound(t_lens, p_lens, other_bytes: float):
+    """Bound of a banded aligner over pairs: each pair's text and pattern
+    read once plus `other_bytes`, DP_OPS_PER_CELL per band cell (the band
+    is 11 + |t_len - p_len| wide)."""
+    tl = np.asarray(t_lens, np.int64)
+    pl = np.asarray(p_lens, np.int64)
+    cells = int((pl * (11 + np.abs(tl - pl))).sum())
+    return bound(int((tl + pl).sum()) + other_bytes, DP_OPS_PER_CELL * cells,
+                 int32_per_s())
 
 
 class Checker:
@@ -301,10 +354,10 @@ def phase_kernel(dev, check: Checker, n_random: int, info: dict) -> None:
 
 
 def phase_em(dev, n_rg: int, n_ec: int, info: dict):
-    """Returns (max |kernel - plain|, kernel ms, plain ms)."""
+    """Returns (max |kernel - plain|, kernel ms, plain ms, bound)."""
     import torch
 
-    from t1k_tpu_torch.core.genotyper import em_quantify
+    from t1k_tpu_torch.native import em_quantify
     from t1k_tpu_torch.ops import em
 
     rng = np.random.default_rng(5)
@@ -360,7 +413,16 @@ def phase_em(dev, n_rg: int, n_ec: int, info: dict):
     info["kernel_ms"] = " ".join(f"{t:.3f}" for t in kernel_ms)
     info["plain_ms"] = " ".join(f"{t:.1f}" for t in plain_ms)
     info["native_ms"] = f"{t_native * 1e3:.3f}"
-    return err, float(np.mean(kernel_ms)), float(np.mean(plain_ms))
+    # f64 operations per round: three EM updates of about 4 per incidence
+    # (the group sum, then a divide, multiply and add per EC count) and 3
+    # per EC, plus the extrapolation's and convergence test's 14 per EC;
+    # bytes: the tables once and the counts out
+    nnz, n_ecs = len(tables["rg_ecs"]), len(tables["ec_len"])
+    flops = it_k * (3 * (4 * nnz + 3 * n_ecs) + 14 * n_ecs)
+    n_bytes = sum(v.nbytes for v in tables.values()
+                  if isinstance(v, np.ndarray)) + 8 * n_ecs
+    return (err, float(np.mean(kernel_ms)), float(np.mean(plain_ms)),
+            bound(n_bytes, flops, F64_PER_S))
 
 
 def phase_main(dev, work: str, n_genes: int, copies: int, n_pairs: int,
@@ -434,7 +496,7 @@ def phase_timing(dev, check: Checker, work: str, n_reads: int,
                  info: dict):
     """Kernel vs plain version, in turns (plain, kernel, kernel, plain), on
     the largest batch of deferred items one engine chunk of the main path
-    sends.  Returns (kernel ms, plain ms)."""
+    sends.  Returns (kernel ms, plain ms, bound)."""
     import torch
 
     from t1k_tpu_torch.core import pipeline as tp
@@ -472,7 +534,9 @@ def phase_timing(dev, check: Checker, work: str, n_reads: int,
     info["items"] = int(d.shape[1])
     info["kernel_ms"] = " ".join(f"{t:.4f}" for t in kernel_ms)
     info["plain_ms"] = " ".join(f"{t:.2f}" for t in plain_ms)
-    return float(np.mean(kernel_ms)), float(np.mean(plain_ms))
+    # descriptors in (4 x int64), scores and packed counts out (2 x int32)
+    return (float(np.mean(kernel_ms)), float(np.mean(plain_ms)),
+            dp_bound(rec.largest[1], rec.largest[3], 40 * d.shape[1]))
 
 
 # ------------------------------------------------------------- v1 aligner
@@ -500,7 +564,7 @@ def seeded_v1_pairs(n: int, rng):
 
 
 def phase_v1(dev, check: Checker, n_pairs: int, info: dict):
-    """Returns (main-path launches, kernel ms, plain ms)."""
+    """Returns (main-path launches, kernel ms, plain ms, bound)."""
     from t1k_tpu_torch.ops import align as v1
     from t1k_tpu_torch.ops import align_band as ab
 
@@ -545,7 +609,12 @@ def phase_v1(dev, check: Checker, n_pairs: int, info: dict):
     info["launches"] = launches
     info["kernel_ms"] = " ".join(f"{t:.4f}" for t in kernel_ms)
     info["plain_ms"] = " ".join(f"{t:.2f}" for t in plain_ms)
-    return launches, float(np.mean(kernel_ms)), float(np.mean(plain_ms))
+    # the padded windows are what the kernel is given; lens in, scores out
+    return (launches, float(np.mean(kernel_ms)), float(np.mean(plain_ms)),
+            bound(tc.nbytes + pc.nbytes + 12 * len(tl),
+                  DP_OPS_PER_CELL * int((pl.astype(np.int64) * (
+                      11 + np.abs(tl.astype(np.int64) - pl))).sum()),
+                  int32_per_s()))
 
 
 # --------------------------------------------------------- phase-A screen
@@ -684,6 +753,119 @@ def phase_screen(dev, info: dict) -> None:
     info["cases"] = len(screen_cases())
     info["reads"] = screened
     info["decided"] = decided
+
+
+EDGE_LENGTHS = (13, 44, 45, 76, 100, 150, 4095)   # 4095: MAX_READ_LEN - 1
+EDGE_WIDTHS = (0, 1, 31, 32, 33, 63, 64, 65, 128, 512)
+
+
+def edge_tiles(rng, B: int = 512):
+    """Seed tiles at the chain kernel's edges: rows of EDGE_WIDTHS seeds,
+    random, clustered on a few diagonals, tandem-repeat chains (repeated
+    b), and seeds that all share one diagonal, shuffled within the row.
+    Returns a, b int32 [NR, B], nb, lens, budgets int32 [NR]."""
+    rows = []
+    for nb in EDGE_WIDTHS:
+        for kind in range(4):
+            a = np.sort(rng.choice(4000, nb, replace=False))
+            if kind == 0:
+                b = rng.integers(0, 1 << 20, nb)
+            elif kind == 1:
+                diag = rng.integers(-3000, 3000, 3)[rng.integers(0, 3, nb)]
+                b = a + 5000 + diag + rng.integers(-4, 5, nb)
+            elif kind == 2:
+                b = a + 700 + 25 * rng.integers(0, 3, nb)
+            else:
+                b = a + 1234
+            rows.append((a, np.maximum(b, 0)))
+    at = np.zeros((len(rows), B), np.int32)
+    bt = np.zeros((len(rows), B), np.int32)
+    nb = np.zeros(len(rows), np.int32)
+    for r, (a, b) in enumerate(rows):
+        perm = rng.permutation(len(a))
+        at[r, :len(a)], bt[r, :len(a)], nb[r] = a[perm], b[perm], len(a)
+    lens = rng.integers(100, 4096, len(rows)).astype(np.int32)
+    budgets = rng.integers(0, 600, len(rows)).astype(np.int32)
+    return at, bt, nb, lens, budgets
+
+
+def phase_screen_edges(dev, check_probe: Checker, check_chain: Checker,
+                       info: dict) -> None:
+    """The warp kernels at their edges, each against its plain version on
+    the same device: the probe on reads of EDGE_LENGTHS for k = 12 (direct
+    table) and k = 13 (hashed), batch by batch so each length sets the
+    padded width (the screen of the same reads is held against the native
+    engine too); the chain on edge_tiles at radius 10 and 0."""
+    import torch
+
+    from t1k_tpu_torch.core import extractor as tx
+    from t1k_tpu_torch.ops import phase_a as pa
+
+    cuda = dev.type == "cuda"
+    rng = np.random.default_rng(4242)
+    base = rand_seq(rng, 4600)
+    seqs = [mutate(rng, base, 0.01).replace("N", "A") for _ in range(6)]
+    seqs += [rand_seq(rng, 4600) for _ in range(2)]
+    rs = tx.RefSet(digit_units=-1, delimiter="")
+    for i, s in enumerate(seqs):
+        rs.add_allele(f"G{i % 3}*{i:03d}", s, None)
+    packed = rs.packed()
+    n_reads = 0
+    for k in (12, 13):
+        index = pa.PhaseAIndex.build(packed, k, dev)
+        if index.direct != (k <= 12):
+            raise AssertionError(f"k={k}: wrong table form")
+        plain_index = pa.PhaseAIndex.build(packed, k, "cpu")
+        card = pa.DeviceScreen(index, 23, 0.8)
+        host = pa.DeviceScreen(plain_index, 23, 0.8)
+        eng = tx.NativeEngine(packed, k, ref_seq_similarity=0.8,
+                              hit_len_required=23)
+        for L in EDGE_LENGTHS:
+            reads = []
+            for i in range(40):
+                st = int(rng.integers(0, len(base) - L + 1))
+                r = mutate(rng, seqs[i % 8][st:st + L], 0.02)
+                reads.append(revcomp(r) if i % 3 == 0 else
+                             r[:int(rng.integers(k, L + 1))] if i % 3 == 1
+                             else r)
+            codes, lens = pad_reads(reads)
+            codes_d = torch.from_numpy(codes).to(dev)
+            lens_d = torch.from_numpy(lens).to(dev)
+            got = (pa.probe_cuda if cuda else pa.probe_plain)(
+                codes_d, lens_d, index)
+            want = pa.probe_plain(torch.from_numpy(codes),
+                                  torch.from_numpy(lens), plain_index)
+            for g, w in zip(got, want):
+                check_probe(g.cpu(), w, f"probe k={k} L={L}")
+            gv, gd = card.screen(codes, lens)
+            cv, cd = host.screen(codes, lens)
+            starts = np.zeros(len(lens), np.int64)
+            starts[1:] = np.cumsum(lens[:-1])
+            flags = eng.screen_batch(
+                np.concatenate([encode(r) for r in reads]), starts,
+                lens).astype(bool)
+            if not ((gd == cd).all() and (gv[gd] == cv[gd]).all()
+                    and (gv[gd] == flags[gd]).all()):
+                raise AssertionError(f"screen k={k} L={L}: card, plain and "
+                                     "native engine disagree")
+            n_reads += len(reads)
+    rows = 0
+    for k in (9, 13):
+        tiles = edge_tiles(np.random.default_rng(k))
+        t_dev = [torch.from_numpy(x).to(dev) for x in tiles]
+        t_cpu = [torch.from_numpy(x) for x in tiles]
+        for radius in (10, 0):
+            for hlr in (23, 60):
+                kw = dict(k=k, radius=radius, hit_len_required=hlr)
+                core, budget = pa.chain_rows_plain(*t_cpu, **kw)
+                want = torch.stack([(core & budget).any(dim=1),
+                                    core.any(dim=1)]).to(torch.int32)
+                got = (pa.chain_rows_cuda if cuda else pa.chain_rows)(
+                    *t_dev, **kw)
+                check_chain(got.cpu(), want, f"chain tiles {kw}")
+                rows += len(tiles[2])
+    info["edge_reads"] = n_reads
+    info["edge_rows"] = rows
 
 
 # ------------------------------------------------------------- extraction
@@ -832,13 +1014,68 @@ def phase_extract(dev, work: str, info: dict, counts=EXTRACT_PAIRS):
     return launches, prefix
 
 
+def kernel_us(fn, kernel: str, reps: int):
+    """Mean device microseconds of the CUDA kernels whose name contains
+    `kernel` over `reps` calls of `fn`, from torch.profiler (None where
+    the profiler shows no device time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = count = 0
+    for ev in prof.key_averages():
+        if kernel in ev.key:
+            total += getattr(ev, "device_time_total",
+                             getattr(ev, "cuda_time_total", 0))
+            count += ev.count
+    return total / count if count and total else None
+
+
+def probe_bound(codes: np.ndarray, lens: np.ndarray, index):
+    """Bound of one probe launch.  Bytes: codes and lens in, contrib and
+    cstart (int32 [R, 2W]) and tot out, and one table entry for each
+    distinct valid window code of the chunk (starts[c] and starts[c+1]
+    direct; key, hstart and hcount hashed).  Operations: 15 int32 per
+    window and strand (rolling code, hash, compare, the scan's tests)."""
+    R, L = codes.shape
+    k = index.k
+    W = L - k + 1
+    c = codes.astype(np.int64)
+    j = lens.astype(np.int64)[:, None] - 1 - np.arange(L)[None, :]
+    rcb = np.take_along_axis(c, np.clip(j, 0, None), 1)
+    rc = np.where(j >= 0, np.where(rcb < 4, 3 - rcb, rcb), 4)
+    win = np.lib.stride_tricks.sliding_window_view(
+        np.concatenate([c, rc]), k, axis=1)
+    code = (np.minimum(win, 3) * 4 ** np.arange(k - 1, -1, -1)).sum(axis=2)
+    distinct = np.unique(code[(win < 4).all(axis=2)]).size
+    n_bytes = (codes.nbytes + 8 * R + 16 * R * W
+               + distinct * (8 if index.direct else 12))
+    return bound(n_bytes, 15 * 2 * R * W, int32_per_s())
+
+
+def chain_bound(nb: np.ndarray):
+    """Bound of one chain launch.  Bytes: each row's nb seeds (a and b,
+    8 bytes each), nb, lens and budgets in, two int32 flags out.
+    Operations: three comparison sorts of each row's seeds (n log2 n
+    compare-exchanges of int64 keys, 2 int32 operations each) and 20 per
+    seed for the linear passes and the LIS."""
+    n = nb.astype(np.int64)
+    logn = np.ceil(np.log2(np.maximum(n, 2)))
+    ops = float((3 * 2 * n * logn + 20 * n).sum())
+    return bound(8 * float(n.sum()) + 20 * len(n), ops, int32_per_s())
+
+
 def phase_screen_timing(dev, check_probe: Checker,
                         check_chain: Checker, work: str, prefix: str,
                         info: dict):
     """Probe and chain kernels vs their plain versions, in turns (plain,
     kernel, kernel, plain), on the first full 1024-row chunk of the
     extract inputs with the extractor's table and thresholds.  Returns
-    ((probe ms, plain ms), (chain ms, plain ms))."""
+    ((probe ms, plain ms, bound), (chain ms, plain ms, bound))."""
     import torch
 
     from t1k_tpu_torch.core import extractor as tx
@@ -874,23 +1111,33 @@ def phase_screen_timing(dev, check_probe: Checker,
 
     check_chain(chain_k(a, b, nb, lens_d, budgets, **kw), chain_plain(),
                 "chain chunk")
+    def out_probe():
+        return (pa.probe_cuda if cuda else pa.probe_plain)(codes_d, lens_d,
+                                                           index)
+
+    def out_chain():
+        return chain_k(a, b, nb, lens_d, budgets, **kw)
+
     out = []
     for kernel, plain in (
-            (lambda: (pa.probe_cuda if cuda else pa.probe_plain)(
-                codes_d, lens_d, index),
-             lambda: pa.probe_plain(codes_d, lens_d, index)),
-            (lambda: chain_k(a, b, nb, lens_d, budgets, **kw), chain_plain)):
+            (out_probe, lambda: pa.probe_plain(codes_d, lens_d, index)),
+            (out_chain, chain_plain)):
         plain_ms = [time_ms(plain, 1, dev)]
         kernel_ms = [time_ms(kernel, 20, dev), time_ms(kernel, 20, dev)]
         plain_ms.append(time_ms(plain, 1, dev))
         out.append((kernel_ms, plain_ms))
+    if cuda:  # the kernels' own device time, without the wrappers' fills
+        info["probe_kernel_us"] = kernel_us(out_probe, "probe_kernel", 20)
+        info["chain_kernel_us"] = kernel_us(out_chain, "chain_kernel", 20)
     info["k"] = k
     info["hits"] = total
     info["max_nb"] = int(nb.max())
     for name, (kernel_ms, plain_ms) in zip(("probe", "chain"), out):
         info[f"{name}_ms"] = " ".join(f"{t:.4f}" for t in kernel_ms)
         info[f"{name}_plain_ms"] = " ".join(f"{t:.2f}" for t in plain_ms)
-    return tuple((float(np.mean(km)), float(np.mean(pm))) for km, pm in out)
+    bounds = (probe_bound(codes, lens, index), chain_bound(nb.cpu().numpy()))
+    return tuple((float(np.mean(km)), float(np.mean(pm)), b)
+                 for (km, pm), b in zip(out, bounds))
 
 
 KERNELS = ("band_stats", "em_squarem", "align_full", "phase_a_probe",
@@ -904,6 +1151,7 @@ def run(dev, sizes: dict) -> list:
     from t1k_tpu_torch.ops import _build
 
     checks = {name: Checker() for name in KERNELS}
+    times = {}  # kernel -> (kernel ms, plain ms, (bound ms, bound by))
     cuda = dev.type == "cuda"
     if cuda:
         with phase("build") as info:
@@ -921,33 +1169,30 @@ def run(dev, sizes: dict) -> list:
         phase_kernel(dev, checks["band_stats"], sizes["random_items"], info)
         cuda and torch.cuda.synchronize()
     with phase("em") as info:
-        em_err, em_ms, em_plain_ms = phase_em(dev, *sizes["em"], info)
+        em_err, *times["em_squarem"] = phase_em(dev, *sizes["em"], info)
     with phase("v1") as info:
-        v1_launches, v1_ms, v1_plain_ms = phase_v1(
+        v1_launches, *times["align_full"] = phase_v1(
             dev, checks["align_full"], sizes["v1_pairs"], info)
     with phase("screen") as info:
         phase_screen(dev, info)
+        phase_screen_edges(dev, checks["phase_a_probe"],
+                           checks["phase_a_chain"], info)
     with tempfile.TemporaryDirectory(prefix="t1k_smoke_") as work:
         with phase("main") as info:
             launches = phase_main(dev, work, PANEL_GENES, PANEL_COPIES,
                                   sizes["sim_pairs"], info)
         with phase("timing") as info:
-            band_ms, band_plain_ms = phase_timing(
+            times["band_stats"] = phase_timing(
                 dev, checks["band_stats"], work, 8192, info)
         with phase("extract") as info:
             pa_launches, prefix = phase_extract(dev, work, info,
                                                 sizes["extract"])
         with phase("screen_timing") as info:
-            (probe_ms, probe_plain), (chain_ms, chain_plain) = \
+            times["phase_a_probe"], times["phase_a_chain"] = \
                 phase_screen_timing(dev, checks["phase_a_probe"],
                                     checks["phase_a_chain"], work, prefix,
                                     info)
     launches.update(pa_launches, align_full=v1_launches)
-    times = {"band_stats": (band_ms, band_plain_ms),
-             "em_squarem": (em_ms, em_plain_ms),
-             "align_full": (v1_ms, v1_plain_ms),
-             "phase_a_probe": (probe_ms, probe_plain),
-             "phase_a_chain": (chain_ms, chain_plain)}
     replaces = {"band_stats": "t1k_tpu/ops/align_pallas_band.py:55",
                 "em_squarem": "t1k_tpu/ops/em.py:213",
                 "align_full": "t1k_tpu/ops/align_pallas.py:44",
@@ -955,11 +1200,14 @@ def run(dev, sizes: dict) -> list:
                 "phase_a_chain": "t1k_tpu/ops/phase_a.py:457"}
     errs = {name: checks[name].max_err for name in KERNELS}
     errs["em_squarem"] = em_err
+    # no single PyTorch call computes any of the five: library_ms is null
     return [{"name": name, "route": "cuda",
              "source": f"t1k_tpu_torch/csrc/{name}.cu",
              "replaces": replaces[name], "launches": launches[name],
              "max_abs_err": errs[name], "ms": times[name][0],
-             "plain_ms": times[name][1]} for name in KERNELS]
+             "plain_ms": times[name][1], "bound_ms": times[name][2][0],
+             "bound_by": times[name][2][1], "library_ms": None}
+            for name in KERNELS]
 
 
 FULL_SIZES = dict(random_items=RANDOM_ITEMS, em=(EM_RG, EM_EC),

@@ -1,12 +1,16 @@
 """t1k_tpu_torch — t1k_tpu's extraction and genotyper stages on PyTorch and
 CUDA.
 
-A second package beside ``t1k_tpu``: it reuses that package's host-only
-modules (the native C++ engine and f64 EM oracle, io, constants, the
-fragment and genotyper bookkeeping, the output writers) and replaces the
-code that touches a device:
+A package of its own beside ``t1k_tpu``: it imports nothing of that
+package and keeps its own copy of the host code it runs.
 
-  device.py          gpu_present / resolve_backend / resolve_device
+  native/            the C++ host engine (seed/chain/DP, extraction
+                     screen, f64 EM), built at first import into
+                     build/t1k_tpu_torch/native/, with ctypes bindings
+  constants.py       the reference's numerical contracts
+  io/                FASTA/FASTQ ingest and the allele reference model
+  device.py          gpu_present / resolve_backend / resolve_device:
+                     "auto" runs on the card, or raises without one
   ops/align_band.py  band-packed stats aligner; CUDA kernel in
                      csrc/band_stats.cu, plain PyTorch version beside it
   ops/align.py       v1 full-row aligner; kernel csrc/align_full.cu
@@ -16,13 +20,16 @@ code that touches a device:
                      order (f64 by default); kernel csrc/em_squarem.cu
   ops/_build.py      nvcc build and ctypes load of the kernels
   core/extractor.py  FASTQ extraction with the device screen
-  core/genotyper.py  Genotyper with the torch EM route
+  core/genotyper.py  Genotyper: coalescing, ECs, EM dispatch, selection
   core/pipeline.py   genotyper stage (ingest -> dedupe -> deferred DP ->
                      fragments -> EM -> selection -> outputs)
+  core/barcode.py    cell-barcode whitelist correction
+  utils/             per-stage metrics; torch.profiler traces
   cli/extract.py     extraction command line (--backend gpu, --device)
   cli/genotype.py    command line (--backend gpu, --emBackend gpu)
 
-It never imports jax, directly or through ``t1k_tpu.ops``.
+Entry points run on the CUDA card unless the caller asks for the CPU
+(``device="cpu"``, ``--device cpu``).  It never imports jax.
 """
 
 __version__ = "0.1.0"

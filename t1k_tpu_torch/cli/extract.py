@@ -5,34 +5,86 @@ fastq-extractor, FastqExtractor.cpp:220-628).
       -o prefix --backend gpu [--device cuda:0]
 
 Same flags as ``t1k_tpu.cli.extract``, with ``gpu`` in place of ``tpu``
-and a ``--device`` for the gpu route.
+and a ``--device`` for the gpu route.  Without a CUDA card, ``--backend
+auto`` (the default) exits with an error naming ``--backend native`` and
+``--device cpu``.
 """
 
 from __future__ import annotations
 
+import argparse
 import sys
 from typing import List, Optional
 
-from t1k_tpu.cli.extract import _merge_negative_ints
-from t1k_tpu.cli.extract import build_parser as _host_parser
+from ..device import NoCardError
 
 
-def build_parser():
-    ap = _host_parser()
-    ap.prog = "t1k-extract-torch"
-    for action in ap._actions:
-        if action.dest == "backend":
-            action.choices = ["auto", "native", "gpu"]
-            action.help = ("screen backend; gpu = the device phase-A screen "
-                           "on --device with the native engine re-screening "
-                           "what it cannot decide, auto = gpu once "
-                           "T1K_SCREEN_DEVICE_MIN_READS reads have streamed "
-                           "and a card is present (byte-identical output "
-                           "either way)")
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(
+        prog="t1k-extract-torch",
+        description="Screen raw FASTQ for candidate reads")
+    ap.add_argument("-f", dest="ref", required=True)
+    # repeated occurrences extend like the reference binaries' getopt
+    # loops (each -1/-u/--barcode appends another file)
+    ap.add_argument("-1", dest="first", nargs="+", action="extend",
+                    default=[])
+    ap.add_argument("-2", dest="second", nargs="+", action="extend",
+                    default=[])
+    ap.add_argument("-u", dest="single", nargs="+", action="extend",
+                    default=[])
+    ap.add_argument("-i", dest="interleaved", nargs="+", action="extend",
+                    default=[])
+    ap.add_argument("-o", dest="prefix", default="t1k")
+    ap.add_argument("-t", dest="threads", type=int, default=1)
+    ap.add_argument("-s", dest="similarity", type=float, default=0.8)
+    ap.add_argument("--barcode", nargs="+", action="extend", default=[])
+    ap.add_argument("--barcodeRange", nargs=3, default=None,
+                    metavar=("START", "END", "STRAND"))
+    ap.add_argument("--barcodeWhitelist", default=None)
+    ap.add_argument("--read1Range", nargs=2, type=int, default=None)
+    ap.add_argument("--read2Range", nargs=2, type=int, default=None)
+    # split-flag aliases matching the reference binary's own getopt
+    # table (FastqExtractor.cpp:35-47)
+    ap.add_argument("--barcodeStart", type=int, default=None)
+    ap.add_argument("--barcodeEnd", type=int, default=None)
+    ap.add_argument("--barcodeRevComp", action="store_true")
+    ap.add_argument("--read1Start", type=int, default=None)
+    ap.add_argument("--read1End", type=int, default=None)
+    ap.add_argument("--read2Start", type=int, default=None)
+    ap.add_argument("--read2End", type=int, default=None)
+    ap.add_argument("--backend", default="auto",
+                    choices=["auto", "native", "gpu"],
+                    help="screen backend; gpu = the device phase-A screen "
+                         "on --device with the native engine re-screening "
+                         "what it cannot decide, native = the host engine, "
+                         "auto = gpu once T1K_SCREEN_DEVICE_MIN_READS reads "
+                         "have streamed (an error without a card unless "
+                         "--device cpu); byte-identical output either way")
     ap.add_argument("--device", default="cuda",
                     help="torch device of the gpu route (cuda, cuda:N, or "
                          "cpu for the kernels' plain versions)")
     return ap
+
+
+_INT_FLAGS = {"--barcodeStart", "--barcodeEnd", "--read1Start",
+              "--read1End", "--read2Start", "--read2End"}
+
+
+def _merge_negative_ints(argv: List[str]) -> List[str]:
+    """`--read2End -1` -> `--read2End=-1`: argparse would otherwise
+    read `-1` as the option of that name (the reference's sentinel for
+    read length - 1, FastqExtractor.cpp:35-47)."""
+    out, i = [], 0
+    while i < len(argv):
+        a = argv[i]
+        if (a in _INT_FLAGS and i + 1 < len(argv)
+                and argv[i + 1].lstrip("-").isdigit()):
+            out.append(a + "=" + argv[i + 1])
+            i += 2
+        else:
+            out.append(a)
+            i += 1
+    return out
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -40,7 +92,8 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     if argv is None:
         argv = sys.argv[1:]
-    args = build_parser().parse_args(_merge_negative_ints(list(argv)))
+    ap = build_parser()
+    args = ap.parse_args(_merge_negative_ints(list(argv)))
     opts = ExtractorOptions(ref_seq_similarity=args.similarity,
                             threads=args.threads, backend=args.backend,
                             device=args.device)
@@ -67,14 +120,18 @@ def main(argv: Optional[List[str]] = None) -> int:
     if args.barcodeRevComp:
         opts.barcode_revcomp = True
 
-    if args.interleaved:
-        stats = run_extractor(args.ref, args.interleaved, None, args.prefix,
-                              opts, interleaved=True)
-    elif args.single:
-        stats = run_extractor(args.ref, args.single, None, args.prefix, opts)
-    else:
-        stats = run_extractor(args.ref, args.first, args.second or None,
-                              args.prefix, opts)
+    try:
+        if args.interleaved:
+            stats = run_extractor(args.ref, args.interleaved, None,
+                                  args.prefix, opts, interleaved=True)
+        elif args.single:
+            stats = run_extractor(args.ref, args.single, None, args.prefix,
+                                  opts)
+        else:
+            stats = run_extractor(args.ref, args.first, args.second or None,
+                                  args.prefix, opts)
+    except NoCardError as err:
+        ap.error(str(err))
     print(f"extracted {stats['candidates']} candidates", file=sys.stderr)
     return 0
 

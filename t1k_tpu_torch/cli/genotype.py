@@ -5,7 +5,9 @@ Genotyper.cpp:194-738).
       -o prefix --backend gpu --emBackend gpu [--device cuda:0]
 
 Same flags as ``t1k_tpu.cli.genotype``, with ``gpu`` in place of
-``tpu`` / ``jax`` and a ``--device`` for the gpu routes.
+``tpu`` / ``jax`` and a ``--device`` for the gpu routes.  Without a CUDA
+card, ``--backend auto`` (the default) exits with an error naming
+``--backend native`` and ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -15,7 +17,8 @@ import sys
 import tempfile
 from typing import List, Optional
 
-from t1k_tpu.cli import fold_negative_values
+from ..device import NoCardError
+from . import fold_negative_values
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -48,14 +51,16 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--outputReadAssignment", action="store_true")
     ap.add_argument("--backend", default="auto",
                     choices=["auto", "native", "gpu"],
-                    help="alignment backend; auto = gpu when a CUDA card "
-                         "is present, else native (byte-identical either "
-                         "way)")
+                    help="alignment backend: gpu = the band kernel on "
+                         "--device, native = the host engine, auto = gpu "
+                         "(an error without a card unless --device cpu); "
+                         "byte-identical either way")
     ap.add_argument("--emBackend", dest="emBackend", default="auto",
                     choices=["auto", "native", "gpu"],
                     help="EM implementation: native f64 loop, f64 EM on "
-                         "--device, or auto = device iff a card is present "
-                         "and the problem is past the size where it wins")
+                         "--device, or auto = the device past 5e7 dense "
+                         "cells, native below (an error without a card "
+                         "unless --device cpu); bit-identical either way")
     ap.add_argument("--device", default="cuda",
                     help="torch device of the gpu routes (cuda, cuda:N, or "
                          "cpu for the kernels' plain versions)")
@@ -66,9 +71,10 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv: Optional[List[str]] = None) -> int:
-    from ..core.pipeline import GenotypeOptions, run_genotyper
+    from ..core.pipeline import GenotypeOptions
 
-    args = build_parser().parse_args(
+    ap = build_parser()
+    args = ap.parse_args(
         fold_negative_values(sys.argv[1:] if argv is None else argv))
     opts = GenotypeOptions(
         ref_seq_similarity=args.similarity,
@@ -87,8 +93,18 @@ def main(argv: Optional[List[str]] = None) -> int:
         threads=args.threads, backend=args.backend,
         em_backend=args.emBackend, device=args.device,
     )
+    try:
+        _run(args, opts)
+    except NoCardError as err:
+        ap.error(str(err))
+    return 0
+
+
+def _run(args, opts) -> None:
+    from ..core.pipeline import run_genotyper
+
     if args.interleaved:
-        from t1k_tpu.io.reads import read_seq_files, write_fastq
+        from ..io.reads import read_seq_files, write_fastq
 
         # split interleaved input into the pipeline's two-pool form
         with tempfile.TemporaryDirectory() as tmp:
@@ -103,7 +119,6 @@ def main(argv: Optional[List[str]] = None) -> int:
     else:
         run_genotyper(args.ref, args.first, args.second or None, args.prefix,
                       opts)
-    return 0
 
 
 if __name__ == "__main__":

@@ -1,0 +1,65 @@
+"""Numerical contracts of the host stages (the reference T1K's).
+
+Citations point at the reference lines that pin each value:
+
+  * k-mer defaults:   FastqExtractor.cpp:272 (k=9), Genotyper.cpp:207 (k=11)
+  * extraction:       FastqExtractor.cpp:390-407 (hit-length thresholds)
+  * EM:               Genotyper.hpp:1195 (max iterations)
+  * selection:        Genotyper.hpp:1371-2090
+"""
+
+import numpy as np
+
+# K-mer lengths.
+EXTRACTOR_KMER_LENGTH = 9
+GENOTYPER_KMER_LENGTH = 11
+
+DEFAULT_REF_SEQ_SIMILARITY = 0.8
+
+# Extractor.
+EXTRACTOR_HIT_LEN_PAIRED = 27
+EXTRACTOR_HIT_LEN_SINGLE = 23
+
+# Genotyper.
+DEFAULT_MAX_ASSIGN_CNT = 2000
+DEFAULT_FILTER_FRAC = 0.15
+DEFAULT_FILTER_COV = 1.0
+DEFAULT_CROSS_GENE_RATE = 0.04
+CROSS_ALLELE_RATE = 0.01
+EC_FINGERPRINT_MOD = 1000003
+MAX_EM_ITERATIONS = 1000
+LARGE_DELETION = 500           # effective-length mode repair threshold
+EC_LIKELIHOOD_CUTOFF = 0.05
+MAX_QUALITY = 60
+
+# Base encoding. A=0 C=1 G=2 T=3; everything else (incl. N) is INVALID_BASE.
+INVALID_BASE = 4
+
+BASE_LUT = np.full(256, INVALID_BASE, dtype=np.int8)
+for _i, _b in enumerate("ACGT"):
+    BASE_LUT[ord(_b)] = _i
+    BASE_LUT[ord(_b.lower())] = _i
+
+NUM_TO_BASE = np.frombuffer(b"ACGTN", dtype=np.uint8).copy()
+
+
+def encode_seq(seq: str) -> np.ndarray:
+    """Encode an ASCII nucleotide string into int8 codes (N -> 4)."""
+    raw = np.frombuffer(seq.encode("ascii"), dtype=np.uint8)
+    return BASE_LUT[raw]
+
+
+def decode_seq(codes: np.ndarray) -> str:
+    return NUM_TO_BASE[np.asarray(codes, dtype=np.int64)].tobytes().decode("ascii")
+
+
+def revcomp_codes(codes: np.ndarray) -> np.ndarray:
+    """Reverse-complement on the integer encoding; invalid stays invalid."""
+    rc = codes[::-1].copy()
+    valid = rc < 4
+    rc[valid] = 3 - rc[valid]
+    return rc
+
+
+def revcomp_str(seq: str) -> str:
+    return decode_seq(revcomp_codes(encode_seq(seq)))

@@ -1,18 +1,21 @@
 """Candidate-read extraction on PyTorch / CUDA (the reference
 `fastq-extractor` stage, FastqExtractor.cpp).
 
-Counterpart of ``t1k_tpu/core/extractor.py``: the same streaming ingest,
-hit-length and k-mer rules, low-complexity filter, range slicing and
-barcode correction, with the device screen built from this package's
-``ops.phase_a.DeviceScreen`` on a torch device.  The host-only pieces
-(``low_complexity_flags``, ``screen_flags``, ``ExtractorOptions``,
-``_slice``, the barcode corrector) are imported as they are.
+Screens raw reads with the k-mer index: a read pair is kept when either
+mate has a chained hit with enough matching bases.  Behavior contract:
+reference FastqExtractor.cpp (k=9 raised to log4(refLen)+1, hit-length
+thresholds 27/23 raised to meanReadLen/5, low-complexity filter,
+read/barcode range slicing, whitelist barcode correction).  Counterpart
+of ``t1k_tpu/core/extractor.py``, with the device screen built from this
+package's ``ops.phase_a.DeviceScreen`` on a torch device.
 
 Backends: "native" screens every read on the host engine; "gpu" screens
 on ``opts.device`` from the first batch (a CUDA card, or the CPU through
-the kernels' plain versions); "auto" switches to the device once
-T1K_SCREEN_DEVICE_MIN_READS (default 2,000,000) reads have streamed
-through and a card is present.  Every route writes byte-identical outputs.
+the kernels' plain versions); "auto" runs on ``opts.device`` as "gpu"
+does once T1K_SCREEN_DEVICE_MIN_READS (default 2,000,000) reads have
+streamed through, the host engine before, and raises at once when
+``opts.device`` is a CUDA device and no card is present.  Every route
+writes byte-identical outputs.
 """
 
 from __future__ import annotations
@@ -23,58 +26,125 @@ from typing import List, Optional
 
 import numpy as np
 
-from t1k_tpu.constants import (
+from ..constants import (
     EXTRACTOR_HIT_LEN_PAIRED,
     EXTRACTOR_HIT_LEN_SINGLE,
     EXTRACTOR_KMER_LENGTH,
     encode_seq,
 )
-from t1k_tpu.core.barcode import BarcodeCorrector, format_barcode
-from t1k_tpu.core.extractor import ExtractorOptions as _HostOptions
-from t1k_tpu.core.extractor import _slice, screen_flags
-from t1k_tpu.io.reads import SeqRecord, read_seq_file, read_seq_files
-from t1k_tpu.io.refset import RefSet
-from t1k_tpu.native import NativeEngine
-from t1k_tpu.utils.observability import stage
-
-from ..device import gpu_present, resolve_device
+from ..device import resolve_backend, resolve_device
+from ..io.reads import SeqRecord, read_seq_file, read_seq_files
+from ..io.refset import RefSet
+from ..native import NativeEngine
+from ..ops.phase_a import DeviceScreen
+from ..utils.observability import stage
+from .barcode import BarcodeCorrector, format_barcode
 
 
 @dataclass
-class ExtractorOptions(_HostOptions):
-    """The reference options plus the torch device of the gpu route.
-    `backend` takes "auto", "native" or "gpu"."""
-    device: str = "cuda"
+class ExtractorOptions:
+    ref_seq_similarity: float = 0.8
+    threads: int = 1
+    barcode_file: Optional[str] = None
+    barcode_start: int = 0
+    barcode_end: int = -1
+    barcode_revcomp: bool = False
+    barcode_whitelist: Optional[str] = None
+    read1_start: int = 0
+    read1_end: int = -1
+    read2_start: int = 0
+    read2_end: int = -1
+    backend: str = "auto"  # "auto", "native" or "gpu" (module docstring)
+    device: str = "cuda"   # torch device of the gpu route
 
 
-# Reads streamed before "auto" engages the card: the JAX package's default.
+# Reads streamed before "auto" engages the device: the JAX package's
+# default, re-measured on the H100 and kept (PERF.md).
 DEVICE_MIN_READS = 2_000_000
 
 
-def lazy_device_screen(backend: str, build):
-    """Size-gated lazy device-screen factory (the JAX package's, with the
-    card's presence test).  Returns get(n_new) -> DeviceScreen-or-None:
-    with backend "auto" the device engages once T1K_SCREEN_DEVICE_MIN_READS
-    (default DEVICE_MIN_READS) reads have streamed through and a card is
-    present, since the set-up only pays off on large inputs; the switch
-    is safe mid-run because both routes are byte-identical.  Backend
-    "gpu" builds the screen at the first call.  `build` runs at most
-    once."""
+def low_complexity_flags(codes: np.ndarray, seg: np.ndarray,
+                         lens: np.ndarray) -> np.ndarray:
+    """Vectorized FastqExtractor.cpp:89-111 over concatenated reads:
+    dominated by one base, too many Ns, or at least two bases nearly
+    absent.  `codes` are the concatenated base codes, `seg` the read
+    index per base, `lens` the per-read lengths."""
+    n = len(lens)
+    cnt = np.bincount(seg * 5 + codes, minlength=n * 5).reshape(n, 5)
+    return ((cnt[:, :4] >= (lens // 2)[:, None]).any(axis=1)
+            | (cnt[:, 4] >= lens // 10)
+            | ((cnt[:, :4] <= 2).sum(axis=1) >= 2))
+
+
+def lazy_device_screen(backend: str, build, device="cuda"):
+    """Size-gated lazy device-screen factory.  Returns get(n_new) ->
+    DeviceScreen-or-None.  Backend "gpu" builds the screen at the first
+    call.  Backend "auto" resolves at once (a CUDA `device` without a
+    card raises NoCardError) and engages the device once
+    T1K_SCREEN_DEVICE_MIN_READS (default DEVICE_MIN_READS) reads have
+    streamed through, since its set-up only pays off on large inputs;
+    the switch is safe mid-run because both routes are byte-identical.
+    `build` runs at most once."""
+    if backend == "auto":
+        backend = resolve_backend("auto", device)
+        dev_min = int(os.environ.get("T1K_SCREEN_DEVICE_MIN_READS",
+                                     str(DEVICE_MIN_READS)))
+    else:
+        dev_min = 0
     state = {"screen": None, "checked": False, "reads": 0}
-    dev_min = int(os.environ.get("T1K_SCREEN_DEVICE_MIN_READS",
-                                 str(DEVICE_MIN_READS)))
 
     def get(n_new: int):
-        if not state["checked"] and (
-                backend == "gpu"
-                or (backend == "auto" and state["reads"] >= dev_min)):
+        if (not state["checked"] and backend == "gpu"
+                and state["reads"] >= dev_min):
             state["checked"] = True
-            if backend == "gpu" or gpu_present():
-                state["screen"] = build()
+            state["screen"] = build()
         state["reads"] += n_new
         return state["screen"]
 
     return get
+
+
+def screen_flags(codes_cat: np.ndarray, lens: np.ndarray,
+                 starts: np.ndarray, device_screen, engine):
+    """Batched candidate screen: the vectorized low-complexity rule over
+    the whole batch, the device screen for the reads it can decide, and
+    the exact native re-screen for the rest (so output stays
+    byte-identical).
+
+    codes_cat: concatenated base codes; lens/starts: per-read layout.
+    Returns (hits bool[n] - False for low-complexity reads, lc bool[n]).
+    """
+    n = len(lens)
+    hits = np.zeros(n, bool)
+    if n == 0:
+        return hits, np.zeros(0, bool)
+    seg = np.repeat(np.arange(n), lens)
+    lc = low_complexity_flags(codes_cat, seg, lens)
+    todo = np.flatnonzero(~lc)
+    if len(todo) and device_screen is not None:
+        max_len = int(lens[todo].max())
+        padded = np.full((len(todo), max_len), 4, dtype=np.int8)
+        plens = lens[todo].astype(np.int32)
+        for j, i in enumerate(todo):
+            padded[j, :lens[i]] = codes_cat[starts[i]:starts[i] + lens[i]]
+        verdict, dec = device_screen.screen(padded, plens)
+        hits[todo[dec]] = verdict[dec]
+        todo = todo[~dec]
+    if len(todo):
+        codes = np.concatenate(
+            [codes_cat[starts[i]:starts[i] + lens[i]] for i in todo])
+        l2 = lens[todo].astype(np.int32)
+        s2 = np.zeros(len(l2), dtype=np.int64)
+        s2[1:] = np.cumsum(l2[:-1])
+        hits[todo] = engine.screen_batch(codes, s2, l2).astype(bool)
+    return hits, lc
+
+
+def _slice(seq: Optional[str], start: int, end: int) -> Optional[str]:
+    if seq is None or (start == 0 and end == -1):
+        return seq
+    e = len(seq) - 1 if end == -1 else end
+    return seq[start:e + 1]
 
 
 def run_extractor(
@@ -90,6 +160,19 @@ def run_extractor(
     if opts.backend not in ("auto", "native", "gpu"):
         raise ValueError(f"unknown screen backend {opts.backend!r}")
     has_mate = reads2 is not None or interleaved
+
+    # Device screen: the exact extraction screen (k-mer hits, diagonal
+    # clustering, LIS chaining, the mismatch-budget test) on the torch
+    # device; reads past its caps fall back to the native engine, so the
+    # output is byte-identical by construction.  Set up first so that
+    # "auto" without a card fails before any work; `_build` reads the
+    # table parameters fixed below when the gate first opens.
+    def _build():
+        return DeviceScreen.build(packed, kmer_length, hit_len,
+                                  opts.ref_seq_similarity,
+                                  device=resolve_device(opts.device))
+
+    get_screen = lazy_device_screen(opts.backend, _build, opts.device)
 
     # The extractor indexes every allele record without dedupe
     # (reference InputRefFa, SeqSet.hpp:872-904).
@@ -152,17 +235,6 @@ def run_extractor(
                 opts.barcode_start, opts.barcode_end, opts.barcode_revcomp)
         bc_iter = read_seq_files(bc_files)
 
-    # Device screen: the exact extraction screen (k-mer hits, diagonal
-    # clustering, LIS chaining, the mismatch-budget test) on the torch
-    # device; reads past its caps fall back to the native engine, so the
-    # output is byte-identical by construction.
-    def _build():
-        from ..ops.phase_a import DeviceScreen
-        return DeviceScreen.build(packed, kmer_length, hit_len,
-                                  opts.ref_seq_similarity,
-                                  device=resolve_device(opts.device))
-
-    get_screen = lazy_device_screen(opts.backend, _build)
     used = []  # the device screen, once it has engaged
 
     def screen(recs: List[SeqRecord]) -> np.ndarray:

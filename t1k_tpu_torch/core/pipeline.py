@@ -1,47 +1,102 @@
-"""Genotyper stage on PyTorch / CUDA.
+"""Genotyper stage on PyTorch / CUDA (the reference `genotyper`,
+Genotyper.cpp:194-738).
 
 Counterpart of ``t1k_tpu/core/pipeline.py``'s genotyper stage: read
 ingest -> unique-read dedupe -> seed / chain / deferred banded DP (the
 native engine with the band kernel scoring the deferred items) ->
 fragment pairing and EC construction -> SQUAREM EM -> allele selection ->
-outputs.  EM, selection and outputs reuse ``finish_genotyper`` as it is;
-the EM runs through this package's ``Genotyper``.
+outputs (genotype.tsv, allele.tsv, aligned fastas).
 
 Backends: "native" keeps every DP on the host engine, "gpu" scores the
 deferred items on ``opts.device`` (a CUDA card, or the CPU through the
-kernel's plain version), "auto" is "gpu" when a card is present.  Every
-route writes byte-identical outputs.
+kernel's plain version), "auto" is "gpu": it runs on ``opts.device`` and
+raises when that is a CUDA device and no card is present.  Every route
+writes byte-identical outputs.
 """
 
 from __future__ import annotations
 
-import os
+import sys
+import time
 from dataclasses import dataclass
 from typing import List, Optional, Tuple
 
 import numpy as np
 
-from t1k_tpu.constants import GENOTYPER_KMER_LENGTH, encode_seq
-from t1k_tpu.core.genotyper import GenotyperConfig
-from t1k_tpu.core.pipeline import GenotypeOptions as _HostOptions
-from t1k_tpu.core.pipeline import (GenotypeResult, PreparedGenotype,
-                                   finish_genotyper, log)
-from t1k_tpu.io.reads import read_seq_files
-from t1k_tpu.io.refset import RefSet
-from t1k_tpu.native import NativeEngine
-from t1k_tpu.utils.observability import reset_metrics, stage
-
+from ..constants import (DEFAULT_MAX_ASSIGN_CNT, DEFAULT_REF_SEQ_SIMILARITY,
+                         GENOTYPER_KMER_LENGTH, encode_seq)
 from ..device import BACKENDS, resolve_backend, resolve_device
+from ..io.reads import read_seq_files
+from ..io.refset import RefSet
+from ..native import NativeEngine
 from ..ops import align_band
 from ..ops.align_band import DeferredDescService
-from .genotyper import Genotyper
+from ..utils.observability import metrics, reset_metrics, stage
+from .genotyper import Genotyper, GenotyperConfig
+
+
+def log(msg: str) -> None:
+    ts = time.strftime("%a %b %d %H:%M:%S %Y")
+    print(f"[{ts}] {msg}", file=sys.stderr)
 
 
 @dataclass
-class GenotypeOptions(_HostOptions):
-    """The reference options plus the torch device the gpu routes use.
-    `backend` and `em_backend` take "auto", "native" or "gpu"."""
+class GenotypeOptions:
+    ref_seq_similarity: float = DEFAULT_REF_SEQ_SIMILARITY
+    relax_intron_align: bool = False
+    max_assign_cnt: int = DEFAULT_MAX_ASSIGN_CNT
+    filter_frac: float = 0.15
+    filter_cov: float = 1.0
+    cross_gene_rate: float = 0.04
+    min_squarem_alpha: float = 0.0
+    digit_units: int = -1
+    delimiter: str = ""
+    allele_whitelist: Optional[str] = None
+    abundance_file: Optional[str] = None
+    em_state_file: Optional[str] = None  # resume EM from a prior snapshot
+    barcode_file: Optional[str] = None
+    output_read_assignment: bool = False
+    threads: int = 1
+    # "auto", "native" or "gpu" (module docstring); byte-identical outputs
+    backend: str = "auto"
+    # gpu backend: reads per deferred-DP cycle (the JAX package's 2048,
+    # which keeps each chunk's host arenas cache-friendly)
+    defer_chunk: int = 2048
+    em_backend: str = "auto"
+    # torch device of the gpu routes: a CUDA device, or "cpu" for the
+    # kernels' plain versions
     device: str = "cuda"
+
+
+@dataclass
+class GenotypeResult:
+    genotyper: Genotyper
+    refset: RefSet
+    aligned_flags: List[bool]
+    read_ids1: List[str]
+    read_ids2: List[str]
+    read_seqs1: List[str]
+    read_seqs2: List[str]
+    barcodes: Optional[List[str]]
+    em_iterations: int
+    aligned_fragment_cnt: int
+
+
+@dataclass
+class PreparedGenotype:
+    """Pipeline state after fragment assignment, before EM."""
+    genotyper: Genotyper
+    refset: RefSet
+    opts: GenotypeOptions
+    aligned_flags: List[bool]
+    read_ids1: List[str]
+    read_ids2: List[str]
+    read_seqs1: List[str]
+    read_seqs2: List[str]
+    barcodes: Optional[List[str]]
+    aligned_fragment_cnt: int
+    assign_rows: Optional[List[str]]
+    has_mate: bool
 
 
 def assign_unique_reads(
@@ -118,17 +173,14 @@ def prepare_genotyper(
     `desc_service` replaces the band-kernel service the gpu backend
     would build on `opts.device`."""
     opts = opts or GenotypeOptions()
-    if opts.device_candidates:
-        raise ValueError("device candidate pruning is not ported yet")
-    if os.environ.get("T1K_PROFILE_DIR"):
-        raise ValueError("T1K_PROFILE_DIR traces through jax.profiler, "
-                         "which this package does not use; unset it")
-    backend = resolve_backend(opts.backend)
+    backend = resolve_backend(opts.backend, opts.device)
     if backend not in BACKENDS:
         raise ValueError(f"unknown alignment backend {backend!r}")
     device = opts.device
     if backend == "gpu" or opts.em_backend == "gpu":
         device = resolve_device(opts.device)
+    if opts.em_backend == "auto":  # without a card: fail before any work
+        Genotyper._resolve_em_backend(0, 0, opts.device)
     if backend == "gpu" and desc_service is None:
         desc_service = DeferredDescService(device)
     if refset is None:
@@ -247,3 +299,69 @@ def prepare_genotyper(
         read_seqs1=seqs1, read_seqs2=seqs2, barcodes=barcodes,
         aligned_fragment_cnt=aligned_fragment_cnt, assign_rows=assign_rows,
         has_mate=has_mate)
+
+
+def finish_genotyper(prep: PreparedGenotype,
+                     output_prefix: str) -> GenotypeResult:
+    """EM (or a supplied abundance file or EM snapshot), allele
+    selection, and output writing (Genotyper.cpp:640-738)."""
+    opts = prep.opts
+    genotyper = prep.genotyper
+    ids1, ids2 = prep.read_ids1, prep.read_ids2
+    seqs1, seqs2 = prep.read_seqs1, prep.read_seqs2
+    aligned_flags = prep.aligned_flags
+    read_cnt = len(seqs1)
+
+    if opts.abundance_file:
+        genotyper.init_abundance_from_file(opts.abundance_file)
+        em_iters = 0
+    elif opts.em_state_file:
+        genotyper.load_em_state(opts.em_state_file)
+        em_iters = 0
+        log("Resumed EM sufficient statistics from "
+            f"{opts.em_state_file}; skipping quantification.")
+    else:
+        with stage("em_quantification") as ctx:
+            em_iters = genotyper.quantify()
+            ctx["em_iteration_count"] = em_iters
+            genotyper.save_em_state(f"{output_prefix}_em_state.npz",
+                                    genotyper._last_ec_read_count)
+        log(f"Finish allele quantification in {em_iters} EM iterations.")
+    with stage("allele_selection"):
+        genotyper.remove_low_likelihood()
+        genotyper.select_alleles()
+
+    # ------------------------------------------------------------ outputs
+    genotyper.write_genotype_tsv(f"{output_prefix}_genotype.tsv")
+    with open(f"{output_prefix}_allele.tsv", "w") as f:
+        for name, qual in genotyper.representative_alleles():
+            f.write(f"{name} {qual}\n")
+
+    suffix1 = "_aligned_1.fa" if prep.has_mate else "_aligned.fa"
+    with open(f"{output_prefix}{suffix1}", "w") as f:
+        for i in range(read_cnt):
+            if aligned_flags[i]:
+                f.write(f">{ids1[i]}\n{seqs1[i]}\n")
+    if prep.has_mate:
+        with open(f"{output_prefix}_aligned_2.fa", "w") as f:
+            for i in range(read_cnt):
+                if aligned_flags[i]:
+                    f.write(f">{ids2[i]}\n{seqs2[i]}\n")
+    if prep.barcodes is not None:
+        with open(f"{output_prefix}_aligned_bc.fa", "w") as f:
+            for i in range(read_cnt):
+                if aligned_flags[i]:
+                    f.write(f">{ids1[i]}\n{prep.barcodes[i]}\n")
+    if prep.assign_rows is not None:
+        with open(f"{output_prefix}_assign.tsv", "w") as f:
+            for row in prep.assign_rows:
+                f.write(row + "\n")
+
+    metrics().save(f"{output_prefix}_metrics.json")
+    log("Genotyping finishes.")
+    return GenotypeResult(
+        genotyper=genotyper, refset=prep.refset, aligned_flags=aligned_flags,
+        read_ids1=ids1, read_ids2=ids2, read_seqs1=seqs1, read_seqs2=seqs2,
+        barcodes=prep.barcodes, em_iterations=em_iters,
+        aligned_fragment_cnt=prep.aligned_fragment_cnt,
+    )

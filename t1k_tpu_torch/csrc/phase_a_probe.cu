@@ -19,11 +19,20 @@
 // Output contrib / cstart int32 [R, 2W] (forward windows, then rc) and
 // tot int32 [R] (zeroed by the caller; the two strands add atomically).
 //
-// Design: one thread per (read, strand) row, rolling over the row's L
-// positions with the code, the last N position and the scan state in
-// registers.  What bounds it on an H100: the latency of the table reads
-// (starts or keys, then hstart/hcount), up to max_probe dependent
-// random loads per window; 2R threads per chunk keep a few warps per SM.
+// What bounds it on an H100: the table lookups, random 4-byte loads into
+// a table of up to tens of MB, up to max_probe+1 of them in a dependent
+// chain per window; the bytes (codes in, 16 bytes out per window) are a
+// microsecond per 1024-read chunk.  The design keeps many independent
+// lookups in flight: one warp per (read, strand) row and eight rows per
+// block (256 blocks for a 1024-read chunk, every SM busy).  The warp
+// stages its row in shared memory with coalesced loads, then each lane
+// takes one window of each 32-window tile, builds its code and N
+// validity directly from shared memory (k <= 15) and runs its own probe,
+// so 32 lookups of a warp are in flight at once.  Only the dedup/skip
+// scan is sequential: every lane replays it over the tile's (code,
+// count) pairs, read with shuffles from the registers that hold them,
+// and keeps its own window's verdict.  Lanes store contrib/cstart at
+// consecutive w (coalesced) and the warp reduces tot.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -32,82 +41,105 @@ namespace {
 
 constexpr uint32_t kEmpty = 0xFFFFFFFFu;
 constexpr uint32_t kHashMul = 2654435761u;
+constexpr unsigned kFull = 0xFFFFFFFFu;
+constexpr int kWarps = 8;  // (read, strand) rows per block
 
-__global__ void probe_kernel(const int8_t* __restrict__ codes,
-                             const int32_t* __restrict__ lens, int R, int L,
-                             int k, int direct,
-                             const int32_t* __restrict__ starts,
-                             const uint32_t* __restrict__ keys,
-                             const int32_t* __restrict__ hstart,
-                             const int32_t* __restrict__ hcount,
-                             uint32_t hmask, int max_probe,
-                             int32_t* __restrict__ contrib,
-                             int32_t* __restrict__ cstart,
-                             int32_t* __restrict__ tot) {
-  const int q = blockIdx.x * blockDim.x + threadIdx.x;
-  if (q >= 2 * R) return;
-  const bool rc = q >= R;
-  const int r = rc ? q - R : q;
+__global__ void __launch_bounds__(kWarps * 32)
+probe_kernel(const int8_t* __restrict__ codes,
+             const int32_t* __restrict__ lens, int R, int L, int k,
+             int direct, const int32_t* __restrict__ starts,
+             const uint32_t* __restrict__ keys,
+             const int32_t* __restrict__ hstart,
+             const int32_t* __restrict__ hcount, uint32_t hmask,
+             int max_probe, int32_t* __restrict__ contrib,
+             int32_t* __restrict__ cstart, int32_t* __restrict__ tot) {
+  extern __shared__ int8_t srow_all[];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int q = blockIdx.x * kWarps + warp;  // row: read q/2, strand q%2
+  if (q >= 2 * R) return;                    // whole warps leave together
+  const int r = q >> 1;
+  const bool rc = q & 1;
   const int len = lens[r];
   const int W = L - k + 1;
   const int last_w = len - k;  // engine i == len-1  <=>  w == len-k
   const int skip_limit = k / 2;
-  const uint32_t code_mask = (1u << (2 * k)) - 1u;
   const int8_t* row = codes + (int64_t)r * L;
+  int8_t* s = srow_all + warp * ((L + 15) & ~15);
   int32_t* out_c = contrib + (int64_t)r * 2 * W + (rc ? W : 0);
   int32_t* out_s = cstart + (int64_t)r * 2 * W + (rc ? W : 0);
 
-  uint32_t code = 0, prev = 0;
-  int last_n = -1, skip = 0, sum = 0;
-  for (int pos = 0; pos < L; ++pos) {
+  // ---- stage this strand's row in shared memory
+  for (int p = lane; p < L; p += 32) {
     int base;
     if (!rc) {
-      base = row[pos];
+      base = row[p];
     } else {
-      const int j = len - 1 - pos;
+      const int j = len - 1 - p;
       const int x = j >= 0 ? row[j] : 4;
       base = j >= 0 && x < 4 ? 3 - x : (j >= 0 ? x : 4);
     }
-    code = ((code << 2) | (uint32_t)min(base, 3)) & code_mask;
-    if (base >= 4) last_n = pos;
-    const int w = pos - k + 1;
-    if (w < 0) continue;
+    s[p] = (int8_t)base;
+  }
+  __syncwarp();
 
+  // the dedup/skip state, replicated in every lane
+  uint32_t prev = 0;
+  int skip = 0, sum = 0;
+  for (int tile = 0; tile < W; tile += 32) {
+    const int w = tile + lane;
+    uint32_t code = 0;
     int st = 0, cnt = 0;
-    if (last_n < w) {  // valid window
-      if (direct) {
-        st = starts[code];
-        cnt = starts[code + 1] - st;
-      } else {
-        uint32_t h = (code * kHashMul) & hmask;
-        const uint32_t step = (((code >> 15) | 1u) & hmask) | 1u;
-        for (int t = 0; t < max_probe; ++t) {
-          const uint32_t kk = keys[h];
-          if (kk == code || kk == kEmpty) break;
-          h = (h + step) & hmask;
-        }
-        if (keys[h] == code) {
-          st = hstart[h];
-          cnt = hcount[h];
+    if (w < W) {
+      bool has_n = false;
+      for (int t = 0; t < k; ++t) {
+        const int b = s[w + t];
+        code = (code << 2) | (uint32_t)min(b, 3);
+        has_n |= b >= 4;
+      }
+      if (!has_n) {
+        if (direct) {
+          st = starts[code];
+          cnt = starts[code + 1] - st;
+        } else {
+          uint32_t h = (code * kHashMul) & hmask;
+          const uint32_t step = (((code >> 15) | 1u) & hmask) | 1u;
+          for (int t = 0; t < max_probe; ++t) {
+            const uint32_t kk = keys[h];
+            if (kk == code || kk == kEmpty) break;
+            h = (h + step) & hmask;
+          }
+          if (keys[h] == code) {
+            st = hstart[h];
+            cnt = hcount[h];
+          }
         }
       }
     }
-
-    const bool active = w <= last_w && len >= k;
-    const bool considered = active && (w == 0 || code != prev);
-    const bool skipped = considered && cnt >= 100 && w != 0 && w != last_w &&
-                         skip < skip_limit;
-    const bool emit = considered && !skipped && cnt > 0;
-    if (active) {
+    // windows past last_w are inactive: they change no state
+    const int n_active = min(32, last_w + 1 - tile);
+    bool emit_mine = false;
+    for (int t = 0; t < n_active; ++t) {
+      const uint32_t c_t = __shfl_sync(kFull, code, t);
+      const int n_t = __shfl_sync(kFull, cnt, t);
+      const int wt = tile + t;
+      const bool considered = wt == 0 || c_t != prev;
+      const bool skipped = considered && n_t >= 100 && wt != 0 &&
+                           wt != last_w && skip < skip_limit;
       if (skipped) ++skip;
       else if (considered) skip = 0;
-      if (!skipped) prev = code;
+      if (!skipped) prev = c_t;
+      if (t == lane) emit_mine = considered && !skipped && n_t > 0;
     }
-    out_c[w] = emit ? cnt : 0;
-    out_s[w] = st;
-    sum += emit ? cnt : 0;
+    if (w < W) {
+      out_c[w] = emit_mine ? cnt : 0;
+      out_s[w] = st;
+    }
+    sum += emit_mine ? cnt : 0;
   }
-  atomicAdd(&tot[r], sum);
+  for (int off = 16; off > 0; off >>= 1)
+    sum += __shfl_xor_sync(kFull, sum, off);
+  if (lane == 0) atomicAdd(&tot[r], sum);
 }
 
 }  // namespace
@@ -122,10 +154,12 @@ extern "C" int t1k_phase_a_probe(const void* codes, const void* lens, int R,
                                  int max_probe, void* contrib, void* cstart,
                                  void* tot, void* stream) {
   if (R <= 0) return 0;
-  if (k < 1 || k > 15 || L < k) return (int)cudaErrorInvalidValue;
-  constexpr int kBlock = 128;
-  const unsigned grid = (unsigned)((2 * R + kBlock - 1) / kBlock);
-  probe_kernel<<<grid, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
+  if (k < 1 || k > 15 || L < k || L >= 4096)
+    return (int)cudaErrorInvalidValue;
+  const unsigned grid = (unsigned)((2 * R + kWarps - 1) / kWarps);
+  const size_t smem = (size_t)kWarps * ((L + 15) & ~15);  // <= 32 KB
+  probe_kernel<<<grid, kWarps * 32, smem,
+                 static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(codes), static_cast<const int32_t*>(lens), R,
       L, k, direct, static_cast<const int32_t*>(starts),
       static_cast<const uint32_t*>(keys), static_cast<const int32_t*>(hstart),

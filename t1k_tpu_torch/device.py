@@ -1,12 +1,18 @@
-"""Device routing for the port: the counterparts of ``tpu_present`` and
-``resolve_backend`` in ``t1k_tpu/core/pipeline.py``, with the same
-environment contract.
+"""Device routing for the port.
 
-* ``T1K_BACKEND`` = ``native`` | ``gpu`` decides outright.
-* The presence verdict is cached in ``T1K_GPU_PRESENT`` and the resolved
-  backend in ``T1K_BACKEND_RESOLVED`` (never in ``T1K_BACKEND``), so child
-  processes inherit them and skip the check.
-* Presence is ``torch.cuda.is_available()``, checked in-process.
+Every entry point runs on the card unless the caller asks for the CPU.
+
+* Backends are "native" (the host engine), "gpu" (the kernels on the
+  torch device given as ``device``: a CUDA card, or the CPU through the
+  kernels' plain versions) and "auto".
+* "auto" is "gpu" on ``device``.  When that is a CUDA device and no card
+  is present it raises ``NoCardError``, which names the two explicit
+  routes; it never falls back to the host engine.  The measured size
+  gates (the extraction screen's streamed reads, the EM's dense cells)
+  then route between the device and the host engine.
+* ``T1K_BACKEND`` = ``native`` | ``gpu`` decides outright, and the
+  presence verdict is cached in ``T1K_GPU_PRESENT`` so child processes
+  inherit it.  Presence is ``torch.cuda.is_available()``.
 """
 
 from __future__ import annotations
@@ -16,6 +22,15 @@ import os
 import torch
 
 BACKENDS = ("native", "gpu")
+
+
+class NoCardError(RuntimeError):
+    """An "auto" route asked for a CUDA device on a machine without one."""
+
+
+NO_CARD = ("'auto' runs on the CUDA card and this machine has none: pass "
+           "--backend native for the host engine, or --device cpu for the "
+           "kernels' plain versions on the CPU")
 
 
 def gpu_present() -> bool:
@@ -31,21 +46,18 @@ def gpu_present() -> bool:
     return present
 
 
-def resolve_backend(backend: str) -> str:
-    """Resolve "auto" for the alignment stage: "gpu" when a card is
-    present, else "native" (byte-identical outputs either way).  Any
-    other value is returned as given."""
+def resolve_backend(backend: str, device="cuda") -> str:
+    """Resolve "auto": "gpu" on `device`, or T1K_BACKEND's choice.  A
+    CUDA `device` without a card raises NoCardError.  Any other value is
+    returned as given."""
     if backend != "auto":
         return backend
     env = os.environ.get("T1K_BACKEND", "")
     if env in BACKENDS:
         return env
-    cached = os.environ.get("T1K_BACKEND_RESOLVED", "")
-    if cached in BACKENDS:
-        return cached
-    resolved = "gpu" if gpu_present() else "native"
-    os.environ["T1K_BACKEND_RESOLVED"] = resolved
-    return resolved
+    if torch.device(device).type == "cuda" and not gpu_present():
+        raise NoCardError(NO_CARD)
+    return "gpu"
 
 
 def resolve_device(device) -> torch.device:

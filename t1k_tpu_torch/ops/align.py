@@ -52,7 +52,7 @@ def _as_tensors(t_codes, t_lens, p_codes, p_lens, device):
 
 
 def banded_scores(t_codes, t_lens, p_codes, p_lens,
-                  device="cpu") -> np.ndarray:
+                  device="cuda") -> np.ndarray:
     """Plain PyTorch version of the v1 aligner: t_codes [B, Lt], p_codes
     [B, Lp] (pad values arbitrary), lens [B].  Returns int32 scores [B]."""
     tc, tl, pc, pl = _as_tensors(t_codes, t_lens, p_codes, p_lens, device)

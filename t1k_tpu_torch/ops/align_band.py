@@ -302,7 +302,7 @@ def _window_class(t_lens, p_lens):
 
 
 def banded_scores_band(t_codes, t_lens, p_codes, p_lens,
-                       device="cpu") -> np.ndarray:
+                       device="cuda") -> np.ndarray:
     """Band-packed scores for [n, Lt] / [n, Lp] byte windows (int32 [n]);
     the window width adapts to the batch's length differences."""
     ml, over = _window_class(t_lens, p_lens)
@@ -312,7 +312,7 @@ def banded_scores_band(t_codes, t_lens, p_codes, p_lens,
 
 
 def banded_stats_band(t_codes, t_lens, p_codes, p_lens, ml: int = None,
-                      w: int = None, device="cpu"):
+                      w: int = None, device="cuda"):
     """Scores plus match / mismatch / indel counts along the reference
     walk's traceback, by forward count propagation.  Returns four int32
     [n] arrays.  `ml` and `w` may widen the window beyond what the batch
@@ -335,7 +335,7 @@ def banded_stats_band(t_codes, t_lens, p_codes, p_lens, ml: int = None,
     return out[0], packed & 511, (packed >> 9) & 511, (packed >> 18) & 511
 
 
-def make_deferred_stats_fn(device="cpu"):
+def make_deferred_stats_fn(device="cuda"):
     """stats_fn(t_codes, t_lens, p_codes, p_lens) -> match int32 for
     NativeEngine.assign_batch_deferred (window-bytes transport)."""
 
@@ -359,7 +359,7 @@ class DeferredDescService:
     the match counts back without blocking, so the engine's two-slot
     pipelining overlaps host and card."""
 
-    def __init__(self, device="cpu"):
+    def __init__(self, device="cuda"):
         self.device = torch.device(device)
         self._ref = None
         self._ref_key = None

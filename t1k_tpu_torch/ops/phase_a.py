@@ -181,13 +181,13 @@ class PhaseAIndex:
         return self.post_seq.device
 
     @classmethod
-    def build(cls, packed, k: int, device="cpu") -> "PhaseAIndex":
+    def build(cls, packed, k: int, device="cuda") -> "PhaseAIndex":
         return cls.from_jax_arrays(**build_arrays(packed, k), device=device)
 
     @classmethod
     def from_jax_arrays(cls, k, n_seqs, max_seq_len, post_seq, post_off,
                         direct, starts, keys, hstart, hcount, hsize,
-                        max_probe, device="cpu") -> "PhaseAIndex":
+                        max_probe, device="cuda") -> "PhaseAIndex":
         """The index from the arrays of a JAX-package PhaseAIndex (or of
         `build_arrays`), as numpy: the carry-over of a built table."""
         dev = torch.device(device)
@@ -707,7 +707,7 @@ class DeviceScreen:
 
     @classmethod
     def build(cls, packed, k: int, hit_len_required: int, ref_sim: float,
-              radius: int = 10, device="cpu", **caps) -> "DeviceScreen":
+              radius: int = 10, device="cuda", **caps) -> "DeviceScreen":
         return cls(PhaseAIndex.build(packed, k, device), hit_len_required,
                    ref_sim, radius, **caps)
 

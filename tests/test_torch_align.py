@@ -61,7 +61,7 @@ def test_plain_matches_golden_table_and_jax_program():
     from t1k_tpu.ops.align import banded_scores
 
     tc, tl, pc, pl, want = _golden_batch()
-    got = v1.banded_scores(tc, tl, pc, pl)
+    got = v1.banded_scores(tc, tl, pc, pl, device="cpu")
     assert got.dtype == np.int32
     assert (got == want).all()
     assert (v1.banded_scores_full(tc, tl, pc, pl, device="cpu") == want).all()
@@ -75,7 +75,7 @@ def test_plain_matches_pallas_interpret():
     jax_got = np.asarray(banded_scores_pallas(tc[:32], tl[:32], pc[:32],
                                               pl[:32], block_b=32,
                                               interpret=True))
-    got = v1.banded_scores(tc[:32], tl[:32], pc[:32], pl[:32])
+    got = v1.banded_scores(tc[:32], tl[:32], pc[:32], pl[:32], device="cpu")
     assert (got == jax_got).all()
     assert (got == want[:32]).all()
 
@@ -86,23 +86,24 @@ def test_plain_matches_jax_program_on_seeded_pairs(seed):
     from t1k_tpu.ops.align import banded_scores
 
     tc, tl, pc, pl = _seeded_pairs(seed, 300)
-    got = v1.banded_scores(tc, tl, pc, pl)
+    got = v1.banded_scores(tc, tl, pc, pl, device="cpu")
     assert (got == np.asarray(banded_scores(tc, tl, pc, pl))).all()
 
 
 def test_plain_matches_band_aligner_where_the_band_fits():
     """The v1 and band-packed aligners share the scoring contract."""
     tc, tl, pc, pl = _seeded_pairs(11, 400, lt=80, lp=80, max_diff=10)
-    got = v1.banded_scores(tc, tl, pc, pl)
+    got = v1.banded_scores(tc, tl, pc, pl, device="cpu")
     ml, over = ab._window_class(tl, pl)
     assert ab.band_window(ml, over) <= 32
-    assert (got == ab.banded_scores_band(tc, tl, pc, pl)).all()
+    assert (got == ab.banded_scores_band(tc, tl, pc, pl,
+                                         device="cpu")).all()
 
 
 def test_lengths_outside_the_widths_raise():
     tc, tl, pc, pl = _seeded_pairs(5, 8)
     with pytest.raises(ValueError, match="within the window widths"):
-        v1.banded_scores(tc, tl + 200, pc, pl)
+        v1.banded_scores(tc, tl + 200, pc, pl, device="cpu")
 
 
 @pytest.fixture
@@ -121,4 +122,4 @@ def test_cuda_kernel_matches_plain(cuda_device):
         tc, tl, pc, pl = _seeded_pairs(seed, 2000, lt=600, lp=150,
                                        max_diff=500)
         assert (v1.banded_scores_full(tc, tl, pc, pl, device=cuda_device)
-                == v1.banded_scores(tc, tl, pc, pl)).all()
+                == v1.banded_scores(tc, tl, pc, pl, device="cpu")).all()

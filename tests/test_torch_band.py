@@ -15,6 +15,7 @@ from t1k_tpu.constants import encode_seq
 from t1k_tpu.io.reads import read_seq_file
 from t1k_tpu.io.refset import RefSet
 from t1k_tpu.native import NativeEngine, align_global
+from t1k_tpu_torch.native import NativeEngine as PortEngine
 from t1k_tpu_torch.ops import align_band as ab
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -87,20 +88,20 @@ def test_plain_scores_match_pallas_and_golden_table():
     from t1k_tpu.ops.align_pallas_band import banded_scores_band
 
     tc, tl, pc, pl, want = _golden_batch()
-    got = ab.banded_scores_band(tc, tl, pc, pl)
+    got = ab.banded_scores_band(tc, tl, pc, pl, device="cpu")
     assert got.dtype == np.int32
     assert (got == want).all()
     jax_got = np.asarray(banded_scores_band(tc[:64], tl[:64], pc[:64],
                                             pl[:64], G=1, interpret=True))
-    assert (ab.banded_scores_band(tc[:64], tl[:64], pc[:64], pl[:64])
-            == jax_got).all()
+    assert (ab.banded_scores_band(tc[:64], tl[:64], pc[:64], pl[:64],
+                                  device="cpu") == jax_got).all()
 
 
 def test_plain_stats_match_pallas_and_native_walk():
     from t1k_tpu.ops.align_pallas_band import banded_stats_band
 
     tc, tl, pc, pl = _stats_cases()
-    got = ab.banded_stats_band(tc, tl, pc, pl)
+    got = ab.banded_stats_band(tc, tl, pc, pl, device="cpu")
     jax_got = banded_stats_band(tc, tl, pc, pl, interpret=True)
     for g, j in zip(got, jax_got):
         assert (g == np.asarray(j)).all()
@@ -130,12 +131,13 @@ def test_window_adapts_to_length_difference(diff):
     pc[mut] = rng.integers(0, 4, int(mut.sum())).astype(np.int8)
     tl = np.full(B, lent, np.int32)
     pl = np.full(B, lenp, np.int32)
-    got = ab.banded_scores_band(tc, tl, pc, pl)
+    got = ab.banded_scores_band(tc, tl, pc, pl, device="cpu")
     want = np.array([align_global(tc[i], pc[i])[0] for i in range(B)])
     assert (got == want).all()
     w = ab.band_window(5, diff)
-    narrow = ab.banded_stats_band(tc, tl, pc, pl, w=w)
-    wide = ab.banded_stats_band(tc, tl, pc, pl, w=ab.kernel_window(w))
+    narrow = ab.banded_stats_band(tc, tl, pc, pl, w=w, device="cpu")
+    wide = ab.banded_stats_band(tc, tl, pc, pl, w=ab.kernel_window(w),
+                                device="cpu")
     for a, b in zip(narrow, wide):
         assert (a == b).all()
 
@@ -151,7 +153,8 @@ def test_511_op_walk_boundary():
         for q in range(i + 1, L, 17):
             p[i, q] = (p[i, q] + 1) % 4
     full = np.full(4, L, np.int32)
-    scores, match, mis, ind = ab.banded_stats_band(t, full, p, full)
+    scores, match, mis, ind = ab.banded_stats_band(t, full, p, full,
+                                                   device="cpu")
     for i in range(4):
         score, counts = _walk_counts(t[i], p[i])
         assert scores[i] == score
@@ -160,7 +163,7 @@ def test_511_op_walk_boundary():
     big = np.zeros((1, 255), np.int8)
     with pytest.raises(ValueError, match="511"):
         ab.banded_stats_band(big, np.array([255], np.int32), big,
-                             np.array([255], np.int32))
+                             np.array([255], np.int32), device="cpu")
 
 
 def _desc_items(rng, n_reads=24, read_len=100, n_items=300):
@@ -234,14 +237,15 @@ def _multigene_batch():
 
 @pytest.mark.parametrize("transport", ["descriptors", "window_bytes"])
 def test_engine_deferred_with_port_scorer_matches_inline(transport):
-    """NativeEngine.assign_batch_deferred scored by the port is
-    byte-identical to the inline engine on the multigene reads."""
+    """The port's engine copy, deferring to the port's scorer, is
+    byte-identical to the reference package's inline engine on the
+    multigene reads."""
     from t1k_tpu.constants import GENOTYPER_KMER_LENGTH
 
     packed, flat, starts, lens, weights = _multigene_batch()
     eng1 = NativeEngine(packed, GENOTYPER_KMER_LENGTH)
     rec1, off1 = eng1.assign_batch(flat, starts, lens, weights)
-    eng2 = NativeEngine(packed, GENOTYPER_KMER_LENGTH)
+    eng2 = PortEngine(packed, GENOTYPER_KMER_LENGTH)  # the port's copy
     if transport == "descriptors":
         svc = ab.DeferredDescService(device="cpu")
         rec2, off2 = eng2.assign_batch_deferred(flat, starts, lens, weights,
@@ -287,7 +291,7 @@ def test_cuda_kernel_matches_plain(cuda_device):
     tc, tl, pc, pl = _stats_cases()
     for w in (None, 64, 128, 256):
         got = ab.banded_stats_band(tc, tl, pc, pl, w=w, device=cuda_device)
-        ref = ab.banded_stats_band(tc, tl, pc, pl, w=w)
+        ref = ab.banded_stats_band(tc, tl, pc, pl, w=w, device="cpu")
         for g, r in zip(got, ref):
             assert (g == r).all()
     rng = np.random.default_rng(41)

@@ -11,9 +11,10 @@ import pytest
 import torch
 
 from t1k_tpu.cli.extract import main as host_main
-from t1k_tpu.utils.observability import metrics
 from t1k_tpu_torch.cli.extract import main as port_main
 from t1k_tpu_torch.core.extractor import DEVICE_MIN_READS, lazy_device_screen
+from t1k_tpu_torch.device import NoCardError
+from t1k_tpu_torch.utils.observability import metrics
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(HERE)
@@ -63,7 +64,8 @@ def test_extraction_imports_no_jax(tmp_path):
         "from t1k_tpu_torch.cli.extract import main\n"
         f"main({['-f', PANEL, *CASES['multigene'], '-o', out, '--backend', 'gpu', '--device', 'cpu']!r})\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
-        "assert not any(m.startswith('t1k_tpu.ops') for m in sys.modules)\n")
+        "assert not any(m == 't1k_tpu' or m.startswith('t1k_tpu.')\n"
+        "               for m in sys.modules), 'the JAX package was imported'\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
@@ -84,8 +86,8 @@ def test_gpu_route_without_cuda_raises(tmp_path, monkeypatch):
 
 def test_lazy_gate_counts_streamed_reads(monkeypatch):
     """auto engages the device only past T1K_SCREEN_DEVICE_MIN_READS
-    streamed reads, and only with a card; gpu engages at once; native
-    never."""
+    streamed reads; without a card it raises at once unless the device is
+    the CPU; gpu engages at once; native never."""
     for var in ("T1K_BACKEND", "T1K_GPU_PRESENT"):
         monkeypatch.delenv(var, raising=False)
     monkeypatch.setenv("T1K_SCREEN_DEVICE_MIN_READS", "100")
@@ -101,15 +103,41 @@ def test_lazy_gate_counts_streamed_reads(monkeypatch):
     assert get(60) == "screen" and get(10) == "screen"
     assert built == [1]
     monkeypatch.setenv("T1K_GPU_PRESENT", "0")
-    get = lazy_device_screen("auto", build)
-    assert [get(200), get(200)] == [None, None]
-    assert built == [1]
+    with pytest.raises(NoCardError, match="--device cpu"):
+        lazy_device_screen("auto", build)
+    get = lazy_device_screen("auto", build, device="cpu")
+    assert [get(60), get(60), get(1)] == [None, None, "screen"]
+    assert built == [1, 1]
     assert lazy_device_screen("gpu", build)(1) == "screen"
     get = lazy_device_screen("native", build)
     assert [get(10 ** 7), get(10 ** 7)] == [None, None]
-    assert built == [1, 1]
+    assert built == [1, 1, 1]
     monkeypatch.delenv("T1K_SCREEN_DEVICE_MIN_READS")  # the default gate
     monkeypatch.setenv("T1K_GPU_PRESENT", "1")
     get = lazy_device_screen("auto", build)
-    assert get(DEVICE_MIN_READS) is None and built == [1, 1]
-    assert get(1) == "screen" and built == [1, 1, 1]
+    assert get(DEVICE_MIN_READS) is None and built == [1, 1, 1]
+    assert get(1) == "screen" and built == [1, 1, 1, 1]
+
+
+def test_auto_without_a_card_exits_and_explicit_routes_run(
+        tmp_path, monkeypatch, capsys):
+    """No card: --backend auto stops with the error naming --backend
+    native and --device cpu; both of those give the native route's
+    bytes."""
+    for var in ("T1K_BACKEND", "T1K_GPU_PRESENT"):
+        monkeypatch.delenv(var, raising=False)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    args = ["-f", PANEL, *CASES["barcode"]]
+    with pytest.raises(SystemExit) as exc:
+        port_main([*args, "-o", str(tmp_path / "auto")])
+    assert exc.value.code == 2
+    err = capsys.readouterr().err
+    assert "--backend native" in err and "--device cpu" in err
+    native = str(tmp_path / "native")
+    assert host_main([*args, "-o", native, "--backend", "native"]) == 0
+    for name, flags in (("cpu", ["--device", "cpu"]),
+                        ("host", ["--backend", "native"])):
+        out = str(tmp_path / name)
+        assert port_main([*args, "-o", out, *flags]) == 0
+        for suffix in ("_1.fq", "_2.fq", "_bc.fa"):
+            assert _read(out + suffix) == _read(native + suffix), suffix

@@ -142,8 +142,9 @@ def test_index_carries_over_from_jax(k):
     carried = tpa.PhaseAIndex.from_jax_arrays(
         **{f: np.asarray(getattr(jidx, f)) if hasattr(getattr(jidx, f),
                                                       "shape")
-           else getattr(jidx, f) for f in jpa.PhaseAIndex.__dataclass_fields__})
-    built = tpa.PhaseAIndex.build(packed, k)
+           else getattr(jidx, f) for f in jpa.PhaseAIndex.__dataclass_fields__},
+        device="cpu")
+    built = tpa.PhaseAIndex.build(packed, k, device="cpu")
     assert built.direct == (k <= 12)
     for name, want in carried.to_numpy().items():
         got = built.to_numpy()[name]
@@ -162,7 +163,7 @@ def test_probe_matches_jax_probe_kernel(k):
     codes, lens = _pad(reads)
     packed = _packed(seqs)
     jidx = jpa.PhaseAIndex.build(packed, k)
-    tidx = tpa.PhaseAIndex.build(packed, k)
+    tidx = tpa.PhaseAIndex.build(packed, k, device="cpu")
     want = jpa._probe_kernel(codes, lens, jidx.starts, jidx.keys, jidx.hstart,
                              jidx.hcount, k=k, direct=jidx.direct,
                              hsize=jidx.hsize, max_probe=jidx.max_probe)
@@ -181,7 +182,7 @@ def test_chain_rows_match_jax_chain_rows():
     reads = make_reads(rng, seqs, 120)
     codes, lens = _pad(reads)
     k, hlr = 9, 23
-    tidx = tpa.PhaseAIndex.build(_packed(seqs), k)
+    tidx = tpa.PhaseAIndex.build(_packed(seqs), k, device="cpu")
     contrib, cstart, tot = tpa.probe(torch.from_numpy(codes),
                                      torch.from_numpy(lens), tidx)
     a, b, nb, _, _ = tpa.expand_buckets(contrib, cstart, int(tot.sum()),
@@ -220,7 +221,7 @@ def test_chain_matches_jax_chain_kernel():
     k, hlr, radius = 9, 23, 10
     packed = _packed(seqs)
     jidx = jpa.PhaseAIndex.build(packed, k)
-    tidx = tpa.PhaseAIndex.build(packed, k)
+    tidx = tpa.PhaseAIndex.build(packed, k, device="cpu")
     contrib, cstart, tot = tpa.probe(torch.from_numpy(codes),
                                      torch.from_numpy(lens), tidx)
     total = int(tot.sum())
@@ -270,7 +271,8 @@ def test_screen_parity_repeats_and_hashed():
     check_parity(seqs, make_reads(rng, seqs, 50), k=9, hit_len=23, sim=0.8)
     base = rand_seq(rng, 600)
     seqs13 = [mutate(rng, base, 0.02).replace("N", "G") for _ in range(15)]
-    assert not tpa.PhaseAIndex.build(_packed(seqs13), 13).direct
+    assert not tpa.PhaseAIndex.build(_packed(seqs13), 13,
+                                     device="cpu").direct
     check_parity(seqs13, make_reads(rng, seqs13, 40), k=13, hit_len=23,
                  sim=0.9)
 
@@ -281,7 +283,7 @@ def test_screen_edge_cases():
     # reads shorter than k, exactly k, all-N, the code-0 window
     reads = ["ACGT", seqs[0][:9], "N" * 50, "A" * 9, seqs[0][10:19]]
     check_parity(seqs, reads, k=9, hit_len=9, sim=0.8)
-    screen = tpa.DeviceScreen.build(_packed(seqs), 9, 9, 0.8)
+    screen = tpa.DeviceScreen.build(_packed(seqs), 9, 9, 0.8, device="cpu")
     v, d = screen.screen(*_pad(["ACG", "TTAG"]))  # no window fits: L < k
     assert not v.any() and d.all()
 
@@ -302,7 +304,8 @@ def test_reads_of_4096_or_more_go_to_the_host():
     reads = [seqs[0][:100], rand_seq(rng, 4100), seqs[1][200:330],
              seqs[2] * 6]
     packed = _packed(seqs)
-    screen = tpa.DeviceScreen.build(packed, 9, 23, 0.8, bucket_cap=128)
+    screen = tpa.DeviceScreen.build(packed, 9, 23, 0.8, device="cpu",
+                                    bucket_cap=128)
     codes, lens = _pad(reads)
     v, d = screen.screen(codes, lens)
     assert d.tolist() == [True, False, True, False]
@@ -328,7 +331,7 @@ def test_cuda_kernels_match_plain(cuda_device, k):
     codes, lens = _pad(reads)
     packed = _packed(seqs)
     cidx = tpa.PhaseAIndex.build(packed, k, cuda_device)
-    pidx = tpa.PhaseAIndex.build(packed, k)
+    pidx = tpa.PhaseAIndex.build(packed, k, device="cpu")
     got = tpa.probe(torch.from_numpy(codes).to(cuda_device),
                     torch.from_numpy(lens).to(cuda_device), cidx)
     want = tpa.probe(torch.from_numpy(codes), torch.from_numpy(lens), pidx)
@@ -348,3 +351,74 @@ def test_cuda_kernels_match_plain(cuda_device, k):
     gv, gd = tpa.DeviceScreen(cidx, 23, 0.8, **caps).screen(codes, lens)
     cv, cd = tpa.DeviceScreen(pidx, 23, 0.8, **caps).screen(codes, lens)
     assert (gd == cd).all() and (gv == cv).all() and gd.sum() > 1000
+
+
+def _edge_tiles(rng, B=512):
+    """Seed tiles at the warp kernel's edges: rows of nb = 0, 1, 31, 32,
+    33, 63, 64, 65, 128 and 512 seeds, random, clustered on a few
+    diagonals, or tandem-repeat chains, plus rows whose seeds all share
+    one diagonal."""
+    rows = []
+    for nb in (0, 1, 31, 32, 33, 63, 64, 65, 128, 512):
+        for kind in range(4):
+            a = np.sort(rng.choice(4000, nb, replace=False))
+            if kind == 0:
+                b = rng.integers(0, 1 << 20, nb)
+            elif kind == 1:
+                diag = rng.integers(-3000, 3000, 3)[rng.integers(0, 3, nb)]
+                b = a + 5000 + diag + rng.integers(-4, 5, nb)
+            elif kind == 2:
+                b = a + 700 + 25 * rng.integers(0, 3, nb)
+            else:
+                b = a + 1234
+            rows.append((a, np.maximum(b, 0)))
+    NR = len(rows)
+    at = np.zeros((NR, B), np.int32)
+    bt = np.zeros((NR, B), np.int32)
+    nb = np.zeros(NR, np.int32)
+    for r, (a, b) in enumerate(rows):
+        perm = rng.permutation(len(a))  # tiles arrive in any order
+        at[r, :len(a)], bt[r, :len(a)], nb[r] = a[perm], b[perm], len(a)
+    lens = rng.integers(100, 4096, NR).astype(np.int32)
+    budgets = rng.integers(0, 600, NR).astype(np.int32)
+    return [torch.from_numpy(x) for x in (at, bt, nb, lens, budgets)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [9, 13])
+def test_cuda_chain_matches_plain_at_edge_widths(cuda_device, k):
+    tiles = _edge_tiles(np.random.default_rng(k))
+    for radius in (10, 0):
+        for hlr in (23, 60):
+            kw = dict(k=k, radius=radius, hit_len_required=hlr)
+            want = tpa.chain_rows(*tiles, **kw)
+            got = tpa.chain_rows(*(x.to(cuda_device) for x in tiles), **kw)
+            assert torch.equal(got.cpu(), want), kw
+            assert want[1].any() and not want[1].all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [12, 13])
+def test_cuda_probe_matches_plain_at_edge_lengths(cuda_device, k):
+    rng = np.random.default_rng(40 + k)
+    base = rand_seq(rng, 4600)
+    seqs = [mutate(rng, base, 0.01).replace("N", "A") for _ in range(6)]
+    packed = _packed(seqs)
+    cidx = tpa.PhaseAIndex.build(packed, k, cuda_device)
+    pidx = tpa.PhaseAIndex.build(packed, k, device="cpu")
+    assert cidx.direct == (k <= 12)
+    for L in (13, 44, 45, 76, 100, 150, tpa.MAX_READ_LEN - 1):
+        reads = []
+        for i in range(24):
+            st = int(rng.integers(0, len(base) - L + 1))
+            r = mutate(rng, seqs[i % 6][st:st + L], 0.02)
+            reads.append(revcomp(r) if i % 3 == 0 else
+                         r[:int(rng.integers(k, L + 1))] if i % 3 == 1 else r)
+        codes, lens = _pad(reads)
+        got = tpa.probe(torch.from_numpy(codes).to(cuda_device),
+                        torch.from_numpy(lens).to(cuda_device), cidx)
+        want = tpa.probe(torch.from_numpy(codes), torch.from_numpy(lens),
+                         pidx)
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w), L
+        assert int(want[2].sum()) > 0

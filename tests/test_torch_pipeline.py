@@ -1,7 +1,8 @@
 """The port's genotyper stage (t1k_tpu_torch.core.pipeline and its CLI)
 against the committed goldens and the JAX package's native route, plus
-its device-routing contract.  The gpu routes run here on the CPU through
-the kernels' plain versions (device="cpu")."""
+its device-routing contract: entry points run on the card, and "auto"
+without a card raises instead of falling back.  The gpu routes run here
+on the CPU through the kernels' plain versions (device="cpu")."""
 
 import hashlib
 import json
@@ -97,7 +98,8 @@ def test_cpu_slice_imports_no_jax(tmp_path):
         f"{str(tmp_path / 'sub')!r}, '--backend', 'gpu', '--emBackend', "
         "'gpu', '--device', 'cpu'])\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
-        "assert not any(m.startswith('t1k_tpu.ops') for m in sys.modules)\n")
+        "assert not any(m == 't1k_tpu' or m.startswith('t1k_tpu.')\n"
+        "               for m in sys.modules), 'the JAX package was imported'\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
@@ -125,8 +127,7 @@ def test_cuda_device_without_cuda_raises(tmp_path, monkeypatch):
 
 
 def _clear_routing_env(monkeypatch):
-    for var in ("T1K_BACKEND", "T1K_BACKEND_RESOLVED", "T1K_GPU_PRESENT",
-                "T1K_EM_BACKEND"):
+    for var in ("T1K_BACKEND", "T1K_GPU_PRESENT", "T1K_EM_BACKEND"):
         monkeypatch.delenv(var, raising=False)
 
 
@@ -152,10 +153,12 @@ def test_gpu_present_env_contract(monkeypatch):
 
 
 def test_resolve_backend_caches_without_touching_user_env(monkeypatch):
+    """"auto" is the card: with one it resolves to "gpu" and caches the
+    presence verdict, never writing the user's T1K_BACKEND."""
     _clear_routing_env(monkeypatch)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     assert tdev.resolve_backend("auto") == "gpu"
-    assert os.environ["T1K_BACKEND_RESOLVED"] == "gpu"
+    assert os.environ["T1K_GPU_PRESENT"] == "1"
     assert os.environ.get("T1K_BACKEND", "") == ""
     assert tdev.resolve_backend("native") == "native"
     monkeypatch.setenv("T1K_BACKEND", "native")
@@ -163,6 +166,9 @@ def test_resolve_backend_caches_without_touching_user_env(monkeypatch):
 
 
 def test_pinned_absence_resolves_native_without_probe(monkeypatch):
+    """A cached absence verdict decides without probing: "auto" on the
+    card raises the no-card error, "auto" on the CPU is the plain
+    versions' route, and only T1K_BACKEND=native resolves native."""
     _clear_routing_env(monkeypatch)
     monkeypatch.setenv("T1K_GPU_PRESENT", "0")
 
@@ -170,8 +176,14 @@ def test_pinned_absence_resolves_native_without_probe(monkeypatch):
         raise AssertionError("presence must not be probed with a verdict")
 
     monkeypatch.setattr(torch.cuda, "is_available", boom)
-    assert tdev.resolve_backend("auto") == "native"
+    with pytest.raises(tdev.NoCardError, match="--backend native"):
+        tdev.resolve_backend("auto")
+    with pytest.raises(tdev.NoCardError, match="--device cpu"):
+        tdev.resolve_backend("auto", "cuda:0")
+    assert tdev.resolve_backend("auto", "cpu") == "gpu"
     assert tdev.gpu_present() is False
+    monkeypatch.setenv("T1K_BACKEND", "native")
+    assert tdev.resolve_backend("auto") == "native"
 
 
 def test_em_auto_routes_on_presence_and_size(monkeypatch):
@@ -184,9 +196,69 @@ def test_em_auto_routes_on_presence_and_size(monkeypatch):
     # >= 5e7 cells with a card present: device EM
     assert Genotyper._resolve_em_backend(100_000, 1000) == "gpu"
     monkeypatch.setenv("T1K_GPU_PRESENT", "0")
-    assert Genotyper._resolve_em_backend(100_000, 1000) == "native"
+    with pytest.raises(tdev.NoCardError):  # no card: an error, not native
+        Genotyper._resolve_em_backend(100_000, 1000)
+    assert Genotyper._resolve_em_backend(100_000, 1000, "cpu") == "gpu"
+    assert Genotyper._resolve_em_backend(1000, 100, "cpu") == "native"
     monkeypatch.setenv("T1K_EM_BACKEND", "gpu")
     assert Genotyper._resolve_em_backend(10, 10) == "gpu"
+
+
+@pytest.mark.parametrize("flags", [["--backend", "auto"],
+                                   ["--backend", "native"]])
+def test_auto_without_a_card_exits_with_the_named_routes(
+        tmp_path, monkeypatch, capsys, flags):
+    """Without a card, "auto" (for the alignment or the EM backend) stops
+    before any work with a usage error naming both explicit routes."""
+    from t1k_tpu_torch.cli.genotype import main
+
+    _clear_routing_env(monkeypatch)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    ref, fq1, fq2 = MULTIGENE
+    prefix = str(tmp_path / "x")
+    with pytest.raises(SystemExit) as exc:
+        main(["-f", ref, "-1", fq1, "-2", fq2, "-o", prefix, *flags])
+    assert exc.value.code == 2
+    err = capsys.readouterr().err
+    assert "--backend native" in err and "--device cpu" in err
+    assert not os.path.exists(prefix + "_genotype.tsv")
+
+
+@pytest.mark.parametrize("flags", [["--device", "cpu"],
+                                   ["--backend", "native", "--emBackend",
+                                    "native"]])
+def test_explicit_routes_run_without_a_card(tmp_path, monkeypatch, flags):
+    """--device cpu (auto on the kernels' plain versions) and the host
+    engine both run without a card and write the goldens."""
+    from t1k_tpu_torch.cli.genotype import main
+
+    _clear_routing_env(monkeypatch)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    ref, fq1, fq2 = MULTIGENE
+    prefix = str(tmp_path / "x")
+    assert main(["-f", ref, "-1", fq1, "-2", fq2, "-o", prefix,
+                 "--outputReadAssignment", *flags]) == 0
+    _check_multigene_goldens(prefix)
+
+
+def test_entry_points_default_to_the_card():
+    import inspect
+
+    from t1k_tpu_torch.core.extractor import ExtractorOptions
+    from t1k_tpu_torch.core.genotyper import Genotyper
+    from t1k_tpu_torch.ops import align, align_band, em, phase_a
+
+    for fn in (Genotyper.__init__, phase_a.PhaseAIndex.build,
+               phase_a.PhaseAIndex.from_jax_arrays, phase_a.DeviceScreen.build,
+               align_band.DeferredDescService.__init__,
+               align_band.make_deferred_stats_fn,
+               align_band.banded_scores_band, align_band.banded_stats_band,
+               align.banded_scores, align.banded_scores_full,
+               em.em_quantify_gpu):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", \
+            fn.__qualname__
+    assert GenotypeOptions().device == ExtractorOptions().device == "cuda"
+    assert GenotypeOptions().backend == ExtractorOptions().backend == "auto"
 
 
 @pytest.mark.cuda
