@@ -5,12 +5,17 @@
 
 Phases, in order; any failure raises and the exit code is non-zero:
   1. card          nvidia-smi name and power limit, torch and CUDA versions
-  2. build         nvcc builds the five kernels of csrc/ for sm_90a, one
+  2. build         nvcc builds the five sources of csrc/ for sm_90a, one
                    process per source, all at once, and loads them
-  3. kernel        band kernel vs its plain PyTorch version on the card,
-                   exact: the 400 golden alignment cases, 100,000 seeded
-                   deferred items through the descriptor service (W=32,
-                   rc-half descriptors included), and W = 64, 128, 256
+  3. kernel        both band kernels vs their plain PyTorch version on the
+                   card, exact: the thread kernel (windows of at most 32
+                   cells) and the warp kernel forced at the same window on
+                   the 400 golden alignment cases, 100,000 seeded deferred
+                   items and the edge items (every t_len - p_len in
+                   [-10, 10] against p_len 1-254, t_len 0, N bases)
+                   through the descriptor service (W=32, rc-half
+                   descriptors included); the warp kernel at W = 64, 128,
+                   256; the golden batch and the wide windows timed
   4. em            f64 SQUAREM EM kernel on a seeded 5,000 read group x
                    900 EC problem: the native f64 loop's iteration count
                    and counts, bit for bit, and equal to the plain version
@@ -35,9 +40,11 @@ Phases, in order; any failure raises and the exit code is non-zero:
                    t1k_tpu_torch.cli.genotype --backend gpu --emBackend
                    gpu, byte-compared with the native route of t1k_tpu;
                    both kernels' launch counts over the run must be > 0
-  8. timing        band kernel vs plain version, in turns, on the largest
-                   deferred-item batch one engine chunk of the main path
-                   sends
+  8. timing        thread kernel, warp kernel and plain version, in turns,
+                   on the largest deferred-item batch one engine chunk of
+                   the main path sends, with the chunk's shape (p_len and
+                   |t_len - p_len| quantiles, row use of the sorted launch,
+                   slot counts of its warps)
   9. extract       the FASTQ extraction stage on the same panel (k = 13,
                    hashed table): 1,000,000 read pairs of 2 x 100 bp
                    (20,000 simulated on-panel pairs, 80,000 near-miss
@@ -201,10 +208,32 @@ def random_items(n: int, rng, max_diff: int = 10):
     windows of a random reference, patterns that are mutated copies with
     |t_len - p_len| <= max_diff, half of them addressed through the rc
     half of the doubled read tensor."""
-    ref = rng.integers(0, 4, 4_000_000).astype(np.int8)
-    ref[rng.random(ref.size) < 0.002] = 4
     t_len = rng.integers(1, 255, n)
     p_len = np.clip(t_len + rng.integers(-max_diff, max_diff + 1, n), 1, 254)
+    return deferred_items(rng, t_len, p_len)
+
+
+EDGE_P_LENS = (1, 2, 15, 16, 17, 31, 32, 33, 60, 96, 254)
+
+
+def edge_items(rng, copies: int = 4):
+    """Deferred items at the thread kernel's edges, `copies` of each
+    shape: every t_len - p_len in [-10, 10] against each of EDGE_P_LENS
+    where 0 <= t_len <= 254 (the engine's caps; t_len 0 included), with
+    3% N in the text and patterns mutated 5% towards any code, N
+    included."""
+    shapes = [(p + d, p) for d in range(-10, 11) for p in EDGE_P_LENS
+              if 0 <= p + d <= 254]
+    t_len, p_len = (np.repeat(np.array(v, np.int64), copies)
+                    for v in zip(*shapes))
+    return deferred_items(rng, t_len, p_len, n_rate=0.03)
+
+
+def deferred_items(rng, t_len, p_len, n_rate: float = 0.002):
+    """The items of random_items and edge_items for given lengths."""
+    n = len(t_len)
+    ref = rng.integers(0, 4, 4_000_000).astype(np.int8)
+    ref[rng.random(ref.size) < n_rate] = 4
     t_off = rng.integers(0, ref.size - 300, n)
     rc = rng.random(n) < 0.5
     reads = []
@@ -254,9 +283,18 @@ HBM_BYTES_PER_S = 3.35e12
 F64_PER_S = 34e12
 # int32 operations per DP cell counted for the aligners' bounds: the
 # affine recurrences (two adds and a max for each of E and F, an add and
-# two maxes for H) and the substitution compare-select; the stats
-# kernel's count propagation is left out, so those bounds are low
+# two maxes for H) and the substitution compare-select
 DP_OPS_PER_CELL = 12
+# With the traceback counts (band_stats.cu, band_item's STATS block), 16
+# more per band cell away from column 0 (the adds the open and diagonal
+# tests compare are E's, F's and H's, counted above; the column-0 and
+# j >= 1 tests touch at most two cells a row): the insert-run open test
+# (compare) and its count (select, add) = 3; the diagonal test (compare)
+# and its count (select MU/XU, add) and the count without the horizontal
+# move (select) = 4; the delete-run open test (compare) and the copy
+# scan's two selects = 3; the run length (subtract, shift, add) = 3; the
+# choice (compare, two selects) = 3
+DP_STATS_OPS_PER_CELL = DP_OPS_PER_CELL + 16
 
 
 def int32_per_s() -> float:
@@ -278,14 +316,16 @@ def bound(n_bytes: float, n_ops: float, ops_per_s: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def dp_bound(t_lens, p_lens, other_bytes: float):
+def dp_bound(t_lens, p_lens, other_bytes: float, stats: bool = True):
     """Bound of a banded aligner over pairs: each pair's text and pattern
-    read once plus `other_bytes`, DP_OPS_PER_CELL per band cell (the band
-    is 11 + |t_len - p_len| wide)."""
+    read once plus `other_bytes`, DP_STATS_OPS_PER_CELL (DP_OPS_PER_CELL
+    for scores alone) per band cell (the band is 11 + |t_len - p_len|
+    wide)."""
     tl = np.asarray(t_lens, np.int64)
     pl = np.asarray(p_lens, np.int64)
     cells = int((pl * (11 + np.abs(tl - pl))).sum())
-    return bound(int((tl + pl).sum()) + other_bytes, DP_OPS_PER_CELL * cells,
+    ops = DP_STATS_OPS_PER_CELL if stats else DP_OPS_PER_CELL
+    return bound(int((tl + pl).sum()) + other_bytes, ops * cells,
                  int32_per_s())
 
 
@@ -303,41 +343,73 @@ class Checker:
             raise AssertionError(f"{what}: kernel differs from plain by {err}")
 
 
-def phase_kernel(dev, check: Checker, n_random: int, info: dict) -> None:
+def warp_kernel(dev):
+    """The warp kernel forced at any window (the plain version on the
+    CPU, for rehearsals)."""
+    from t1k_tpu_torch.ops import align_band as ab
+
+    return ab._band_stats_warp_cuda if dev.type == "cuda" \
+        else ab.band_stats_plain
+
+
+def phase_kernel(dev, check: Checker, check_warp: Checker, n_random: int,
+                 info: dict) -> dict:
+    """Both band kernels against the plain version, exactly: the thread
+    kernel (every window of at most 32 cells) and the warp kernel forced
+    at the same window, on the golden batch, the seeded random items and
+    the edge items; the warp kernel alone at W = 64, 128 and 256.  Times
+    the golden batch (scores and stats, thread kernel) and the wide
+    windows (warp kernel) beside the plain version; returns
+    {case: (ms, plain ms, bound)}."""
     import torch
 
     from t1k_tpu_torch.ops import align_band as ab
 
+    warp = warp_kernel(dev)
+    timed = {}
     tc, tl, pc, pl, want = golden_windows()
     ref, reads, desc = ab._pack_windows(tc, tl, pc, pl, dev)
     ml, over = ab._window_class(tl, pl)
     w = ab.band_window(ml, over)
     for stats in (False, True):
-        k_out = ab.band_stats(ref, reads, desc, ml, w, stats)
-        check(k_out, ab.band_stats_plain(ref, reads, desc, ml, w, stats),
-              f"golden stats={stats}")
+        def run(stats=stats):
+            return ab.band_stats(ref, reads, desc, ml, w, stats)
+
+        def plain(stats=stats):
+            return ab.band_stats_plain(ref, reads, desc, ml, w, stats)
+        k_out = run()
+        p_out = plain()
+        check(k_out, p_out, f"golden stats={stats}")
+        check_warp(warp(ref, reads, desc, ml, w, stats), p_out,
+                   f"golden stats={stats} (warp)")
         if not (k_out[0].cpu().numpy() == want).all():
             raise AssertionError("golden scores differ from the table")
+        timed[f"golden_{'stats' if stats else 'scores'}_W{w}"] = (
+            time_ms(run, 20, dev), time_ms(plain, 1, dev),
+            dp_bound(tl, pl, 40 * len(tl), stats))
     info["golden"] = len(want)
 
     rng = np.random.default_rng(2024)
-    rref, rreads, starts, lens, t_off, t_len, rc = random_items(n_random, rng)
-    svc = ab.DeferredDescService(dev)
-    svc.set_ref(rref)
-    svc.set_layout(starts, lens)
-    base = svc.begin_batch(rreads)
-    p_off = np.where(rc, base, 0) + starts
-    match = svc.stats(t_off, t_len, p_off, lens)
-    d = torch.from_numpy(
-        np.stack([t_off, t_len, p_off, lens]).astype(np.int64)).to(dev)
-    k_out = ab.band_stats(svc._ref, svc._reads, d, ab.DESC_ML, ab.DESC_W)
-    p_out = ab.band_stats_plain(svc._ref, svc._reads, d, ab.DESC_ML,
-                                ab.DESC_W)
-    check(k_out, p_out, "random W=32")
-    if not (match == (p_out[1].cpu().numpy() & 511)).all():
-        raise AssertionError("service match counts differ from plain")
-    info["random_items"] = n_random
-    info["rc_items"] = int(rc.sum())
+    for name, items in (("random", random_items(n_random, rng)),
+                        ("edges", edge_items(rng))):
+        rref, rreads, starts, lens, t_off, t_len, rc = items
+        svc = ab.DeferredDescService(dev)
+        svc.set_ref(rref)
+        svc.set_layout(starts, lens)
+        base = svc.begin_batch(rreads)
+        p_off = np.where(rc, base, 0) + starts
+        match = svc.stats(t_off, t_len, p_off, lens)
+        d = torch.from_numpy(
+            np.stack([t_off, t_len, p_off, lens]).astype(np.int64)).to(dev)
+        args = (svc._ref, svc._reads, d, ab.DESC_ML, ab.DESC_W)
+        p_out = ab.band_stats_plain(*args)
+        check(ab.band_stats(*args), p_out, f"{name} W=32")
+        check_warp(warp(*args), p_out, f"{name} W=32 (warp)")
+        if not (match == (p_out[1].cpu().numpy() & 511)).all():
+            raise AssertionError(f"{name}: service match counts differ "
+                                 "from plain")
+        info[f"{name}_items"] = len(t_len)
+        info[f"{name}_rc_items"] = int(rc.sum())
 
     for w in (64, 128, 256):
         n = 4096
@@ -348,9 +420,22 @@ def phase_kernel(dev, check: Checker, n_random: int, info: dict) -> None:
         pcw = tcw.copy()
         pcw[rng.random(pcw.shape) < 0.05] = 1
         ref, reads, desc = ab._pack_windows(tcw, t_len, pcw, p_len, dev)
-        check(ab.band_stats(ref, reads, desc, 5, w),
-              ab.band_stats_plain(ref, reads, desc, 5, w), f"W={w}")
+
+        def run(ref=ref, reads=reads, desc=desc, w=w):
+            return ab.band_stats(ref, reads, desc, 5, w)
+
+        def plain(ref=ref, reads=reads, desc=desc, w=w):
+            return ab.band_stats_plain(ref, reads, desc, 5, w)
+        check_warp(run(), plain(), f"W={w}")
+        timed[f"wide_stats_W{w}"] = (time_ms(run, 20, dev),
+                                     time_ms(plain, 1, dev),
+                                     dp_bound(t_len, p_len, 40 * n))
     info["wide_windows"] = "64,128,256"
+    for case, (ms, plain_ms, (b_ms, _)) in timed.items():
+        info[f"{case}_ms"] = f"{ms:.4f}"
+        info[f"{case}_plain_ms"] = f"{plain_ms:.2f}"
+        info[f"{case}_bound_ms"] = f"{b_ms:.4f}"
+    return timed
 
 
 def phase_em(dev, n_rg: int, n_ec: int, info: dict):
@@ -446,7 +531,7 @@ def phase_main(dev, work: str, n_genes: int, copies: int, n_pairs: int,
     if proc.returncode != 0:
         raise RuntimeError(f"native route failed:\n{proc.stderr[-4000:]}")
     t_native = time.perf_counter() - t0
-    ab.launch_counts["band_stats"] = 0
+    ab.launch_counts.update(band_stats=0, band_stats_warp=0)
     em.launch_counts["em_squarem"] = 0
     t0 = time.perf_counter()
     cli.main(["-f", panel, "-1", fq1, "-2", fq2, "-o",
@@ -455,6 +540,7 @@ def phase_main(dev, work: str, n_genes: int, copies: int, n_pairs: int,
     t_port = time.perf_counter() - t0
     launches = {"band_stats": ab.launch_counts["band_stats"],
                 "em_squarem": em.launch_counts["em_squarem"]}
+    warp_launches = ab.launch_counts["band_stats_warp"]
     for suffix in ("_genotype.tsv", "_allele.tsv", "_aligned_1.fa",
                    "_aligned_2.fa"):
         with open(os.path.join(work, "native" + suffix), "rb") as f:
@@ -473,6 +559,9 @@ def phase_main(dev, work: str, n_genes: int, copies: int, n_pairs: int,
     if dev.type == "cuda" and min(launches.values()) <= 0:
         raise AssertionError(f"a kernel of the main path never launched: "
                              f"{launches}")
+    if warp_launches:
+        raise AssertionError("the main path launched the warp band kernel")
+    launches["band_stats_warp"] = warp_launches
     if ra["deferred_item_count"] <= 0:
         raise AssertionError("the main path deferred no DP item")
     with open(os.path.join(work, "port_genotype.tsv")) as f:
@@ -492,11 +581,40 @@ def phase_main(dev, work: str, n_genes: int, copies: int, n_pairs: int,
     return launches
 
 
-def phase_timing(dev, check: Checker, work: str, n_reads: int,
-                 info: dict):
-    """Kernel vs plain version, in turns (plain, kernel, kernel, plain), on
-    the largest batch of deferred items one engine chunk of the main path
-    sends.  Returns (kernel ms, plain ms, bound)."""
+def thread_slots(t_len: int, p_len: int, ml: int) -> int:
+    """Register slots one item needs in the thread kernels (band_stats.cu
+    item_slots): the window cells from the column-0 cell left of the band
+    to the row-0 cell right of it."""
+    diff = t_len - p_len
+    base = max(ml - 5 - max(-diff, 0) - 1, 0)
+    return max(min(ml + 5 + max(diff, 0) + 1, 31) - base + 1, 1)
+
+
+def launch_warps(t_len, p_len, ml: int = 15):
+    """The thread kernels' warps (band_stats.cu item_bin): the narrow
+    items (at most 13 slots), then the wide ones, each run longest p_len
+    first.  Returns each warp's rows (its longest p_len) and slot count
+    (13 narrow, else 24 or 32 as the warp's widest item needs)."""
+    need = np.array([thread_slots(int(t), int(p), ml)
+                     for t, p in zip(t_len, p_len)])
+    rows, slots = [], []
+    for part in (need <= 13, need > 13):
+        order = np.argsort(-np.minimum(p_len[part], 255), kind="stable")
+        pad = -len(order) % 32
+        rows.append(np.concatenate([p_len[part][order], np.zeros(
+            pad, np.int64)]).reshape(-1, 32).max(1))
+        widest = np.concatenate([need[part][order], np.zeros(
+            pad, np.int64)]).reshape(-1, 32).max(1)
+        slots.append(np.where(widest <= 13, 13,
+                              np.where(widest <= 24, 24, 32)))
+    return np.concatenate(rows), np.concatenate(slots)
+
+
+def main_path_chunk(dev, work: str, n_reads: int):
+    """The largest batch of deferred items one engine chunk sends when the
+    first `n_reads` reads of <work>/r_1.fq meet <work>/panel.fa.  Returns
+    the recording service (its resident ref and reads) and the int64
+    [4, n] descriptors on `dev`."""
     import torch
 
     from t1k_tpu_torch.core import pipeline as tp
@@ -518,25 +636,68 @@ def phase_timing(dev, check: Checker, work: str, n_reads: int,
     tp.assign_unique_reads(engine, seqs[:n_reads], "gpu", rec,
                            store_results=False,
                            defer_chunk=tp.GenotypeOptions().defer_chunk)
-    d = torch.from_numpy(np.stack(rec.largest)).to(dev)
+    return rec, torch.from_numpy(np.stack(rec.largest)).to(dev)
 
-    def kernel():
-        return ab.band_stats(rec._ref, rec._reads, d, ab.DESC_ML, ab.DESC_W)
+
+def phase_timing(dev, check: Checker, check_warp: Checker, work: str,
+                 n_reads: int, info: dict):
+    """Thread kernel, warp kernel and plain version, in turns (plain,
+    thread, warp, thread, warp, plain), on the largest batch of deferred
+    items one engine chunk of the main path sends; each kernel alone by
+    torch.profiler.  Prints the chunk's shape: p_len and |t_len - p_len|
+    quantiles, the row use of the sorted launch and the warps' slot
+    counts.  Returns ((thread ms, plain ms, bound), (warp ms, plain ms,
+    bound))."""
+    from t1k_tpu_torch.ops import align_band as ab
+
+    rec, d = main_path_chunk(dev, work, n_reads)
+    args = (rec._ref, rec._reads, d, ab.DESC_ML, ab.DESC_W)
+    warp = warp_kernel(dev)
+
+    def thread():
+        return ab.band_stats(*args)
+
+    def warp_fn():
+        return warp(*args)
 
     def plain():
-        return ab.band_stats_plain(rec._ref, rec._reads, d, ab.DESC_ML,
-                                   ab.DESC_W)
+        return ab.band_stats_plain(*args)
 
-    check(kernel(), plain(), "main-path chunk")
-    plain_ms = [time_ms(plain, 3, dev)]
-    kernel_ms = [time_ms(kernel, 50, dev), time_ms(kernel, 50, dev)]
-    plain_ms.append(time_ms(plain, 3, dev))
+    want = plain()
+    check(thread(), want, "main-path chunk")
+    check_warp(warp_fn(), want, "main-path chunk (warp)")
+    cuda = dev.type == "cuda"  # CPU rehearsals: one call each
+    plain_ms = [time_ms(plain, 3 if cuda else 1, dev)]
+    thread_ms, warp_ms = [], []
+    for _ in range(2):
+        thread_ms.append(time_ms(thread, 50 if cuda else 1, dev))
+        warp_ms.append(time_ms(warp_fn, 20 if cuda else 1, dev))
+    plain_ms.append(time_ms(plain, 3 if cuda else 1, dev))
+    if cuda:  # each kernel alone, without the wrapper
+        for name in ("thread_narrow", "thread_wide", "sort_",
+                     "band_warp_kernel"):
+            us = call_us(warp_fn if "warp" in name else thread, name, 20)
+            info[f"{name.strip('_')}_us"] = us
+    t_len, p_len = rec.largest[1], rec.largest[3]
+    diff = np.abs(t_len - p_len)
+    q = (0, 0.5, 0.9, 0.99, 1)
     info["items"] = int(d.shape[1])
-    info["kernel_ms"] = " ".join(f"{t:.4f}" for t in kernel_ms)
+    info["p_len_q"] = ",".join(str(int(v)) for v in np.quantile(p_len, q))
+    info["absdiff_q"] = ",".join(str(int(v)) for v in np.quantile(diff, q))
+    rows, slots = launch_warps(t_len, p_len)
+    info["row_use"] = f"{p_len.sum() / (32 * rows.sum()):.4f}"
+    info["warp_slots"] = " ".join(
+        f"{c}:{int((slots == c).sum())}" for c in (13, 24, 32))
+    info["thread_ms"] = " ".join(f"{t:.4f}" for t in thread_ms)
+    info["warp_ms"] = " ".join(f"{t:.4f}" for t in warp_ms)
     info["plain_ms"] = " ".join(f"{t:.2f}" for t in plain_ms)
     # descriptors in (4 x int64), scores and packed counts out (2 x int32)
-    return (float(np.mean(kernel_ms)), float(np.mean(plain_ms)),
-            dp_bound(rec.largest[1], rec.largest[3], 40 * d.shape[1]))
+    b = dp_bound(t_len, p_len, 40 * d.shape[1])
+    info["bound_ms"] = f"{b[0]:.4f}"
+    info["bound_scores_only_ms"] = \
+        f"{dp_bound(t_len, p_len, 40 * d.shape[1], stats=False)[0]:.4f}"
+    return ((float(np.mean(thread_ms)), float(np.mean(plain_ms)), b),
+            (float(np.mean(warp_ms)), float(np.mean(plain_ms)), b))
 
 
 # ------------------------------------------------------------- v1 aligner
@@ -1014,10 +1175,11 @@ def phase_extract(dev, work: str, info: dict, counts=EXTRACT_PAIRS):
     return launches, prefix
 
 
-def kernel_us(fn, kernel: str, reps: int):
-    """Mean device microseconds of the CUDA kernels whose name contains
-    `kernel` over `reps` calls of `fn`, from torch.profiler (None where
-    the profiler shows no device time)."""
+def kernel_device_us(fn, kernel: str, reps: int) -> dict:
+    """{kernel name: (mean device microseconds per launch, launches)} of
+    the CUDA kernels whose name contains `kernel`, over `reps` calls of
+    `fn`, from torch.profiler.  The profiler may drop some events of a
+    run, so each mean is over the launches it kept."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1026,13 +1188,29 @@ def kernel_us(fn, kernel: str, reps: int):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    total = count = 0
+    out = {}
     for ev in prof.key_averages():
-        if kernel in ev.key:
-            total += getattr(ev, "device_time_total",
-                             getattr(ev, "cuda_time_total", 0))
-            count += ev.count
-    return total / count if count and total else None
+        total = getattr(ev, "device_time_total",
+                        getattr(ev, "cuda_time_total", 0))
+        if kernel in ev.key and ev.count and total:
+            out[ev.key] = (total / ev.count, ev.count)
+    return out
+
+
+def kernel_us(fn, kernel: str, reps: int):
+    """Mean device microseconds per launch of the CUDA kernels whose name
+    contains `kernel` (None where the profiler shows no device time)."""
+    got = kernel_device_us(fn, kernel, reps).values()
+    n = sum(c for _, c in got)
+    return sum(us * c for us, c in got) / n if n else None
+
+
+def call_us(fn, kernel: str, reps: int):
+    """Device microseconds per call of `fn` of the CUDA kernels whose name
+    contains `kernel`, each launched once a call: the sum of their means
+    per launch (None where the profiler shows no device time)."""
+    got = kernel_device_us(fn, kernel, reps).values()
+    return sum(us for us, _ in got) if got else None
 
 
 def probe_bound(codes: np.ndarray, lens: np.ndarray, index):
@@ -1140,8 +1318,12 @@ def phase_screen_timing(dev, check_probe: Checker,
                  for (km, pm), b in zip(out, bounds))
 
 
-KERNELS = ("band_stats", "em_squarem", "align_full", "phase_a_probe",
+SOURCES = ("band_stats", "em_squarem", "align_full", "phase_a_probe",
            "phase_a_chain")
+# kernel record -> its source under t1k_tpu_torch/csrc/
+KERNELS = {"band_stats": "band_stats", "band_stats_warp": "band_stats",
+           "em_squarem": "em_squarem", "align_full": "align_full",
+           "phase_a_probe": "phase_a_probe", "phase_a_chain": "phase_a_chain"}
 
 
 def run(dev, sizes: dict) -> list:
@@ -1156,9 +1338,9 @@ def run(dev, sizes: dict) -> list:
     if cuda:
         with phase("build") as info:
             t0 = time.perf_counter()
-            _build.build_all(KERNELS)
+            _build.build_all(SOURCES)
             info["all_s"] = f"{time.perf_counter() - t0:.2f}"
-            for name in KERNELS:
+            for name in SOURCES:
                 with open(os.path.join(_build.BUILD_DIR, f"{name}.log")) as f:
                     lines = f.read().splitlines()
                 info[f"{name}_s"] = lines[1]
@@ -1166,7 +1348,8 @@ def run(dev, sizes: dict) -> list:
                     if "registers" in line or "spill" in line:
                         print(f"  ptxas {name}:", line.strip(), flush=True)
     with phase("kernel") as info:
-        phase_kernel(dev, checks["band_stats"], sizes["random_items"], info)
+        phase_kernel(dev, checks["band_stats"], checks["band_stats_warp"],
+                     sizes["random_items"], info)
         cuda and torch.cuda.synchronize()
     with phase("em") as info:
         em_err, *times["em_squarem"] = phase_em(dev, *sizes["em"], info)
@@ -1182,8 +1365,9 @@ def run(dev, sizes: dict) -> list:
             launches = phase_main(dev, work, PANEL_GENES, PANEL_COPIES,
                                   sizes["sim_pairs"], info)
         with phase("timing") as info:
-            times["band_stats"] = phase_timing(
-                dev, checks["band_stats"], work, 8192, info)
+            times["band_stats"], times["band_stats_warp"] = phase_timing(
+                dev, checks["band_stats"], checks["band_stats_warp"], work,
+                8192, info)
         with phase("extract") as info:
             pa_launches, prefix = phase_extract(dev, work, info,
                                                 sizes["extract"])
@@ -1194,15 +1378,16 @@ def run(dev, sizes: dict) -> list:
                                     info)
     launches.update(pa_launches, align_full=v1_launches)
     replaces = {"band_stats": "t1k_tpu/ops/align_pallas_band.py:55",
+                "band_stats_warp": "t1k_tpu/ops/align_pallas_band.py:55",
                 "em_squarem": "t1k_tpu/ops/em.py:213",
                 "align_full": "t1k_tpu/ops/align_pallas.py:44",
                 "phase_a_probe": "t1k_tpu/ops/phase_a.py:343",
                 "phase_a_chain": "t1k_tpu/ops/phase_a.py:457"}
     errs = {name: checks[name].max_err for name in KERNELS}
     errs["em_squarem"] = em_err
-    # no single PyTorch call computes any of the five: library_ms is null
+    # no single PyTorch call computes any of them: library_ms is null
     return [{"name": name, "route": "cuda",
-             "source": f"t1k_tpu_torch/csrc/{name}.cu",
+             "source": f"t1k_tpu_torch/csrc/{KERNELS[name]}.cu",
              "replaces": replaces[name], "launches": launches[name],
              "max_abs_err": errs[name], "ms": times[name][0],
              "plain_ms": times[name][1], "bound_ms": times[name][2][0],

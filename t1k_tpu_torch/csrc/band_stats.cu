@@ -8,24 +8,49 @@
 // match / mismatch / indel counts of the reference walk carried forward
 // as 9-bit fields of one packed counter (MU / XU / IU).
 //
-// Design: one warp per item, the band window on the lanes.  The DP state
-// of row i lives in window coordinates w = j - i + ML; lane l holds the CPL
-// consecutive cells w = l*CPL .. l*CPL + CPL-1, so W = 32*CPL.  Each warp
-// reads its own descriptor (t_off, t_len, p_off, p_len), its text bases
-// straight from the resident reference and its pattern base from the
-// resident read tensor, and loops over its own p_len rows.  The vertical
-// move is a __shfl_down_sync by one cell, the diagonal needs no shift, the
-// horizontal gap chain is a warp prefix max (__shfl_up_sync, 5 steps), and
-// the delete-run count is a (key, payload) copy scan with the same shuffle
-// pattern.  No window tensors are materialised in device memory.
+// The DP state of row i lives in window coordinates w = j - i + ML, so
+// the diagonal predecessor of a cell is the same w on the previous row,
+// the vertical one w + 1 and the horizontal one w - 1.  Two designs:
 //
-// What bounds it on an H100: integer ALU work and shuffle latency per row
-// (about 20 dependent shuffles a row with stats), not bytes - an item reads
-// t_len + p_len bytes and writes 8.  Items run independently, so the card
-// is filled by item count; a chunk of the engine carries thousands.
+// Thread kernels (windows of at most 32 cells, every launch of the
+// engine's deferred items): one thread per item.  A thread holds only the
+// slots w in [ML - left - 1, ML + right + 1] of the window (the band, the
+// column-0 cell one slot left of it and the row-0 cell right of it that
+// feeds the first row's vertical move) in registers: NS each of m, e and
+// the packed counts, NS = 13 + |t_len - p_len| at least.  A row is one
+// left-to-right pass over the slots with compile-time indices: the
+// horizontal gap chain is a running max and the delete-run copy scan a
+// running (last open cell, payload) pair, so no data crosses lanes.  The
+// text under the band slides one base per row, so it is kept as one-hot
+// bit masks over the slots (one per base, N in all four) shifted by one
+// bit a row, with one new byte loaded per row, four rows ahead.
+//
+// Nearly every deferred item has t_len == p_len (13 slots), and a
+// kernel's register count is that of its widest path, so the items are
+// split: thread_narrow_kernel takes those of at most 13 slots (with the
+// rows past column 0 in a copy of the row without its tests),
+// thread_wide_kernel the rest, each warp at 24 slots (every wide item of
+// the engine's ML = 15) or 32.  The two run side by side on two streams,
+// the wide one dispatched first, so its few long warps start at once.
+// A counting sort on the card (three small kernels) orders each range by
+// p_len, longest first, so a warp's 32 items run about as many rows
+// each; results go back to the items' own columns.
+//
+// band_warp_kernel (windows of 64, 128 and 256 cells; no stage launches
+// one): one warp per item, lane l holding the CPL cells w = l*CPL ..
+// l*CPL + CPL-1.  The vertical move is a __shfl_down_sync, the gap chain
+// a warp prefix max and the delete-run count a (key, payload) copy scan,
+// each with the same shuffle pattern.
+//
+// What bounds them on an H100: integer instruction throughput, not bytes
+// - an item reads t_len + p_len bytes and writes 8.  The warp kernel
+// spends about 24 dependent shuffles and 200 warp instructions a row on
+// 32 lanes of which the band uses 12-21; the thread kernels about 40
+// instructions per slot a row, one warp instruction serving 32 items.
 
 #include <cstdint>
 #include <climits>
+#include <type_traits>
 #include <cuda_runtime.h>
 
 namespace {
@@ -56,7 +81,7 @@ __device__ __forceinline__ void take_left(int lk, unsigned lp, int& k,
 
 template <int CPL, bool STATS>
 __global__ void __launch_bounds__(32 * kWarpsPerBlock)
-band_kernel(const int8_t* __restrict__ ref, const int8_t* __restrict__ reads,
+band_warp_kernel(const int8_t* __restrict__ ref, const int8_t* __restrict__ reads,
             const int64_t* __restrict__ desc, int64_t n, int ml,
             int32_t* __restrict__ out) {
   const int lane = threadIdx.x & 31;
@@ -276,38 +301,474 @@ band_kernel(const int8_t* __restrict__ ref, const int8_t* __restrict__ reads,
 }
 
 template <int CPL>
-void launch(const int8_t* ref, const int8_t* reads, const int64_t* desc,
-            int64_t n, int ml, int stats, int32_t* out, cudaStream_t stream) {
+void launch_warp(const int8_t* ref, const int8_t* reads, const int64_t* desc,
+                 int64_t n, int ml, int stats, int32_t* out,
+                 cudaStream_t stream) {
   const unsigned grid = (unsigned)((n + kWarpsPerBlock - 1) / kWarpsPerBlock);
   const dim3 block(32 * kWarpsPerBlock);
   if (stats)
-    band_kernel<CPL, true><<<grid, block, 0, stream>>>(ref, reads, desc, n,
-                                                       ml, out);
+    band_warp_kernel<CPL, true><<<grid, block, 0, stream>>>(ref, reads, desc,
+                                                            n, ml, out);
   else
-    band_kernel<CPL, false><<<grid, block, 0, stream>>>(ref, reads, desc, n,
-                                                        ml, out);
+    band_warp_kernel<CPL, false><<<grid, block, 0, stream>>>(ref, reads, desc,
+                                                             n, ml, out);
+}
+
+// ------------------------------------------------------- one thread per item
+
+constexpr int kW = 32;  // the thread kernels' window
+constexpr int kThreadBlock = 128;
+constexpr int kAhead = 4;  // rows of bases loaded ahead
+// Slot counts: the narrow kernel's, then the wide kernel's two.
+constexpr int kNarrow = 13;
+constexpr int kWideLow = 24;
+// Order bins: the narrow items by length, then the wide items by length.
+// The scratch holds the bins, the split (the first wide position) and the
+// permutation.
+constexpr int kLens = 256;
+constexpr int kBins = 2 * kLens;
+constexpr int kScanThreads = kBins / 2;
+constexpr int kSortBlock = 256;
+constexpr int kScatterItems = 4;
+
+// Slots an item needs: the window cells from the column-0 cell left of
+// the band to the row-0 cell right of it, clipped to the window.
+__device__ __forceinline__ int item_slots(int tl, int pl, int ml) {
+  const int diff = tl - pl;
+  const int base = max(ml - 5 - max(-diff, 0) - 1, 0);
+  return max(min(ml + 5 + max(diff, 0) + 1, kW - 1) - base + 1, 1);
+}
+
+// Longest p_len first (p_len >= 255 share the first length) within each
+// kernel's range, so a warp's items run about as many rows each.
+__device__ __forceinline__ int item_bin(const int64_t* desc, int64_t n,
+                                        int64_t k, int ml) {
+  const int64_t pl = desc[3 * n + k];
+  const int len = kLens - 1 - (int)min(pl, (int64_t)(kLens - 1));
+  const bool narrow = item_slots((int)desc[n + k], (int)pl, ml) <= kNarrow;
+  return narrow ? len : kLens + len;
+}
+
+__global__ void __launch_bounds__(kSortBlock)
+sort_count_kernel(const int64_t* __restrict__ desc, int64_t n, int ml,
+                  int* __restrict__ bins) {
+  __shared__ int h[kBins];
+  for (int b = threadIdx.x; b < kBins; b += kSortBlock) h[b] = 0;
+  __syncthreads();
+  for (int64_t k = (int64_t)blockIdx.x * kSortBlock + threadIdx.x; k < n;
+       k += (int64_t)gridDim.x * kSortBlock)
+    atomicAdd(&h[item_bin(desc, n, k, ml)], 1);
+  __syncthreads();
+  for (int b = threadIdx.x; b < kBins; b += kSortBlock)
+    if (h[b]) atomicAdd(&bins[b], h[b]);
+}
+
+// Exclusive scan of the bin counts in place (the bins become cursors),
+// two bins a thread; bins[kBins] = the first wide position.
+__global__ void __launch_bounds__(kScanThreads) sort_scan_kernel(int* bins) {
+  static_assert(kBins <= 2 * kScanThreads, "two bins a thread");
+  __shared__ int acc[kScanThreads];
+  const int t = threadIdx.x;
+  const int c0 = 2 * t < kBins ? bins[2 * t] : 0;
+  const int c1 = 2 * t + 1 < kBins ? bins[2 * t + 1] : 0;
+  acc[t] = c0 + c1;
+  __syncthreads();
+  for (int d = 1; d < kScanThreads; d <<= 1) {
+    const int v = t >= d ? acc[t - d] : 0;
+    __syncthreads();
+    acc[t] += v;
+    __syncthreads();
+  }
+  const int before = acc[t] - c0 - c1;
+  if (2 * t < kBins) bins[2 * t] = before;
+  if (2 * t + 1 < kBins) bins[2 * t + 1] = before + c0;
+  if (2 * t == kLens) bins[kBins] = before;
+}
+
+// Each block ranks its items per bin in shared memory, then claims one
+// range per bin from the global cursors.  The order within a bin is
+// arbitrary; results land in the items' own columns all the same.
+__global__ void __launch_bounds__(kSortBlock)
+sort_scatter_kernel(const int64_t* __restrict__ desc, int64_t n, int ml,
+                    int* __restrict__ cursor, int* __restrict__ perm) {
+  __shared__ int h[kBins];
+  __shared__ int start[kBins];
+  for (int b = threadIdx.x; b < kBins; b += kSortBlock) h[b] = 0;
+  __syncthreads();
+  const int64_t k0 =
+      (int64_t)blockIdx.x * kSortBlock * kScatterItems + threadIdx.x;
+  int bin[kScatterItems], rank[kScatterItems];
+#pragma unroll
+  for (int r = 0; r < kScatterItems; ++r) {
+    const int64_t k = k0 + (int64_t)r * kSortBlock;
+    bin[r] = -1;
+    rank[r] = 0;
+    if (k < n) {
+      bin[r] = item_bin(desc, n, k, ml);
+      rank[r] = atomicAdd(&h[bin[r]], 1);
+    }
+  }
+  __syncthreads();
+  for (int b = threadIdx.x; b < kBins; b += kSortBlock)
+    start[b] = h[b] ? atomicAdd(&cursor[b], h[b]) : 0;
+  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < kScatterItems; ++r)
+    if (bin[r] >= 0)
+      perm[start[bin[r]] + rank[r]] = (int)(k0 + (int64_t)r * kSortBlock);
+}
+
+// One item over NS register slots: slot s is window cell w = base + s,
+// base = max(ML - left - 1, 0), so the slots cover the column-0 cell left
+// of the band (w = ML - left - 1, absent when that is -1), the band and
+// the row-0 cell right of it; cells w >= kW do not exist.  NS must be at
+// least item_slots().  SPLIT runs the rows past the column-0 cell's last
+// slot (i > ML - base) through a copy of the row without the column-0
+// and j >= 1 tests.  Returns (score, packed counts) before the
+// single-base and empty fix-ups.
+template <int NS, bool STATS, bool SPLIT>
+__device__ __forceinline__ int2 band_item(const int8_t* __restrict__ ref,
+                                          const int8_t* __restrict__ reads,
+                                          int64_t t_off, int tl,
+                                          int64_t p_off, int pl, int ml) {
+  static_assert(NS <= 32, "slots are the bits of one word");
+  const int diff = tl - pl;
+  const int left = 5 + max(-diff, 0);
+  const int right = 5 + max(diff, 0);
+  const int base = max(ml - left - 1, 0);
+  const int n_exist = kW - base;  // slots s < n_exist lie in the window
+  const int band_lo = ml - left - base;
+  const int band_hi = min(ml + right, kW - 1) - base;
+
+  int m[NS], e[NS];
+  unsigned pm[NS], pe[NS];
+#pragma unroll
+  for (int s = 0; s < NS; ++s) {
+    const int j0 = base + s - ml;
+    const bool inside = j0 >= 1 && j0 <= tl;
+    m[s] = j0 == 0 ? 0 : (inside ? kGO + j0 * kGO : kNegInf);
+    e[s] = j0 == 0 ? 0 : (inside ? kGO + (pl + 1) * kGO : kNegInf);
+    if (s >= n_exist) {
+      m[s] = kNegInf;
+      e[s] = kNegInf;
+    }
+    if (STATS) {
+      // row-0 closed forms of the reference walk's boundary quirks
+      pm[s] = j0 == 0 ? 0u
+                      : (unsigned)(j0 * (int)kIU +
+                                   (j0 * kGE >= (pl + 1) * kGO ? 0 : (int)kIU));
+      pe[s] = j0 == 0 ? 0u : (unsigned)((j0 + 1) * (int)kIU);
+    }
+  }
+
+  // Text under the slots as one-hot masks: bit s of eq[b] is set where the
+  // base under slot s on this row is b or N.  Row i's slot NS-1 lies on
+  // text column j = base - ML + i + NS - 1; columns off the text load
+  // nothing (code -1 sets no bit).
+  const int j_top = base - ml + NS - 1;  // + i
+  auto text_code = [&](int j) -> int {
+    return (j >= 1 && j <= tl) ? (int)__ldg(ref + t_off + j - 1) : -1;
+  };
+  unsigned eq0 = 0u, eq1 = 0u, eq2 = 0u, eq3 = 0u;
+  auto push = [&](int c) {
+    constexpr unsigned top = 1u << (NS - 1);
+    const bool nb = c == 4;
+    eq0 = (eq0 >> 1) | ((c == 0 || nb) ? top : 0u);
+    eq1 = (eq1 >> 1) | ((c == 1 || nb) ? top : 0u);
+    eq2 = (eq2 >> 1) | ((c == 2 || nb) ? top : 0u);
+    eq3 = (eq3 >> 1) | ((c == 3 || nb) ? top : 0u);
+  };
+#pragma unroll
+  for (int r = 2 - NS; r <= 0; ++r) push(text_code(j_top + r));
+  int tq[kAhead], pq[kAhead];  // codes of rows i .. i + kAhead - 1
+#pragma unroll
+  for (int a = 0; a < kAhead; ++a) {
+    tq[a] = text_code(j_top + 1 + a);
+    pq[a] = a < pl ? (int)__ldg(reads + p_off + a) : 0;
+  }
+
+  // Row i.  Without column 0 on the slots (kCol0 false: i > ML - base)
+  // every slot has j >= 1.
+  auto row = [&](int i, auto col0_rows) {
+    constexpr bool kCol0 = decltype(col0_rows)::value;
+    push(tq[0]);
+    const int pb = pq[0];
+#pragma unroll
+    for (int a = 0; a + 1 < kAhead; ++a) {
+      tq[a] = tq[a + 1];
+      pq[a] = pq[a + 1];
+    }
+    tq[kAhead - 1] = text_code(j_top + i + kAhead);
+    pq[kAhead - 1] =
+        i + kAhead <= pl ? (int)__ldg(reads + p_off + i + kAhead - 1) : 0;
+    const unsigned match = pb == 0   ? eq0
+                           : pb == 1 ? eq1
+                           : pb == 2 ? eq2
+                           : pb == 3 ? eq3
+                                     : 0xffffffffu;
+
+    const int js0 = base - ml + i;  // text column of slot 0
+    const int c0 = -js0;            // slot of column 0
+    const int m0_i = kGO + i * kGO;
+    const bool start_le1 = left >= i - 1;
+    // in band: inside the band's w range and on the text
+    const int lo = max(band_lo, max(1 - js0, 0));
+    const int hi = min(band_hi, min(tl - js0, NS - 1));
+    const unsigned inb =
+        hi >= lo ? (0xffffffffu >> (31 - hi)) & (0xffffffffu << lo) : 0u;
+
+    int run = kNegInf;        // max of u over the slots left of s
+    int m_left = kNegInf;     // this row's m one slot left
+    unsigned nof_left = 0u;   // its count without the horizontal move
+    int last_w = -1024;       // the last open cell at or left of s
+    unsigned last_p = 0u;     // and its payload
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      const int j = js0 + s;
+      const bool col0 = kCol0 && s == c0;
+      const bool j_pos = !kCol0 || j >= 1;
+      const bool inband = (inb >> s) & 1u;
+      const bool is_match = (match >> s) & 1u;
+      const int sub = is_match ? kMatch : kMismatch;
+      const int m_up = s + 1 < NS ? m[s + 1 < NS ? s + 1 : s] : kNegInf;
+      const int e_up = s + 1 < NS ? e[s + 1 < NS ? s + 1 : s] : kNegInf;
+      int ec = s + 1 < NS ? max(e_up + kGE, m_up + (kGO + kGE)) : kNegInf;
+      if (col0) ec = kGO + i * kGE;
+      int h = col0 ? m0_i : max(m[s] + sub, ec);
+      if (!(inband || (col0 && start_le1))) h = kNegInf;
+      const int u = col0 ? (start_le1 ? m0_i - kGO : kNegInf) : h - kGE * j;
+      const int f = kGO + kGE * j + run;
+      run = max(run, u);
+      const bool ibc = inband || col0;
+      int mc = ibc ? max(h, f) : kNegInf;
+      if (col0) mc = m0_i;
+      if (!ibc) ec = kNegInf;
+      if (STATS) {
+        // the walk's tie rules: the insert-run pop compares the previous
+        // row's m one slot right, the delete-run pop this row's m one
+        // slot left
+        const unsigned pm_up = s + 1 < NS ? pm[s + 1 < NS ? s + 1 : s] : 0u;
+        const unsigned pe_up = s + 1 < NS ? pe[s + 1 < NS ? s + 1 : s] : 0u;
+        const bool open_e = m_up + (kGO + kGE) == ec;
+        const unsigned pe_new = kIU + (open_e ? pm_up : pe_up);
+        const bool diag_ok = m[s] + sub == mc && j_pos;
+        const unsigned diag_p = pm[s] + (is_match ? kMU : kXU);
+        const unsigned nof = diag_ok ? diag_p : pe_new;
+        if (col0 || (m_left + (kGO + kGE) == f && j_pos)) {
+          last_w = base + s;
+          last_p = col0 ? (unsigned)i * kIU : nof_left;
+        }
+        const unsigned pf = last_p + (unsigned)(base + s - last_w + 1) * kIU;
+        unsigned v = diag_ok ? diag_p : (f >= ec ? pf : pe_new);
+        if (col0) v = (unsigned)i * kIU;
+        pm[s] = v;
+        pe[s] = pe_new;
+        nof_left = nof;
+      }
+      m_left = mc;
+      m[s] = mc;
+      e[s] = ec;
+    }
+  };
+  const int col0_rows = SPLIT ? min(pl, ml - base) : pl;
+  int i = 1;
+  for (; i <= col0_rows; ++i) row(i, std::true_type{});
+  if constexpr (SPLIT)
+    for (; i <= pl; ++i) row(i, std::false_type{});
+
+  // the final cell w = ML + diff, outside the window for the empty values
+  const int w_final = ml + diff;
+  const int fs = w_final - base;
+  int s_out = kNegInf;
+  unsigned statv = 0u;
+  if (w_final >= 0 && w_final < kW) {
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      if (s == fs) {
+        s_out = m[s];
+        if (STATS) statv = pm[s];
+      }
+    }
+  }
+  return make_int2(max(s_out, kNegInf), max((int)statv, 0));
+}
+
+struct Item {
+  int64_t t_off, p_off;
+  int tl, pl;
+};
+
+__device__ __forceinline__ Item load_item(const int64_t* __restrict__ desc,
+                                          int64_t n, int64_t item) {
+  return Item{desc[item], desc[2 * n + item], (int)desc[n + item],
+              (int)desc[3 * n + item]};
+}
+
+// Single-base and empty fix-ups, then the item's own column.
+template <bool STATS>
+__device__ __forceinline__ void store_item(const int8_t* __restrict__ ref,
+                                           const int8_t* __restrict__ reads,
+                                           const Item& it, int2 r,
+                                           int64_t n, int64_t item,
+                                           int32_t* __restrict__ out) {
+  int s_out = r.x, p_out = r.y;
+  if (it.tl == 1 && it.pl == 1) {
+    const int t0 = ref[it.t_off];
+    const int p0 = reads[it.p_off];
+    const bool eq = t0 == p0 || t0 == 4 || p0 == 4;
+    s_out = eq ? kMatch : kMismatch;
+    p_out = eq ? (int)kMU : (int)kXU;
+  }
+  if (it.tl == 0 || it.pl == 0) {
+    s_out = 0;
+    p_out = 0;
+  }
+  out[item] = s_out;
+  out[n + item] = STATS ? p_out : 0;
+}
+
+// The narrow items (at most kNarrow slots): perm[0 .. split).
+template <bool STATS>
+__global__ void __launch_bounds__(kThreadBlock)
+thread_narrow_kernel(const int8_t* __restrict__ ref,
+                     const int8_t* __restrict__ reads,
+                     const int64_t* __restrict__ desc,
+                     const int* __restrict__ order, int64_t n, int ml,
+                     int32_t* __restrict__ out) {
+  const int64_t k = (int64_t)blockIdx.x * kThreadBlock + threadIdx.x;
+  if (k >= order[kBins]) return;
+  const int64_t item = order[kBins + 1 + k];
+  const Item it = load_item(desc, n, item);
+  const int2 r = band_item<kNarrow, STATS, true>(ref, reads, it.t_off, it.tl,
+                                                 it.p_off, it.pl, ml);
+  store_item<STATS>(ref, reads, it, r, n, item, out);
+}
+
+// One wide item at the warp's slot count.
+template <bool STATS>
+__device__ __forceinline__ void wide_item(const int8_t* __restrict__ ref,
+                                          const int8_t* __restrict__ reads,
+                                          const Item& it, int need, int64_t n,
+                                          int64_t item, int ml,
+                                          int32_t* __restrict__ out) {
+  int2 r;
+  if (need <= kWideLow)
+    r = band_item<kWideLow, STATS, false>(ref, reads, it.t_off, it.tl,
+                                          it.p_off, it.pl, ml);
+  else
+    r = band_item<32, STATS, false>(ref, reads, it.t_off, it.tl, it.p_off,
+                                    it.pl, ml);
+  store_item<STATS>(ref, reads, it, r, n, item, out);
+}
+
+// The wide items: perm[split .. n); each warp takes the smaller slot
+// count (24 or 32) that all of its items fit.
+template <bool STATS>
+__global__ void __launch_bounds__(kThreadBlock)
+thread_wide_kernel(const int8_t* __restrict__ ref,
+                   const int8_t* __restrict__ reads,
+                   const int64_t* __restrict__ desc,
+                   const int* __restrict__ order, int64_t n, int ml,
+                   int32_t* __restrict__ out) {
+  const int64_t k =
+      order[kBins] + (int64_t)blockIdx.x * kThreadBlock + threadIdx.x;
+  const unsigned live = __ballot_sync(0xffffffffu, k < n);
+  if (k >= n) return;
+  const int64_t item = order[kBins + 1 + k];
+  const Item it = load_item(desc, n, item);
+  const int need = __reduce_max_sync(live, item_slots(it.tl, it.pl, ml));
+  wide_item<STATS>(ref, reads, it, need, n, item, ml, out);
+}
+
+// order: kBins cursors, the split, then perm [n] in item_bin order.
+void item_order(const int64_t* desc, int64_t n, int ml, int* order,
+                cudaStream_t stream) {
+  cudaMemsetAsync(order, 0, kBins * sizeof(int), stream);
+  const int64_t tiles = (n + kSortBlock - 1) / kSortBlock;
+  sort_count_kernel<<<(unsigned)min(tiles, (int64_t)1056), kSortBlock, 0,
+                      stream>>>(desc, n, ml, order);
+  sort_scan_kernel<<<1, kScanThreads, 0, stream>>>(order);
+  const int64_t per = (int64_t)kSortBlock * kScatterItems;
+  sort_scatter_kernel<<<(unsigned)((n + per - 1) / per), kSortBlock, 0,
+                        stream>>>(desc, n, ml, order, order + kBins + 1);
+}
+
+// The second stream of the current device, for the narrow kernel.
+cudaStream_t side_stream(int dev) {
+  static cudaStream_t side[64] = {};
+  if (side[dev] == nullptr)
+    cudaStreamCreateWithFlags(&side[dev], cudaStreamNonBlocking);
+  return side[dev];
+}
+
+// The wide kernel goes first on the caller's stream and the narrow kernel
+// on a second stream beside it: the card dispatches the wide blocks (its
+// blocks past the wide items end at once) first, so its few long warps
+// start at once instead of after the last narrow block.  The caller's
+// stream then waits for the narrow kernel.
+int launch_thread(const int8_t* ref, const int8_t* reads,
+                  const int64_t* desc, int* order, int64_t n, int ml,
+                  int stats, int32_t* out, cudaStream_t stream) {
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
+  cudaStream_t side = side_stream(dev);
+  item_order(desc, n, ml, order, stream);
+  cudaEvent_t ordered, narrow_done;
+  cudaEventCreateWithFlags(&ordered, cudaEventDisableTiming);
+  cudaEventCreateWithFlags(&narrow_done, cudaEventDisableTiming);
+  cudaEventRecord(ordered, stream);
+  const unsigned grid = (unsigned)((n + kThreadBlock - 1) / kThreadBlock);
+  if (stats)
+    thread_wide_kernel<true><<<grid, kThreadBlock, 0, stream>>>(
+        ref, reads, desc, order, n, ml, out);
+  else
+    thread_wide_kernel<false><<<grid, kThreadBlock, 0, stream>>>(
+        ref, reads, desc, order, n, ml, out);
+  cudaStreamWaitEvent(side, ordered, 0);
+  if (stats)
+    thread_narrow_kernel<true><<<grid, kThreadBlock, 0, side>>>(
+        ref, reads, desc, order, n, ml, out);
+  else
+    thread_narrow_kernel<false><<<grid, kThreadBlock, 0, side>>>(
+        ref, reads, desc, order, n, ml, out);
+  cudaEventRecord(narrow_done, side);
+  cudaStreamWaitEvent(stream, narrow_done, 0);
+  cudaEventDestroy(ordered);  // released once the waits are done
+  cudaEventDestroy(narrow_done);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // desc: int64 [4, n] rows (t_off, t_len, p_off, p_len) into the flat code
 // arrays ref and reads.  out: int32 [2, n] rows (score, packed counts).
-// w is the window width, one of 32, 64, 128, 256.  Returns the launch's
-// cudaGetLastError().
+// w is the window width, one of 32, 64, 128, 256.  thread picks the
+// thread kernels (w = 32 only), else the warp kernel.  scratch: int32
+// [t1k_band_order_ints() + n] for the thread kernels' item order (unused
+// by the warp kernel).  Returns the launches' cudaGetLastError().
+extern "C" int t1k_band_order_ints() { return kBins + 1; }
+
 extern "C" int t1k_band_stats(const void* ref, const void* reads,
                               const void* desc, int64_t n, int ml, int w,
-                              int stats, void* out, void* stream) {
+                              int stats, int thread, void* scratch,
+                              void* out, void* stream) {
   const auto* r = static_cast<const int8_t*>(ref);
   const auto* q = static_cast<const int8_t*>(reads);
   const auto* d = static_cast<const int64_t*>(desc);
   auto* o = static_cast<int32_t*>(out);
   auto s = static_cast<cudaStream_t>(stream);
   if (n <= 0) return 0;
+  if (thread) {
+    if (w != kW || scratch == nullptr) return (int)cudaErrorInvalidValue;
+    return launch_thread(r, q, d, static_cast<int*>(scratch), n, ml, stats,
+                         o, s);
+  }
   switch (w) {
-    case 32: launch<1>(r, q, d, n, ml, stats, o, s); break;
-    case 64: launch<2>(r, q, d, n, ml, stats, o, s); break;
-    case 128: launch<4>(r, q, d, n, ml, stats, o, s); break;
-    case 256: launch<8>(r, q, d, n, ml, stats, o, s); break;
+    case 32: launch_warp<1>(r, q, d, n, ml, stats, o, s); break;
+    case 64: launch_warp<2>(r, q, d, n, ml, stats, o, s); break;
+    case 128: launch_warp<4>(r, q, d, n, ml, stats, o, s); break;
+    case 256: launch_warp<8>(r, q, d, n, ml, stats, o, s); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();

@@ -15,9 +15,11 @@ Every entry point works on descriptors: an int64 [4, n] tensor of rows
 pack their windows into such flat buffers.
 
 ``band_stats`` dispatches on the tensors' device: CPU tensors run
-``band_stats_plain``, the vectorized PyTorch version of the kernel; CUDA
-tensors launch the hand-written kernel ``csrc/band_stats.cu`` and never
-fall back.
+``band_stats_plain``, the vectorized PyTorch version of the kernels; CUDA
+tensors launch a hand-written kernel of ``csrc/band_stats.cu`` and never
+fall back: one thread per item for windows of at most 32 cells (every
+launch of the engine's deferred items), one warp per item for the wider
+windows.
 """
 
 from __future__ import annotations
@@ -43,14 +45,15 @@ IU = 1 << 18
 
 # The engine's deferred items have |t_len - p_len| <= 10 and lengths
 # <= 254 (engine.cc kDeferMaxDiff / kDeferMaxLen), so one (ML, W) class
-# covers them all, and W = 32 is one cell per lane of a warp.
+# covers them all, and W = 32 takes the thread kernel.
 DESC_ML, DESC_W = 15, 32
 DEFER_MAX_DIFF = 10
 # Trailing zero bytes after each resident code tensor.
 SEQ_PAD = 256
 
-# Kernel launches, counted by the CUDA wrapper where it launches.
-launch_counts = {"band_stats": 0}
+# Kernel launches, counted by the CUDA wrapper where it launches:
+# "band_stats" the thread kernel, "band_stats_warp" the warp kernel.
+launch_counts = {"band_stats": 0, "band_stats_warp": 0}
 
 
 def band_window(ml: int, max_tp_diff: int, cap: int = 256) -> int:
@@ -64,9 +67,10 @@ def band_window(ml: int, max_tp_diff: int, cap: int = 256) -> int:
 
 
 def kernel_window(w: int) -> int:
-    """The CUDA kernel's window: 32 cells per lane-row times a power of two
-    (1, 2, 4 or 8 cells per lane).  A wider window with the same ML gives
-    the same results: the cells it adds lie outside every band."""
+    """The CUDA kernels' window: 32 cells (the thread kernel), or 32 cells
+    per lane-row times 2, 4 or 8 (the warp kernel).  A wider window with
+    the same ML gives the same results: the cells it adds lie outside
+    every band."""
     kw = 32
     while kw < w:
         kw *= 2
@@ -230,11 +234,13 @@ def _kernel_lib() -> ctypes.CDLL:
     from ._build import load
 
     lib = load("band_stats")
+    lib.t1k_band_order_ints.restype = ctypes.c_int
+    lib.t1k_band_order_ints.argtypes = []
     lib.t1k_band_stats.restype = ctypes.c_int
     lib.t1k_band_stats.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-        ctypes.c_void_p]
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
     return lib
 
 
@@ -242,7 +248,23 @@ def band_stats_cuda(ref: torch.Tensor, reads: torch.Tensor,
                     desc: torch.Tensor, ml: int, w: int,
                     stats: bool = True) -> torch.Tensor:
     """Launch csrc/band_stats.cu on the current stream of the inputs'
-    device (no synchronisation); same result as band_stats_plain."""
+    device (no synchronisation); same result as band_stats_plain.  A
+    window of at most 32 cells takes the thread kernels, a wider one the
+    warp kernel."""
+    return _launch(ref, reads, desc, ml, w, stats, kernel_window(w) == 32)
+
+
+def _band_stats_warp_cuda(ref: torch.Tensor, reads: torch.Tensor,
+                          desc: torch.Tensor, ml: int, w: int,
+                          stats: bool = True) -> torch.Tensor:
+    """The warp kernel at any window, W = 32 included: for timing it
+    beside the thread kernel and for the card's tests only."""
+    return _launch(ref, reads, desc, ml, w, stats, False)
+
+
+def _launch(ref, reads, desc, ml, w, stats, thread: bool):
+    """One launch of the thread kernels (counted as one "band_stats") or
+    of the warp kernel."""
     dev = ref.device
     for name, x, dt in (("ref", ref, torch.int8), ("reads", reads, torch.int8),
                         ("desc", desc, torch.int64)):
@@ -259,14 +281,19 @@ def band_stats_cuda(ref: torch.Tensor, reads: torch.Tensor,
     if n == 0:
         return out
     lib = _kernel_lib()
+    # the thread kernels' item order: bin cursors, the split, perm [n]
+    scratch = (torch.empty(lib.t1k_band_order_ints() + n, dtype=torch.int32,
+                           device=dev) if thread else None)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.t1k_band_stats(ref.data_ptr(), reads.data_ptr(),
                                 desc.data_ptr(), n, ml, kw, int(stats),
+                                int(thread),
+                                scratch.data_ptr() if thread else None,
                                 out.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"band_stats kernel launch failed: CUDA error {rc}")
-    launch_counts["band_stats"] += 1
+    launch_counts["band_stats" if thread else "band_stats_warp"] += 1
     return out
 
 

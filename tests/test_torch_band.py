@@ -281,6 +281,239 @@ def test_chunked_desc_deferral_matches_unchunked():
         assert np.array_equal(a, b)
 
 
+# (t_len - p_len, p_len) shapes at the engine's caps (|diff| <= 10,
+# lengths <= 254): the column-0 cell at the window's left edge (diff -10),
+# single-base and empty texts, one to eight rows of a warp's width
+EDGE_SHAPES = [(d, p) for d in (-10, -1, 0, 1, 10) for p in (1, 16, 33, 244)
+               if p + d >= 0]
+MIRROR_SHAPES = [(d, p) for d in range(-10, 11)
+                 for p in (1, 2, 15, 16, 17, 31, 32, 33, 60, 96, 254)
+                 if 0 <= p + d <= 254]
+
+
+def _shape_items(rng, shapes, copies=3):
+    """`copies` deferred items of each (diff, p_len) shape: text windows of
+    a random reference with 3% N, patterns that are mutated copies, every
+    other one stored reverse-complemented and addressed through the rc
+    half.  Returns the _service_stats inputs, one read per item."""
+    ref = rng.integers(0, 4, 40_000).astype(np.int8)
+    ref[rng.random(ref.size) < 0.03] = 4
+    t_len, p_len = (np.array([x for x in v for _ in range(copies)], np.int64)
+                    for v in zip(*[(p + d, p) for d, p in shapes]))
+    n = len(p_len)
+    t_off = rng.integers(0, ref.size - 300, n)
+    rc = np.arange(n) % 2 == 1
+    pats = []
+    for i in range(n):
+        pat = ref[t_off[i]:t_off[i] + p_len[i]].copy()
+        mut = rng.random(p_len[i]) < 0.08
+        pat[mut] = rng.integers(0, 5, int(mut.sum()))
+        pats.append(np.where(pat < 4, 3 - pat, pat)[::-1] if rc[i] else pat)
+    lens = p_len.astype(np.int32)
+    starts = np.zeros(n, np.int64)
+    starts[1:] = np.cumsum(lens[:-1])
+    reads = np.concatenate(pats).astype(np.int8)
+    return ref, reads, starts, lens, (t_off, t_len, np.arange(n),
+                                      np.zeros(n, np.int64), p_len, rc)
+
+
+@pytest.mark.parametrize("diff,p_len", EDGE_SHAPES)
+def test_desc_service_edge_shapes(diff, p_len):
+    """Items at the band's edges through the descriptor service: the port
+    on the CPU equals the Pallas service in interpret mode and the native
+    walk's match counts."""
+    from t1k_tpu.ops.align_pallas_band import DeferredDescService as JaxSvc
+
+    rng = np.random.default_rng(1000 + 300 * (diff + 10) + p_len)
+    ref, reads, starts, lens, items = _shape_items(rng, [(diff, p_len)], 6)
+    got = _service_stats(ab.DeferredDescService("cpu"), ref, reads, starts,
+                         lens, items)
+    want = _service_stats(JaxSvc(interpret=True), ref, reads, starts, lens,
+                          items)
+    assert (got == want).all()
+    t_off, t_len, _, _, p_len_, rc = items
+    for i in range(len(t_len)):
+        pat = reads[starts[i]:starts[i] + lens[i]]
+        if rc[i]:
+            pat = np.where(pat < 4, 3 - pat, pat)[::-1]
+        t = ref[t_off[i]:t_off[i] + t_len[i]]
+        if t_len[i] == 0:
+            assert got[i] == 0
+        else:
+            assert got[i] == _walk_counts(t, pat)[1][0], i
+
+
+# csrc/band_stats.cu's slot counts: the narrow kernel's, then the wide
+# kernel's two.
+THREAD_SLOTS = (13, 24, 32)
+
+
+def _thread_slots(t_len, p_len, ml):
+    """Register slots one item needs (band_stats.cu item_slots): the
+    window cells from the column-0 cell left of the band to the row-0 cell
+    right of it."""
+    diff = t_len - p_len
+    base = max(ml - 5 - max(-diff, 0) - 1, 0)
+    return max(min(ml + 5 + max(diff, 0) + 1, 31) - base + 1, 1)
+
+
+def _thread_item(ref, reads, item, ml, ns, stats=True):
+    """Scalar mirror of csrc/band_stats.cu's band_item for one item
+    (t_off, t_len, p_off, p_len), slot for slot: the same register slots,
+    running max, copy scan and boundary cases, and the narrow kernel's
+    rows without column 0 (13 slots).  Returns (score, packed counts)."""
+    neg, go, ge, m32, kw = ab.NEG_INF, ab.GO, ab.GE, 0xFFFFFFFF, 32
+    t_off, tl, p_off, pl = (int(x) for x in item)
+    diff = tl - pl
+    left, right = 5 + max(-diff, 0), 5 + max(diff, 0)
+    base = max(ml - left - 1, 0)
+    band_lo, band_hi = ml - left - base, min(ml + right, kw - 1) - base
+    m, e, pm, pe = ([0] * ns for _ in range(4))
+    for s in range(ns):
+        j0 = base + s - ml
+        inside = 1 <= j0 <= tl
+        m[s] = 0 if j0 == 0 else (go + j0 * go if inside else neg)
+        e[s] = 0 if j0 == 0 else (go + (pl + 1) * go if inside else neg)
+        if s >= kw - base:  # outside the window
+            m[s] = e[s] = neg
+        pm[s] = 0 if j0 == 0 else (j0 * ab.IU + (
+            0 if j0 * ge >= (pl + 1) * go else ab.IU)) & m32
+        pe[s] = 0 if j0 == 0 else ((j0 + 1) * ab.IU) & m32
+    col0_rows = min(pl, ml - base) if ns == 13 else pl
+    for i in range(1, pl + 1):
+        k_col0 = i <= col0_rows
+        js0 = base - ml + i  # text column of slot 0
+        pb = int(reads[p_off + i - 1])
+        match = [pb == 4 or (1 <= js0 + s <= tl
+                             and int(ref[t_off + js0 + s - 1]) in (pb, 4))
+                 for s in range(ns)]
+        c0, m0_i, start_le1 = -js0, go + i * go, left >= i - 1
+        lo = max(band_lo, 1 - js0, 0)
+        hi = min(band_hi, tl - js0, ns - 1)
+        run = m_left = neg
+        nof_left = last_p = 0
+        last_w = -1024
+        for s in range(ns):
+            j, col0, inband = js0 + s, k_col0 and s == c0, lo <= s <= hi
+            j_pos = not k_col0 or j >= 1
+            sub = ab.SCORE_MATCH if match[s] else ab.SCORE_MISMATCH
+            up = s + 1 < ns
+            m_up = m[s + 1] if up else neg
+            ec = max(e[s + 1] + ge, m_up + go + ge) if up else neg
+            if col0:
+                ec = go + i * ge
+            h = m0_i if col0 else max(m[s] + sub, ec)
+            if not (inband or (col0 and start_le1)):
+                h = neg
+            u = (m0_i - go if start_le1 else neg) if col0 else h - ge * j
+            f = go + ge * j + run
+            run = max(run, u)
+            ibc = inband or col0
+            mc = m0_i if col0 else (max(h, f) if ibc else neg)
+            ec = ec if ibc else neg
+            if stats:
+                open_e = m_up + go + ge == ec
+                pe_new = (ab.IU + ((pm[s + 1] if open_e else pe[s + 1])
+                                   if up else 0)) & m32
+                diag_ok = m[s] + sub == mc and j_pos
+                diag_p = (pm[s] + (ab.MU if match[s] else ab.XU)) & m32
+                nof = diag_p if diag_ok else pe_new
+                if col0 or (m_left + go + ge == f and j_pos):
+                    last_w, last_p = base + s, (i * ab.IU if col0
+                                                else nof_left)
+                pf = (last_p + (base + s - last_w + 1) * ab.IU) & m32
+                v = diag_p if diag_ok else (pf if f >= ec else pe_new)
+                pm[s], pe[s] = (i * ab.IU if col0 else v), pe_new
+                nof_left = nof
+            m_left = m[s] = mc
+            e[s] = ec
+    fs = ml + diff - base
+    score, statv = neg, 0
+    if 0 <= ml + diff < kw and fs < ns:
+        score, statv = m[fs], pm[fs]
+    packed = max(statv - (1 << 32) if statv >= 1 << 31 else statv, 0)
+    if tl == 1 and pl == 1:
+        eq = int(ref[t_off]) in (int(reads[p_off]), 4) or reads[p_off] == 4
+        score, packed = (2, ab.MU) if eq else (-2, ab.XU)
+    if tl == 0 or pl == 0:
+        score = packed = 0
+    return score, packed if stats else 0
+
+
+def _mirror_batches():
+    """(name, ref, reads, desc, ML, W) batches for the mirror:
+    every MIRROR_SHAPES item at the descriptor route's (15, 32), and the
+    byte-window batches of the stats cases and the golden table at their
+    own (ML, W)."""
+    rng = np.random.default_rng(77)
+    ref, reads, starts, lens, items = _shape_items(rng, MIRROR_SHAPES, 1)
+    t_off, t_len, _, _, p_len, rc = items
+    base = reads.size + ab.SEQ_PAD
+    rc_half = np.concatenate([reads, np.zeros(ab.SEQ_PAD, np.int8)])
+    # the rc half holds the reverse complement of each read in place
+    for i in range(len(lens)):
+        r = reads[starts[i]:starts[i] + lens[i]]
+        rc_half[starts[i]:starts[i] + lens[i]] = np.where(
+            r < 4, 3 - r, r)[::-1]
+    flat = np.concatenate([reads, np.zeros(ab.SEQ_PAD, np.int8), rc_half])
+    desc = np.stack([t_off, t_len, np.where(rc, base, 0) + starts, p_len])
+    out = [("edges", torch.from_numpy(np.concatenate(
+        [ref, np.zeros(ab.SEQ_PAD, np.int8)])), torch.from_numpy(flat),
+        torch.from_numpy(desc.astype(np.int64)), ab.DESC_ML, ab.DESC_W)]
+    for name, (tc, tl, pc, pl) in (("stats_cases", _stats_cases()),
+                                   ("golden", _golden_batch()[:4])):
+        ml, over = ab._window_class(tl, pl)
+        out.append((name, *ab._pack_windows(tc, tl, pc, pl, "cpu"), ml,
+                    ab.band_window(ml, over)))
+    return out
+
+
+@pytest.mark.parametrize("stats", [True, False])
+def test_thread_kernel_mirror_matches_plain(stats):
+    """The thread kernel's slot loop, run as scalar Python on each item,
+    equals the plain version on the edge shapes (every diff in [-10, 10]
+    against p_len 1-254, t_len 0 included), the stats cases and the golden
+    table, with the smallest slot count each item fits (a warp of such
+    items) and with 32 slots (a warp holding a wider item)."""
+    for name, ref, reads, desc, ml, w in _mirror_batches():
+        want = ab.band_stats_plain(ref, reads, desc, ml, w, stats).numpy()
+        r, q, d = ref.numpy(), reads.numpy(), desc.numpy()
+        for widest in (False, True):
+            got = []
+            for k in range(d.shape[1]):
+                need = _thread_slots(int(d[1, k]), int(d[3, k]), ml)
+                ns = 32 if widest else min(c for c in THREAD_SLOTS
+                                           if c >= need)
+                got.append(_thread_item(r, q, d[:, k], ml, ns, stats))
+            assert (np.array(got).T == want).all(), (name, widest)
+
+
+@pytest.mark.cuda
+def test_cuda_thread_and_warp_kernels_match_plain(cuda_device):
+    """On a card: the thread kernel (every window of at most 32 cells)
+    and the warp kernel forced at the same window equal the plain version
+    on the mirror's batches and the stats cases at W = None, 64, 128 and
+    256 (the wider windows take the warp kernel)."""
+    for name, ref, reads, desc, ml, w in _mirror_batches():
+        args = [x.to(cuda_device) for x in (ref, reads, desc)]
+        for stats in (True, False):
+            want = ab.band_stats_plain(ref, reads, desc, ml, w, stats)
+            n0 = dict(ab.launch_counts)
+            got = ab.band_stats(*args, ml, w, stats).cpu()
+            warp = ab._band_stats_warp_cuda(*args, ml, w, stats).cpu()
+            assert ab.launch_counts["band_stats"] == n0["band_stats"] + 1
+            assert ab.launch_counts["band_stats_warp"] == \
+                n0["band_stats_warp"] + 1
+            assert torch.equal(got, want), (name, stats)
+            assert torch.equal(warp, want), (name, stats)
+    tc, tl, pc, pl = _stats_cases()
+    for w in (None, 64, 128, 256):
+        got = ab.banded_stats_band(tc, tl, pc, pl, w=w, device=cuda_device)
+        ref = ab.banded_stats_band(tc, tl, pc, pl, w=w, device="cpu")
+        for g, r in zip(got, ref):
+            assert (g == r).all()
+
+
 @pytest.mark.cuda
 def test_cuda_kernel_matches_plain(cuda_device):
     """On a card: the kernel equals the plain version on the same CUDA
