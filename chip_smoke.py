@@ -17,9 +17,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
                    descriptors included); the warp kernel at W = 64, 128,
                    256; the golden batch and the wide windows timed
   4. em            f64 SQUAREM EM kernel on a seeded 5,000 read group x
-                   900 EC problem: the native f64 loop's iteration count
-                   and counts, bit for bit, and equal to the plain version
-                   on the CPU; kernel vs plain version timed in turns
+                   900 EC problem (the microcell): the native f64 loop's
+                   iteration count and counts, bit for bit, and equal to
+                   the plain version on the CPU
   5. v1            the v1 full-row aligner (align_full.cu) through
                    banded_scores_full: the 400 golden cases and 65,536
                    seeded read/window pairs, exact against its plain
@@ -39,13 +39,23 @@ Phases, in order; any failure raises and the exit code is non-zero:
                    alleles, 12,000 read pairs of 100 bp) through
                    t1k_tpu_torch.cli.genotype --backend gpu --emBackend
                    gpu, byte-compared with the native route of t1k_tpu;
-                   both kernels' launch counts over the run must be > 0
-  8. timing        thread kernel, warp kernel and plain version, in turns,
+                   both kernels' launch counts over the run must be > 0;
+                   the EM problem its genotyper solves is kept
+  8. em_timing     the EM kernel on that HLA problem, the microcell and a
+                   seeded problem with ~10x its incidences (the
+                   device-memory instantiation): kernel alone (tables on
+                   the card), the em_quantify_gpu wrapper and the native
+                   loop in turns, each bit-identical to the native loop;
+                   the measured f64 add latency and divide-term rate, the
+                   add-chain bound, and the profiled instantiation's
+                   per-phase cycle shares; the plain version on the HLA
+                   problem
+  9. timing        thread kernel, warp kernel and plain version, in turns,
                    on the largest deferred-item batch one engine chunk of
                    the main path sends, with the chunk's shape (p_len and
                    |t_len - p_len| quantiles, row use of the sorted launch,
                    slot counts of its warps)
-  9. extract       the FASTQ extraction stage on the same panel (k = 13,
+ 10. extract       the FASTQ extraction stage on the same panel (k = 13,
                    hashed table): 1,000,000 read pairs of 2 x 100 bp
                    (20,000 simulated on-panel pairs, 80,000 near-miss
                    pairs, 900,000 random pairs, shuffled) through
@@ -55,12 +65,14 @@ Phases, in order; any failure raises and the exit code is non-zero:
                    t1k_tpu.cli.extract --backend native run in a child
                    process; both phase-A kernels must launch and the
                    device must decide a share of the screened reads
- 10. screen_timing probe and chain kernels vs their plain versions, in
+ 11. screen_timing probe and chain kernels vs their plain versions, in
                    turns, on one full 1024-row chunk of the extract inputs
 Then the card line, one JSON line describing the kernels (times, launches
 on the main path, the bound each could reach on the card and what sets
-it; no single PyTorch call computes any of them, so library_ms is null),
-and {"ok": true, "device": {...}} as the last line.  Work files go to a
+it - for the EM the longer of its bytes/operations bound and the chain
+of dependent f64 adds em.cc's order forces, at the add latency the
+card measured; no single PyTorch call computes any of them, so
+library_ms is null), and {"ok": true, "device": {...}} as the last line.  Work files go to a
 temporary directory that is removed at exit.
 """
 
@@ -84,6 +96,7 @@ PANEL_GENES = 24
 PANEL_COPIES = 2          # x 120 source alleles = 240 alleles per gene
 SIM_PAIRS = 12000
 EM_RG, EM_EC = 5000, 900
+EM_LARGE = (54_210, 10_700)   # about 10x the HLA problem's incidences
 RANDOM_ITEMS = 100_000
 V1_PAIRS = 65_536
 EXTRACT_PAIRS = (20_000, 80_000, 900_000)   # simulated, near-miss, random
@@ -438,24 +451,20 @@ def phase_kernel(dev, check: Checker, check_warp: Checker, n_random: int,
     return timed
 
 
-def phase_em(dev, n_rg: int, n_ec: int, info: dict):
-    """Returns (max |kernel - plain|, kernel ms, plain ms, bound)."""
-    import torch
-
-    from t1k_tpu_torch.native import em_quantify
-    from t1k_tpu_torch.ops import em
-
-    rng = np.random.default_rng(5)
+def em_problem(n_rg: int, n_ec: int, rng, row_len) -> dict:
+    """A seeded EM problem, as the genotyper passes it to em_quantify_gpu
+    (options at their defaults): 2 alleles per EC, 24 genes, a major per
+    three ECs, each read group `row_len(rng)` distinct random ECs."""
     n_alleles, n_genes, n_majors = 2 * n_ec, 24, n_ec // 3
     ec_to_alleles = [[] for _ in range(n_ec)]
     for a in range(n_alleles):
         ec_to_alleles[a % n_ec].append(a)
     offs, ecs = [0], []
     for _ in range(n_rg):
-        ecs.extend(rng.choice(n_ec, size=int(rng.integers(1, 12)),
+        ecs.extend(rng.choice(n_ec, size=int(row_len(rng)),
                               replace=False).tolist())
         offs.append(len(ecs))
-    problem = dict(
+    return dict(
         ec_to_alleles=ec_to_alleles,
         rg_ecs_csr=(np.array(offs, np.int64), np.array(ecs, np.int32)),
         rg_counts=rng.choice([1.0, 0.5, 2.0, 3.0], n_rg),
@@ -464,10 +473,32 @@ def phase_em(dev, n_rg: int, n_ec: int, info: dict):
         allele_weight=rng.integers(1, 4, n_alleles).astype(np.int32),
         allele_gene=(np.arange(n_alleles) % n_genes).astype(np.int32),
         allele_major=(np.arange(n_alleles) % n_majors).astype(np.int32),
-        n_genes=n_genes, n_majors=n_majors)
-    t0 = time.perf_counter()
+        n_genes=n_genes, n_majors=n_majors, filter_frac=0.15,
+        min_squarem_alpha=0.0, max_iterations=1000)
+
+
+def em_microcell(n_rg: int, n_ec: int) -> dict:
+    """The seeded microcell: 1-11 ECs per read group."""
+    return em_problem(n_rg, n_ec, np.random.default_rng(5),
+                      lambda rng: rng.integers(1, 12))
+
+
+def em_large(n_rg: int, n_ec: int) -> dict:
+    """The seeded problem past shared memory: rows as long as the HLA
+    problem's (geometric, mean 40, at most 115 ECs)."""
+    return em_problem(n_rg, n_ec, np.random.default_rng(6),
+                      lambda rng: min(rng.geometric(1 / 40), 115))
+
+
+def phase_em(dev, n_rg: int, n_ec: int, info: dict) -> None:
+    """The f64 EM kernel (the plain version on the CPU, for rehearsals)
+    on the microcell, against the native loop and the plain version on
+    the CPU, bit for bit."""
+    from t1k_tpu_torch.native import em_quantify
+    from t1k_tpu_torch.ops import em
+
+    problem = em_microcell(n_rg, n_ec)
     it_n, c_n = em_quantify(**problem)
-    t_native = time.perf_counter() - t0
     it_k, c_k = em.em_quantify_gpu(**problem, device=dev)
     it_p, c_p = em.em_quantify_gpu(**problem, device="cpu")
     if not it_k == it_p == it_n:
@@ -475,46 +506,226 @@ def phase_em(dev, n_rg: int, n_ec: int, info: dict):
                              f"native {it_n}")
     if not (np.array_equal(c_k, c_n) and np.array_equal(c_p, c_n)):
         raise AssertionError("EM counts differ from the native loop's")
-    err = float(np.abs(c_k - c_p).max())
-
-    tables = em.em_tables(**{k: v for k, v in problem.items()
-                             if k != "allele_missing"})
-    args = dict(tables, filter_frac=0.15, min_squarem_alpha=0.0,
-                max_iterations=1000, device=dev, dtype=torch.float64)
-    # on the CPU (rehearsals) both sides are the plain version
-    run = em.squarem_cuda if dev.type == "cuda" else em.squarem_plain
-
-    def kernel():
-        return run(**args)
-
-    def plain():
-        return em.squarem_plain(**args)
-
-    plain_ms = [time_ms(plain, 1, dev)]
-    kernel_ms = [time_ms(kernel, 5, dev), time_ms(kernel, 5, dev)]
-    plain_ms.append(time_ms(plain, 1, dev))
     info["iterations"] = it_k
     info["bit_identical_to_native"] = True
-    info["kernel_ms"] = " ".join(f"{t:.3f}" for t in kernel_ms)
-    info["plain_ms"] = " ".join(f"{t:.1f}" for t in plain_ms)
-    info["native_ms"] = f"{t_native * 1e3:.3f}"
-    # f64 operations per round: three EM updates of about 4 per incidence
-    # (the group sum, then a divide, multiply and add per EC count) and 3
-    # per EC, plus the extrapolation's and convergence test's 14 per EC;
-    # bytes: the tables once and the counts out
+
+
+def em_clock_probe(dev, mode: int, n: int):
+    """(clock64 cycles, CUDA-event ms) of one t1k_em_clock_probe launch:
+    mode 0, n dependent f64 adds on one thread; mode 1, n terms of the
+    CSC pass's form on each of 1,024 threads."""
+    import torch
+
+    from t1k_tpu_torch.ops import em
+
+    lib = em._kernel_lib()
+    inp = torch.tensor([1.0, 1e-9, 3.0], dtype=torch.float64, device=dev)
+    out = torch.empty(1024, dtype=torch.float64, device=dev)
+    cyc = torch.zeros(1, dtype=torch.int64, device=dev)
+
+    def go():
+        rc = lib.t1k_em_clock_probe(
+            mode, n, inp.data_ptr(), out.data_ptr(), cyc.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"clock probe launch failed: CUDA error {rc}")
+    go()
+    ms = time_ms(go, 3, dev)
+    return int(cyc.item()), ms
+
+
+def em_chain_adds(tables: dict, iterations: int) -> int:
+    """The dependent f64 adds em.cc's order forces: per EM update the
+    longest read-group row, the longest EC column and the normalizer's
+    ec_cnt; per round three updates plus alpha's two concurrent sums
+    (ec_cnt) and the L1 change (ec_cnt)."""
+    ec = len(tables["ec_len"])
+    update = (int(np.diff(tables["rg_off"]).max(initial=0))
+              + int(np.diff(tables["col_off"]).max(initial=0)) + ec)
+    return iterations * (3 * update + 2 * ec)
+
+
+def em_work_bound(tables: dict, iterations: int):
+    """Bytes and f64 operations bound: per round three EM updates of
+    about 4 operations per incidence (the group sum, then a divide,
+    multiply and add per EC count) and 3 per EC, plus the extrapolation's
+    and convergence test's 14 per EC; the tables read once and the counts
+    written once."""
     nnz, n_ecs = len(tables["rg_ecs"]), len(tables["ec_len"])
-    flops = it_k * (3 * (4 * nnz + 3 * n_ecs) + 14 * n_ecs)
+    flops = iterations * (3 * (4 * nnz + 3 * n_ecs) + 14 * n_ecs)
     n_bytes = sum(v.nbytes for v in tables.values()
                   if isinstance(v, np.ndarray)) + 8 * n_ecs
-    return (err, float(np.mean(kernel_ms)), float(np.mean(plain_ms)),
-            bound(n_bytes, flops, F64_PER_S))
+    return bound(n_bytes, flops, F64_PER_S)
+
+
+def em_case(dev, name: str, problem: dict, reps: int, probe, info: dict):
+    """One EM problem: the kernel (tables already on the card), the
+    wrapper em_quantify_gpu (host tables, uploads and the read-back
+    included) and the native loop, in turns (native, kernel, wrapper,
+    twice), each held to the native loop bit for bit; the wrapper's host
+    tables (em_tables) and device tables (squarem_device: the kernel's
+    lists and the uploads) timed apart; the profiled instantiation's
+    phase shares.  Returns (kernel ms, bound) with the
+    bound the larger of the add chain (probe: ns per dependent f64 add)
+    and the bytes/operations bound."""
+    import torch
+
+    from t1k_tpu_torch.native import em_quantify
+    from t1k_tpu_torch.ops import em
+
+    cuda = dev.type == "cuda"
+    opts = {k: problem[k] for k in ("filter_frac", "min_squarem_alpha",
+                                     "max_iterations")}
+    tables = em.em_tables(**{k: v for k, v in problem.items()
+                             if k not in ("allele_missing", *opts)})
+    f64 = torch.float64
+    if cuda:
+        t0 = time.perf_counter()
+        em.em_tables(**{k: v for k, v in problem.items()
+                        if k not in ("allele_missing", *opts)})
+        t1 = time.perf_counter()
+        em_dev = em.squarem_device(**tables, device=dev, dtype=f64)
+        torch.cuda.synchronize()
+        info[f"{name}_tables_ms"] = f"{(t1 - t0) * 1e3:.3f}"
+        info[f"{name}_upload_ms"] = f"{(time.perf_counter() - t1) * 1e3:.3f}"
+
+        def kernel():
+            em.squarem_launch(em_dev, **opts)
+
+        def kernel_result():
+            return (int(em_dev["iterations"].item()),
+                    em_dev["count"].cpu().numpy())
+    else:  # CPU rehearsal: the plain version stands in
+        em_dev = {"shared": None}
+        out = []
+
+        def kernel():
+            out[:] = em.squarem_plain(**tables, **opts, device=dev,
+                                      dtype=f64)
+
+        def kernel_result():
+            return out[0], out[1].numpy()
+
+    def wrapper():
+        return em.em_quantify_gpu(**problem, device=dev)
+
+    def native():
+        return em_quantify(**problem)
+
+    def host_ms(fn):
+        t0 = time.perf_counter()
+        got = fn()
+        cuda and torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3, got
+
+    want = native()
+    kernel_ms, wrapper_ms, native_ms = [], [], []
+    for _ in range(2):
+        ms, got = host_ms(native)
+        native_ms.append(ms)
+        kernel_ms.append(time_ms(kernel, reps if cuda else 1, dev))
+        ms, wrapped = host_ms(wrapper)
+        wrapper_ms.append(ms)
+        for route, (it, count) in (("kernel", kernel_result()),
+                                   ("wrapper", wrapped), ("native", got)):
+            if it != want[0] or not np.array_equal(count, want[1]):
+                raise AssertionError(f"EM {name}: {route} differs from the "
+                                     "native loop")
+    it = want[0]
+    nnz, n_ec = len(tables["rg_ecs"]), len(tables["ec_len"])
+    chain = em_chain_adds(tables, it)
+    work = em_work_bound(tables, it)
+    pre = f"{name}_"
+    info[pre + "shape"] = f"{len(tables['rg_counts'])}x{n_ec}"
+    info[pre + "nnz"] = nnz
+    info[pre + "iterations"] = it
+    info[pre + "max_row"] = int(np.diff(tables["rg_off"]).max())
+    info[pre + "max_col"] = int(np.diff(tables["col_off"]).max())
+    info[pre + "shared"] = em_dev["shared"]
+    info[pre + "kernel_ms"] = " ".join(f"{t:.4f}" for t in kernel_ms)
+    info[pre + "wrapper_ms"] = " ".join(f"{t:.3f}" for t in wrapper_ms)
+    info[pre + "native_ms"] = " ".join(f"{t:.3f}" for t in native_ms)
+    info[pre + "chain_adds"] = chain
+    b = work
+    if probe is not None:
+        add_ns, terms_per_ns = probe
+        chain_ms = chain * add_ns / 1e6
+        info[pre + "chain_bound_ms"] = f"{chain_ms:.4f}"
+        # the divides' floor on one SM: 3 updates x nnz terms a round
+        info[pre + "term_floor_ms"] = \
+            f"{3 * nnz * it / terms_per_ns / 1e6:.4f}"
+        if chain_ms > work[0]:
+            b = (chain_ms, "operations")  # the serial f64 add chain
+    info[pre + "work_bound_ms"] = f"{work[0]:.6f}"
+    info[pre + "bound_share"] = f"{b[0] / np.mean(kernel_ms):.4f}"
+    if cuda:
+        cycles = torch.zeros(len(em.EM_PHASES) + 1, dtype=torch.int64,
+                             device=dev)
+        em.squarem_launch(em_dev, **opts, cycles=cycles)
+        c = cycles.cpu().numpy()
+        info[pre + "cycles"] = int(c[-1])
+        info[pre + "phase_share"] = ",".join(
+            f"{n}:{v / c[-1]:.4f}" for n, v in zip(em.EM_PHASES, c[:-1]))
+        if kernel_result()[0] != it:
+            raise AssertionError(f"EM {name}: profiled kernel differs")
+    return float(np.mean(kernel_ms)), b, tables, opts
+
+
+def phase_em_timing(dev, hla: dict, sizes: dict, info: dict):
+    """The EM kernel at the main path's shape: the HLA problem the `main`
+    phase's genotyper passed to em_quantify_gpu, the microcell and a
+    seeded problem with about ten times the HLA incidences (which takes
+    the device-memory instantiation).  Prints the f64 add latency and
+    the divide-term throughput the bounds use.  Returns (kernel ms, plain
+    ms, bound, max |kernel - plain on the CPU|) on the HLA problem."""
+    import torch
+
+    from t1k_tpu_torch.ops import em
+
+    cuda = dev.type == "cuda"
+    probe = None
+    if cuda:
+        n_add, n_term = 1 << 22, 1 << 13
+        add_cyc, add_ms = em_clock_probe(dev, 0, n_add)
+        term_cyc, term_ms = em_clock_probe(dev, 1, n_term)
+        probe = (add_ms * 1e6 / n_add, 1024 * n_term / (term_ms * 1e6))
+        info["f64_add_cycles"] = f"{add_cyc / n_add:.3f}"
+        info["f64_add_ns"] = f"{probe[0]:.4f}"
+        info["terms_per_cycle"] = f"{1024 * n_term / term_cyc:.3f}"
+        info["terms_per_ns"] = f"{probe[1]:.3f}"
+    out = None
+    for name, problem, reps in (
+            ("hla", hla, 20), ("micro", em_microcell(*sizes["em"]), 20),
+            ("large", em_large(*sizes["em_large"]), 3)):
+        ms, b, tables, opts = em_case(dev, name, problem, reps, probe, info)
+        if name == "large" and cuda and em.em_shared_bytes(
+                len(tables["rg_counts"]), len(tables["ec_len"]), 8) \
+                <= em.EM_SHARED_LIMIT:
+            raise AssertionError("the large EM problem fits shared memory")
+        if name == "hla":
+            def plain(tables=tables, opts=opts):
+                return em.squarem_plain(**tables, **opts, device=dev,
+                                        dtype=torch.float64)
+            plain_ms = [time_ms(plain, 1, dev)]
+            _, c_p = em.squarem_plain(**tables, **opts, device="cpu",
+                                      dtype=torch.float64)
+            plain_ms.append(time_ms(plain, 1, dev))
+            it, c_k = em.em_quantify_gpu(**problem, device=dev)
+            err = float(np.abs(c_k - c_p.numpy()).max())
+            info["hla_plain_ms"] = " ".join(f"{t:.1f}" for t in plain_ms)
+            out = (ms, float(np.mean(plain_ms)), b, err)
+    return out
 
 
 def phase_main(dev, work: str, n_genes: int, copies: int, n_pairs: int,
-               info: dict) -> int:
+               info: dict, em_problems: list) -> dict:
     """Port CLI vs native CLI on the HLA-scale panel; returns each
-    kernel's launch count over the port's run."""
+    kernel's launch count over the port's run, and appends the EM
+    problem the port's genotyper solved to `em_problems`."""
+    import inspect
+
     from t1k_tpu_torch.cli import genotype as cli
+    from t1k_tpu_torch.core import genotyper as tg
     from t1k_tpu_torch.ops import align_band as ab
     from t1k_tpu_torch.ops import em
 
@@ -531,13 +742,28 @@ def phase_main(dev, work: str, n_genes: int, copies: int, n_pairs: int,
     if proc.returncode != 0:
         raise RuntimeError(f"native route failed:\n{proc.stderr[-4000:]}")
     t_native = time.perf_counter() - t0
+    # keep the EM problem the genotyper passes (for em_timing)
+    em_call = tg.em_quantify_gpu
+    em_args = inspect.signature(em_call)
+
+    def capture(*args, **kwargs):
+        bound_args = em_args.bind(*args, **kwargs).arguments
+        em_problems.append({k: v for k, v in bound_args.items()
+                            if k not in ("device", "dtype")})
+        return em_call(*args, **kwargs)
     ab.launch_counts.update(band_stats=0, band_stats_warp=0)
     em.launch_counts["em_squarem"] = 0
+    tg.em_quantify_gpu = capture
     t0 = time.perf_counter()
-    cli.main(["-f", panel, "-1", fq1, "-2", fq2, "-o",
-              os.path.join(work, "port"), "--backend", "gpu",
-              "--emBackend", "gpu", "--device", str(dev)])
+    try:
+        cli.main(["-f", panel, "-1", fq1, "-2", fq2, "-o",
+                  os.path.join(work, "port"), "--backend", "gpu",
+                  "--emBackend", "gpu", "--device", str(dev)])
+    finally:
+        tg.em_quantify_gpu = em_call
     t_port = time.perf_counter() - t0
+    if len(em_problems) != 1:
+        raise AssertionError(f"the genotyper ran {len(em_problems)} EMs")
     launches = {"band_stats": ab.launch_counts["band_stats"],
                 "em_squarem": em.launch_counts["em_squarem"]}
     warp_launches = ab.launch_counts["band_stats_warp"]
@@ -1352,7 +1578,7 @@ def run(dev, sizes: dict) -> list:
                      sizes["random_items"], info)
         cuda and torch.cuda.synchronize()
     with phase("em") as info:
-        em_err, *times["em_squarem"] = phase_em(dev, *sizes["em"], info)
+        phase_em(dev, *sizes["em"], info)
     with phase("v1") as info:
         v1_launches, *times["align_full"] = phase_v1(
             dev, checks["align_full"], sizes["v1_pairs"], info)
@@ -1362,8 +1588,12 @@ def run(dev, sizes: dict) -> list:
                            checks["phase_a_chain"], info)
     with tempfile.TemporaryDirectory(prefix="t1k_smoke_") as work:
         with phase("main") as info:
+            em_problems = []
             launches = phase_main(dev, work, PANEL_GENES, PANEL_COPIES,
-                                  sizes["sim_pairs"], info)
+                                  sizes["sim_pairs"], info, em_problems)
+        with phase("em_timing") as info:
+            *times["em_squarem"], em_err = phase_em_timing(
+                dev, em_problems[0], sizes, info)
         with phase("timing") as info:
             times["band_stats"], times["band_stats_warp"] = phase_timing(
                 dev, checks["band_stats"], checks["band_stats_warp"], work,
@@ -1396,6 +1626,7 @@ def run(dev, sizes: dict) -> list:
 
 
 FULL_SIZES = dict(random_items=RANDOM_ITEMS, em=(EM_RG, EM_EC),
+                  em_large=EM_LARGE,
                   v1_pairs=V1_PAIRS, sim_pairs=SIM_PAIRS,
                   extract=EXTRACT_PAIRS)
 

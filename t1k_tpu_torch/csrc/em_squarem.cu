@@ -13,20 +13,45 @@
 // are the native route's, which a dense matvec's reordered sums do not
 // give at HLA scale.
 //
-// Design: the whole convergence loop is one launch of one block.  Work
-// whose order does not matter runs across the block's threads: per read
-// group the sum of its ECs' abundances (CSR, in the group's own order),
-// per EC the sum of its read groups' shares (CSC, read groups ascending -
-// the order in which em.cc's scatter reaches each EC), elementwise
-// updates and the mask's per-allele steps.  The order-sensitive
-// reductions (the normalizer, the SQUAREM step lengths, the L1 change,
-// the major-allele sums) run on thread 0, as em.cc runs them.  No host
-// round trip per round.
+// What bounds it on an H100.  The order contract forces chains of
+// dependent f64 adds - per EM update a read group's EC sum, an EC's sum
+// over its read groups and the normalizer over the ECs; per round
+// alpha's two sums and the L1 change - and the rounds are sequential.
+// On the HLA problem those chains take about a tenth of the kernel's time
+// (chip_smoke.py's chain bound).  What one block pays for is the rest,
+// which the contract leaves free to run ahead of the adds: per EM update
+// one random shared-memory gather per incidence in each pass (each warp
+// gather costs several bank-conflicting wavefronts) and one correctly
+// rounded f64 divide per incidence in the CSC pass.  Those are the
+// floors that only a design across SMs would lift.
 //
-// What bounds it on an H100: latency, not bytes or FLOPs - one SM, and
-// per round six serial reductions over the ECs plus dependent f64 loads
-// along the incidence lists.  A HLA-scale problem (a few thousand ECs,
-// tens of thousands of read groups) fits in L2.
+// Design: the whole convergence loop is one launch of one block (a
+// batched entry can give each problem a block of its own).
+//   * The per-read-group pairs (psum, the group count: one 16-byte
+//     gather per CSC term) and the per-EC vectors (x0-x3, count,
+//     per_len, the effective lengths) live in dynamic shared memory when
+//     they fit (kShared); otherwise the same code runs on device-memory
+//     copies.  The index lists stay in device memory, laid out by the
+//     host so that a warp's 32 threads, each walking its own list, read
+//     128 contiguous bytes a load.
+//   * CSR pass: one thread per read group sums its ECs in the group's
+//     order; CSC pass: one thread per EC sums its read groups' shares in
+//     ascending read-group order (em.cc's scatter order).  The host deals
+//     both kinds of list longest first in a snake, so that no thread
+//     takes two long ones and a warp's lists are of about one length.
+//     Both load the next kUnroll indices, and gather and divide kUnroll
+//     terms, ahead of the running add.  An EC the mask zeroed is not
+//     folded (its sum is exactly +0), which also keeps zero dividends,
+//     slow in the divide, out of the pass.
+//   * The EC-length sums (normalizer, alpha's sum_r and sum_v, the L1
+//     change): every thread writes its terms to a vector, then one thread
+//     folds it left to right with the loads running ahead; sum_r and
+//     sum_v fold on two warps at once.  x0 = x1 is a pointer swap.
+//   * The mask: one thread per major allele sums its alleles in ascending
+//     order (the host's major -> alleles lists), which is em.cc's chain;
+//     the gene maximum is exact in any order (an integer atomicMax on the
+//     bits of a positive float).
+// kProf adds per-phase clock64() counts taken by thread 0 at the barriers.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -35,97 +60,220 @@ namespace {
 
 constexpr int kThreads = 1024;
 constexpr int kMaskRound = 10;
+constexpr int kUnroll = 4;     // terms ahead of the list folds' adds
+constexpr int kFoldUnroll = 8;  // loads ahead of the one-thread folds
+
+// Phases of the profiled instantiation's cycle counts, then the total.
+enum Phase { kCsr, kCsc, kNorm, kAlpha, kDiff, kMask, kPhases };
 
 __device__ __forceinline__ float abs_of(float x) { return fabsf(x); }
 __device__ __forceinline__ double abs_of(double x) { return fabs(x); }
 __device__ __forceinline__ float sqrt_of(float x) { return sqrtf(x); }
 __device__ __forceinline__ double sqrt_of(double x) { return sqrt(x); }
 
+// max(*a, v) for v > 0 and *a >= +0: positive floats order as their bits.
+__device__ __forceinline__ void atomic_max_pos(float* a, float v) {
+  atomicMax(reinterpret_cast<unsigned int*>(a), __float_as_uint(v));
+}
+__device__ __forceinline__ void atomic_max_pos(double* a, double v) {
+  atomicMax(reinterpret_cast<unsigned long long*>(a),
+            static_cast<unsigned long long>(__double_as_longlong(v)));
+}
+
+// One pass's lists (CSR rows or CSC columns) as the host deals them to
+// the threads: slot k*kThreads + t holds the list thread t folds in its
+// k-th turn (sched, -1 for none) and its length; the 32 slots of a warp
+// share a block of the stream at base[slot / 32], element j of lane l's
+// list at base + 32*j + l, so a warp's loads are coalesced.
+struct Lists {
+  int32_t slots;
+  const int32_t* sched;
+  const int32_t* len;
+  const int64_t* base;
+  const int32_t* stream;
+};
+
 template <typename T>
 struct Problem {
-  int32_t ec_cnt, allele_cnt, gene_cnt, major_cnt;
+  int32_t ec_cnt, allele_cnt, gene_cnt, major_cnt, max_iterations;
   int64_t rg_cnt;
-  const int64_t* rg_off;     // [rg_cnt + 1] CSR: read group -> ECs
-  const int32_t* rg_ecs;
+  Lists rows;                // read group -> ECs, in the group's order
+  Lists cols;                // EC -> read groups, ascending
   const T* rg_counts;        // [rg_cnt]
-  const int64_t* col_off;    // [ec_cnt + 1] CSC: EC -> read groups (asc)
-  const int32_t* col_rgs;
   const int64_t* ec_off;     // [ec_cnt + 1] CSR: EC -> alleles
   const int32_t* ec_alleles;
   const T* ec_len;           // [ec_cnt] shortest effective length
   const int32_t* allele_gene;
   const int32_t* allele_major;
+  const int64_t* maj_off;    // [major_cnt + 1] CSR: major -> alleles (asc)
+  const int32_t* maj_alleles;
+  const T* init_x;           // [ec_cnt]
   T filter_frac, min_alpha;
-  int32_t max_iterations;
 };
 
+// Device-memory buffers (grp: [rg_cnt][2]).  The shared instantiation
+// uses only `count` (written once, at the end) and the mask's arrays.
 template <typename T>
 struct Scratch {
-  T *x0, *x1, *x2, *x3, *count, *psum, *per_len;
+  T *x0, *x1, *x2, *x3, *count, *grp, *per_len;
   T *allele_abund, *allele_ec_abund, *major_abund, *gene_max;
 };
 
-// out = normalized EM update of `in`; leaves the expected read counts in
-// s.count (em.cc emUpdate).
+// The loop's working vectors, in shared or device memory; grp[2 r] is
+// read group r's psum, grp[2 r + 1] its count.
 template <typename T>
-__device__ void em_update(const Problem<T>& p, const Scratch<T>& s,
-                          const T* in, T* out, T* s_norm) {
-  const int tid = threadIdx.x;
-  for (int64_t i = tid; i < p.rg_cnt; i += kThreads) {
-    T sum = 0;
-    for (int64_t j = p.rg_off[i]; j < p.rg_off[i + 1]; ++j)
-      sum += in[p.rg_ecs[j]];
-    if (sum == 0) sum = 1;
-    s.psum[i] = sum;
+struct Vecs {
+  T *x0, *x1, *x2, *x3, *count, *per_len, *grp;
+  const T* ec_len;
+};
+
+template <typename T> struct Pair;
+template <> struct Pair<float> { using type = float2; };
+template <> struct Pair<double> { using type = double2; };
+
+template <bool kProf>
+__device__ __forceinline__ void mark(long long* cyc, int phase,
+                                     long long& last) {
+  if (kProf && threadIdx.x == 0) {
+    const long long now = clock64();
+    cyc[phase] += now - last;
+    last = now;
   }
-  __syncthreads();
-  for (int e = tid; e < p.ec_cnt; e += kThreads) {
-    const T v = in[e];
-    T c = 0;
-    for (int64_t j = p.col_off[e]; j < p.col_off[e + 1]; ++j) {
-      const int32_t r = p.col_rgs[j];
-      c += p.rg_counts[r] * (v / s.psum[r]);
+}
+
+// a[0] + a[1] + ... + a[n-1], left to right from 0, by the calling
+// thread; the next kFoldUnroll loads are issued before the current adds.
+template <typename T>
+__device__ __forceinline__ T fold_seq(const T* a, int n) {
+  T sum = 0;
+  int i = 0;
+  if (n >= kFoldUnroll) {
+    T cur[kFoldUnroll];
+#pragma unroll
+    for (int u = 0; u < kFoldUnroll; ++u) cur[u] = a[u];
+    for (i = kFoldUnroll; i + kFoldUnroll <= n; i += kFoldUnroll) {
+      T nxt[kFoldUnroll];
+#pragma unroll
+      for (int u = 0; u < kFoldUnroll; ++u) nxt[u] = a[i + u];
+#pragma unroll
+      for (int u = 0; u < kFoldUnroll; ++u) sum += cur[u];
+#pragma unroll
+      for (int u = 0; u < kFoldUnroll; ++u) cur[u] = nxt[u];
     }
-    s.count[e] = c;
-    s.per_len[e] = c / p.ec_len[e];
+#pragma unroll
+    for (int u = 0; u < kFoldUnroll; ++u) sum += cur[u];
+  }
+  for (; i < n; ++i) sum += a[i];
+  return sum;
+}
+
+// term(l[0]) + term(l[1]) + ... in list order from 0, for the list l a
+// thread's slot holds (`base` its lane's first element, `n` its length).
+// kUnroll terms at a time, their indices loaded one batch ahead; a
+// batch's terms are computed before its adds, and past the list's end a
+// term (of index 0, always valid) is computed but not added.
+template <typename T, typename Term>
+__device__ __forceinline__ T list_fold(const int32_t* base, int n,
+                                       Term term) {
+  T sum = 0;
+  int32_t cur[kUnroll];
+#pragma unroll
+  for (int u = 0; u < kUnroll; ++u) cur[u] = u < n ? __ldg(base + 32 * u) : 0;
+  for (int j = 0; j < n; j += kUnroll) {
+    int32_t nxt[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int k = j + kUnroll + u;
+      nxt[u] = k < n ? __ldg(base + 32 * k) : 0;
+    }
+    T t[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) t[u] = term(cur[u]);
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u)
+      if (j + u < n) sum += t[u];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) cur[u] = nxt[u];
+  }
+  return sum;
+}
+
+// out = normalized EM update of `in`; leaves the expected read counts in
+// v.count (em.cc emUpdate).
+template <typename T, bool kProf>
+__device__ __forceinline__ void em_update(const Problem<T>& p,
+                                          const Vecs<T>& v, const T* in,
+                                          T* out, T* s_norm, long long* cyc,
+                                          long long& last) {
+  const int tid = threadIdx.x, lane = tid & 31;
+  const Lists& rows = p.rows;
+  for (int k = tid; k < rows.slots; k += kThreads) {
+    const int i = rows.sched[k];
+    if (i < 0) continue;
+    const T sum = list_fold<T>(rows.stream + rows.base[k >> 5] + lane,
+                               rows.len[k], [&](int32_t e) { return in[e]; });
+    v.grp[2 * i] = sum == 0 ? (T)1 : sum;
   }
   __syncthreads();
-  if (tid == 0) {
-    T norm = 0;
-    for (int e = 0; e < p.ec_cnt; ++e) norm += s.per_len[e];
-    *s_norm = norm;
+  mark<kProf>(cyc, kCsr, last);
+  const Lists& cols = p.cols;
+  const auto* grp = reinterpret_cast<const typename Pair<T>::type*>(v.grp);
+  for (int k = tid; k < cols.slots; k += kThreads) {
+    const int e = cols.sched[k];
+    if (e < 0) continue;
+    // an EC the mask zeroed: every term count * (0 / psum) is +0 or -0
+    // (psum > 0), so the sum from +0 is +0 - without the divides, whose
+    // zero-dividend case leaves the fast path
+    const T xe = in[e];
+    const T c = xe == 0 ? (T)0 : list_fold<T>(
+        cols.stream + cols.base[k >> 5] + lane, cols.len[k],
+        [&](int32_t r) {
+          const auto g = grp[r];
+          return g.y * (xe / g.x);
+        });
+    v.count[e] = c;
+    v.per_len[e] = c / v.ec_len[e];
   }
+  __syncthreads();
+  mark<kProf>(cyc, kCsc, last);
+  if (tid == 0) *s_norm = fold_seq(v.per_len, p.ec_cnt);
   __syncthreads();
   const T norm = *s_norm;
-  for (int e = tid; e < p.ec_cnt; e += kThreads) out[e] = s.per_len[e] / norm;
+  for (int e = tid; e < p.ec_cnt; e += kThreads) out[e] = v.per_len[e] / norm;
   __syncthreads();
+  mark<kProf>(cyc, kNorm, last);
 }
 
 // Low-abundance major-allele mask; resets x0 (em.cc maskAndReset).
 template <typename T>
-__device__ void mask_reset(const Problem<T>& p, const Scratch<T>& s) {
+__device__ __forceinline__ void mask_reset(const Problem<T>& p,
+                                           const Scratch<T>& s,
+                                           const Vecs<T>& v) {
   const int tid = threadIdx.x;
   for (int a = tid; a < p.allele_cnt; a += kThreads)
     s.allele_abund[a] = s.allele_ec_abund[a] = 0;
+  for (int g = tid; g < p.gene_cnt; g += kThreads) s.gene_max[g] = 0;
   __syncthreads();
   for (int e = tid; e < p.ec_cnt; e += kThreads) {
     const int64_t size = p.ec_off[e + 1] - p.ec_off[e];
-    const T abund = s.count[e] / p.ec_len[e] * (T)1000.0;
+    const T abund = v.count[e] / v.ec_len[e] * (T)1000.0;
     for (int64_t j = p.ec_off[e]; j < p.ec_off[e + 1]; ++j) {
       s.allele_abund[p.ec_alleles[j]] = abund / (T)size;
       s.allele_ec_abund[p.ec_alleles[j]] = abund;
     }
   }
   __syncthreads();
-  if (tid == 0) {
-    for (int m = 0; m < p.major_cnt; ++m) s.major_abund[m] = 0;
-    for (int g = 0; g < p.gene_cnt; ++g) s.gene_max[g] = 0;
-    for (int a = 0; a < p.allele_cnt; ++a)
-      s.major_abund[p.allele_major[a]] += s.allele_abund[a];
-    for (int a = 0; a < p.allele_cnt; ++a) {
-      const T v = s.major_abund[p.allele_major[a]];
-      if (v > s.gene_max[p.allele_gene[a]]) s.gene_max[p.allele_gene[a]] = v;
-    }
+  for (int m = tid; m < p.major_cnt; m += kThreads) {
+    T sum = 0;
+    for (int64_t j = p.maj_off[m]; j < p.maj_off[m + 1]; ++j)
+      sum += s.allele_abund[p.maj_alleles[j]];
+    s.major_abund[m] = sum;
+  }
+  __syncthreads();
+  // em.cc: gene_max starts at 0 and takes a value only if it is larger
+  for (int a = tid; a < p.allele_cnt; a += kThreads) {
+    const T w = s.major_abund[p.allele_major[a]];
+    if (w > 0) atomic_max_pos(&s.gene_max[p.allele_gene[a]], w);
   }
   __syncthreads();
   for (int a = tid; a < p.allele_cnt; a += kThreads) {
@@ -137,59 +285,133 @@ __device__ void mask_reset(const Problem<T>& p, const Scratch<T>& s) {
   }
   __syncthreads();
   for (int e = tid; e < p.ec_cnt; e += kThreads)
-    s.x0[e] = s.allele_ec_abund[p.ec_alleles[p.ec_off[e]]];
+    v.x0[e] = s.allele_ec_abund[p.ec_alleles[p.ec_off[e]]];
   __syncthreads();
 }
 
-template <typename T>
+template <typename T, bool kShared, bool kProf>
 __global__ void __launch_bounds__(kThreads)
-squarem_kernel(Problem<T> p, Scratch<T> s, int32_t* iterations) {
-  __shared__ T s_norm, s_alpha, s_diff;
+squarem_kernel(Problem<T> p, Scratch<T> s, int32_t* iterations,
+               long long* cycles) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ T s_fold[3];  // normalizer / sum_r and L1 change, sum_v
   const int tid = threadIdx.x;
+  const int ec = p.ec_cnt;
+  Vecs<T> v;
+  if constexpr (kShared) {
+    T* base = reinterpret_cast<T*>(smem);
+    T* len = base + 2 * p.rg_cnt + 6 * (int64_t)ec;
+    v.grp = base;
+    v.x0 = base + 2 * p.rg_cnt;
+    v.x1 = v.x0 + ec;
+    v.x2 = v.x1 + ec;
+    v.x3 = v.x2 + ec;
+    v.count = v.x3 + ec;
+    v.per_len = v.count + ec;
+    for (int e = tid; e < ec; e += kThreads) len[e] = p.ec_len[e];
+    v.ec_len = len;
+  } else {
+    v.grp = s.grp;
+    v.x0 = s.x0;
+    v.x1 = s.x1;
+    v.x2 = s.x2;
+    v.x3 = s.x3;
+    v.count = s.count;
+    v.per_len = s.per_len;
+    v.ec_len = p.ec_len;
+  }
+  for (int64_t i = tid; i < p.rg_cnt; i += kThreads)
+    v.grp[2 * i + 1] = p.rg_counts[i];
+  for (int e = tid; e < ec; e += kThreads) v.x0[e] = p.init_x[e];
+  __syncthreads();
+  long long cyc[kPhases] = {};
+  long long last = kProf ? clock64() : 0;
+  const long long start = last;
+
   int ret = 0;
   for (int t = 0; t < p.max_iterations; ++t) {
     ++ret;
-    em_update(p, s, s.x0, s.x1, &s_norm);
-    em_update(p, s, s.x1, s.x2, &s_norm);
-    if (tid == 0) {
-      T sum_r = 0, sum_v = 0;
-      for (int i = 0; i < p.ec_cnt; ++i) {
-        const T r = s.x1[i] - s.x0[i];
-        const T v = s.x2[i] - 2 * s.x1[i] + s.x0[i];
-        sum_r += r * r;
-        sum_v += v * v;
-      }
-      T alpha = sum_v == 0 ? (T)-1 : -sqrt_of(sum_r) / sqrt_of(sum_v);
-      if (p.min_alpha < 0 && alpha < p.min_alpha) alpha = p.min_alpha;
-      s_alpha = alpha;
+    em_update<T, kProf>(p, v, v.x0, v.x1, &s_fold[0], cyc, last);
+    em_update<T, kProf>(p, v, v.x1, v.x2, &s_fold[0], cyc, last);
+    // alpha's terms: r^2 into x3, v^2 into per_len (both free here)
+    for (int i = tid; i < ec; i += kThreads) {
+      const T r = v.x1[i] - v.x0[i];
+      const T w = v.x2[i] - 2 * v.x1[i] + v.x0[i];
+      v.x3[i] = r * r;
+      v.per_len[i] = w * w;
     }
     __syncthreads();
-    const T alpha = s_alpha;
-    for (int i = tid; i < p.ec_cnt; i += kThreads)
-      s.x3[i] = s.x0[i] - 2 * alpha * (s.x1[i] - s.x0[i]) +
-                alpha * alpha * (s.x2[i] - 2 * s.x1[i] + s.x0[i]);
+    if (tid == 0) s_fold[1] = fold_seq(v.x3, ec);
+    if (tid == 32) s_fold[2] = fold_seq(v.per_len, ec);
     __syncthreads();
-    em_update(p, s, s.x3, s.x1, &s_norm);
-    if (tid == 0) {
-      T diff = 0;
-      for (int i = 0; i < p.ec_cnt; ++i) {
-        diff += abs_of(s.x1[i] - s.x0[i]);
-        s.x0[i] = s.x1[i];
-      }
-      s_diff = diff;
+    const T sum_r = s_fold[1], sum_v = s_fold[2];
+    T alpha = sum_v == 0 ? (T)-1 : -sqrt_of(sum_r) / sqrt_of(sum_v);
+    if (p.min_alpha < 0 && alpha < p.min_alpha) alpha = p.min_alpha;
+    for (int i = tid; i < ec; i += kThreads)
+      v.x3[i] = v.x0[i] - 2 * alpha * (v.x1[i] - v.x0[i]) +
+                alpha * alpha * (v.x2[i] - 2 * v.x1[i] + v.x0[i]);
+    __syncthreads();
+    mark<kProf>(cyc, kAlpha, last);
+    em_update<T, kProf>(p, v, v.x3, v.x1, &s_fold[0], cyc, last);
+    for (int i = tid; i < ec; i += kThreads)
+      v.x2[i] = abs_of(v.x1[i] - v.x0[i]);
+    __syncthreads();
+    if (tid == 0) s_fold[1] = fold_seq(v.x2, ec);
+    __syncthreads();
+    const T diff = s_fold[1];
+    T* const old_x0 = v.x0;  // x0 = x1
+    v.x0 = v.x1;
+    v.x1 = old_x0;
+    mark<kProf>(cyc, kDiff, last);
+    if (diff < (T)1e-5 && t < p.max_iterations - 2) t = p.max_iterations - 2;
+    if (t > 0 && t % kMaskRound == 0) {
+      mask_reset(p, s, v);
+      mark<kProf>(cyc, kMask, last);
     }
-    __syncthreads();
-    if (s_diff < (T)1e-5 && t < p.max_iterations - 2) t = p.max_iterations - 2;
-    if (t > 0 && t % kMaskRound == 0) mask_reset(p, s);
-    __syncthreads();  // s_diff is rewritten next round
   }
-  if (tid == 0) *iterations = ret;
+  if constexpr (kShared)
+    for (int e = tid; e < ec; e += kThreads) s.count[e] = v.count[e];
+  if (tid == 0) {
+    *iterations = ret;
+    if (kProf) {
+      for (int k = 0; k < kPhases; ++k) cycles[k] = cyc[k];
+      cycles[kPhases] = clock64() - start;
+    }
+  }
+}
+
+template <typename T, bool kShared, bool kProf>
+int launch_as(const Problem<T>& p, const Scratch<T>& s, int32_t* iterations,
+              long long* cycles, cudaStream_t stream) {
+  auto kernel = squarem_kernel<T, kShared, kProf>;
+  size_t bytes = 0;
+  if constexpr (kShared) {
+    bytes = (2 * (size_t)p.rg_cnt + 7 * (size_t)p.ec_cnt) * sizeof(T);
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) {
+      cudaGetLastError();  // not left for a later launch's check
+      return (int)err;
+    }
+  }
+  kernel<<<1, kThreads, bytes, stream>>>(p, s, iterations, cycles);
+  return (int)cudaGetLastError();
+}
+
+Lists lists_at(const void* const* in, int64_t slots) {
+  Lists l;
+  l.slots = (int32_t)slots;
+  l.sched = static_cast<const int32_t*>(in[0]);
+  l.len = static_cast<const int32_t*>(in[1]);
+  l.base = static_cast<const int64_t*>(in[2]);
+  l.stream = static_cast<const int32_t*>(in[3]);
+  return l;
 }
 
 template <typename T>
 int launch(const void* const* in, void* const* scratch, const int64_t* dims,
-           double filter_frac, double min_alpha, void* iterations,
-           void* stream) {
+           double filter_frac, double min_alpha, bool shared,
+           void* iterations, void* cycles, void* stream) {
   Problem<T> p;
   p.ec_cnt = (int32_t)dims[0];
   p.allele_cnt = (int32_t)dims[1];
@@ -197,45 +419,114 @@ int launch(const void* const* in, void* const* scratch, const int64_t* dims,
   p.major_cnt = (int32_t)dims[3];
   p.rg_cnt = dims[4];
   p.max_iterations = (int32_t)dims[5];
-  p.rg_off = static_cast<const int64_t*>(in[0]);
-  p.rg_ecs = static_cast<const int32_t*>(in[1]);
-  p.rg_counts = static_cast<const T*>(in[2]);
-  p.col_off = static_cast<const int64_t*>(in[3]);
-  p.col_rgs = static_cast<const int32_t*>(in[4]);
-  p.ec_off = static_cast<const int64_t*>(in[5]);
-  p.ec_alleles = static_cast<const int32_t*>(in[6]);
-  p.ec_len = static_cast<const T*>(in[7]);
-  p.allele_gene = static_cast<const int32_t*>(in[8]);
-  p.allele_major = static_cast<const int32_t*>(in[9]);
+  p.rows = lists_at(in, dims[6]);
+  p.cols = lists_at(in + 4, dims[7]);
+  p.rg_counts = static_cast<const T*>(in[8]);
+  p.ec_off = static_cast<const int64_t*>(in[9]);
+  p.ec_alleles = static_cast<const int32_t*>(in[10]);
+  p.ec_len = static_cast<const T*>(in[11]);
+  p.allele_gene = static_cast<const int32_t*>(in[12]);
+  p.allele_major = static_cast<const int32_t*>(in[13]);
+  p.maj_off = static_cast<const int64_t*>(in[14]);
+  p.maj_alleles = static_cast<const int32_t*>(in[15]);
+  p.init_x = static_cast<const T*>(in[16]);
   p.filter_frac = (T)filter_frac;
   p.min_alpha = (T)min_alpha;
   Scratch<T> s;
-  T** fields[] = {&s.x0, &s.x1, &s.x2, &s.x3, &s.count, &s.psum,
+  T** fields[] = {&s.x0, &s.x1, &s.x2, &s.x3, &s.count, &s.grp,
                   &s.per_len, &s.allele_abund, &s.allele_ec_abund,
                   &s.major_abund, &s.gene_max};
   for (int k = 0; k < 11; ++k) *fields[k] = static_cast<T*>(scratch[k]);
-  squarem_kernel<T><<<1, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      p, s, static_cast<int32_t*>(iterations));
-  return (int)cudaGetLastError();
+  auto* it = static_cast<int32_t*>(iterations);
+  auto* cyc = static_cast<long long*>(cycles);
+  auto st = static_cast<cudaStream_t>(stream);
+  if (shared)
+    return cyc ? launch_as<T, true, true>(p, s, it, cyc, st)
+               : launch_as<T, true, false>(p, s, it, cyc, st);
+  return cyc ? launch_as<T, false, true>(p, s, it, cyc, st)
+             : launch_as<T, false, false>(p, s, it, cyc, st);
+}
+
+// mode 0: one thread, n dependent f64 adds.  mode 1: one block of
+// kThreads threads, n terms each of the CSC pass's form,
+// g[k] * (v / q[k]) summed kUnroll at a time, from shared memory.
+__global__ void __launch_bounds__(kThreads)
+clock_probe_kernel(int mode, int64_t n, const double* in, double* out,
+                   long long* cycles) {
+  __shared__ double q[2048], g[2048];
+  const int tid = threadIdx.x;
+  if (mode == 0) {
+    if (tid != 0) return;
+    double x = in[0];
+    const double y = in[1];
+    const long long t0 = clock64();
+#pragma unroll 16
+    for (int64_t i = 0; i < n; ++i) x += y;
+    const long long t1 = clock64();
+    out[0] = x;
+    cycles[0] = t1 - t0;
+    return;
+  }
+  for (int i = tid; i < 2048; i += kThreads) {
+    q[i] = in[0] + i;
+    g[i] = in[1] + (i & 7);
+  }
+  __syncthreads();
+  const double xe = in[2];
+  const long long t0 = clock64();
+  double sum = 0;
+  unsigned r = 37u * tid;
+  for (int64_t j = 0; j < n; j += kUnroll) {
+    double t[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      r = r * 1103515245u + 12345u;
+      const int k = (r >> 8) & 2047;
+      t[u] = g[k] * (xe / q[k]);
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) sum += t[u];
+  }
+  __syncthreads();
+  const long long t1 = clock64();
+  out[tid] = sum;
+  if (tid == 0) cycles[0] = t1 - t0;
 }
 
 }  // namespace
 
-// in: 10 device pointers (rg_off, rg_ecs, rg_counts, col_off, col_rgs,
-// ec_off, ec_alleles, ec_len, allele_gene, allele_major).  scratch: 11
-// device buffers (x0 holding the initial abundances, x1, x2, x3, count,
-// psum, per_len, allele_abund, allele_ec_abund, major_abund, gene_max);
-// count holds the per-EC read counts afterwards.  dims: ec_cnt,
-// allele_cnt, gene_cnt, major_cnt, rg_cnt, max_iterations.  double_prec
-// selects f64 (else f32) for every floating buffer.  iterations: one
-// device int32.  Returns the launch's cudaGetLastError().
+// in: 17 device pointers: the rows' sched, len, base and stream (CSR,
+// read group -> ECs), the columns' four (CSC, EC -> read groups), then
+// rg_counts, ec_off, ec_alleles, ec_len, allele_gene, allele_major,
+// maj_off, maj_alleles, init_x.  scratch: 11 device buffers (x0, x1, x2,
+// x3, count, grp of 2 rg_cnt, per_len, allele_abund, allele_ec_abund,
+// major_abund, gene_max); count holds the per-EC read counts afterwards.
+// dims: ec_cnt, allele_cnt, gene_cnt, major_cnt, rg_cnt, max_iterations,
+// the rows' and the columns' slot counts (multiples of kThreads).
+// double_prec selects f64 (else f32) for every floating buffer; shared
+// keeps the loop's vectors in (2 rg_cnt + 7 ec_cnt) elements of dynamic
+// shared memory.  iterations: one device int32.  cycles: null, or
+// kPhases + 1 device int64 for the profiled instantiation's clock64()
+// counts (CSR, CSC, normalizer, alpha, L1 change, mask, total).  Returns
+// the launch's CUDA error code.
 extern "C" int t1k_em_squarem(const void* const* in, void* const* scratch,
                               const int64_t* dims, double filter_frac,
-                              double min_alpha, int double_prec,
-                              void* iterations, void* stream) {
+                              double min_alpha, int double_prec, int shared,
+                              void* iterations, void* cycles, void* stream) {
   return double_prec
              ? launch<double>(in, scratch, dims, filter_frac, min_alpha,
-                              iterations, stream)
+                              shared != 0, iterations, cycles, stream)
              : launch<float>(in, scratch, dims, filter_frac, min_alpha,
-                             iterations, stream);
+                             shared != 0, iterations, cycles, stream);
+}
+
+// Measurement kernel for the EM's bounds (see clock_probe_kernel): in
+// holds 3 doubles, out 1024, cycles 1.  Returns the launch's error code.
+extern "C" int t1k_em_clock_probe(int mode, int64_t n, const void* in,
+                                  void* out, void* cycles, void* stream) {
+  clock_probe_kernel<<<1, mode == 0 ? 1 : kThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      mode, n, static_cast<const double*>(in), static_cast<double*>(out),
+      static_cast<long long*>(cycles));
+  return (int)cudaGetLastError();
 }

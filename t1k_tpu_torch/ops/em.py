@@ -16,8 +16,13 @@ its ECs (CSR, in the group's own order) and per EC its read groups (CSC,
 ascending, the order in which em.cc's scatter reaches the EC).
 
 CUDA tensors run the kernel ``csrc/em_squarem.cu`` (the whole loop in one
-launch); CPU tensors run ``squarem_plain``, the same order in PyTorch ops
-(bit-exact in f64 on the CPU, whose cumsum is a sequential sum).
+launch of one block, its vectors in shared memory when
+``em_shared_bytes`` fits ``EM_SHARED_LIMIT``, else in device memory);
+CPU tensors run ``squarem_plain``, the same order in PyTorch ops
+(bit-exact in f64 on the CPU, whose cumsum is a sequential sum).  The
+host deals the kernel's read-group and EC lists to its threads
+(``list_schedule``) in a warp-interleaved layout (``warp_lists``) and
+lists each major allele's alleles (``major_lists``).
 """
 
 from __future__ import annotations
@@ -33,9 +38,74 @@ import torch
 from ..device import resolve_device
 
 MASK_ROUND = 10
+# The kernel's block (em_squarem.cu kThreads) and the dynamic shared
+# memory its shared-memory form may ask for: an H100 block's 232,448
+# opt-in bytes, less room for the kernel's static shared scalars.
+EM_THREADS = 1024
+EM_SHARED_LIMIT = 232_448 - 1_024
+# The profiled kernel's clock counts: these phases, then the total.
+EM_PHASES = ("csr", "csc", "norm", "alpha", "diff", "mask")
 
 # Kernel launches, counted by the CUDA wrapper where it launches.
 launch_counts = {"em_squarem": 0}
+
+
+def em_shared_bytes(rg_cnt: int, ec_cnt: int, itemsize: int) -> int:
+    """Dynamic shared memory of the kernel's shared-memory form: per read
+    group its psum and count, per EC x0-x3, count, per_len and the
+    shortest effective length."""
+    return (2 * rg_cnt + 7 * ec_cnt) * itemsize
+
+
+def list_schedule(off, threads: int = EM_THREADS) -> np.ndarray:
+    """CSR lists (read groups' ECs or ECs' read groups) dealt to the
+    kernel's threads: slot k * threads + t holds the list thread t folds
+    in its k-th turn, or -1.  Lists are dealt longest first in a snake
+    (turn k left to right when k is even, right to left when odd), so the
+    threads that took the longest lists in one turn take the shortest of
+    the next, and a warp's 32 lists are of about one length."""
+    lens = np.diff(np.asarray(off, np.int64))
+    order = np.argsort(-lens, kind="stable").astype(np.int32)
+    turns = -(-len(order) // threads)
+    sched = np.full(turns * threads, -1, np.int32)
+    sched[:len(order)] = order
+    sched = sched.reshape(turns, threads)
+    sched[1::2] = sched[1::2, ::-1]
+    return sched.ravel()
+
+
+def warp_lists(off, idx, threads: int = EM_THREADS) -> dict:
+    """CSR lists as the kernel's threads walk them: `sched` (slot k *
+    threads + t: the list thread t folds in its k-th turn, or -1, from
+    list_schedule) and `len` per slot; the 32 slots of a warp share a
+    block of `stream` starting at `base[slot // 32]`, element j of lane
+    l's list at base + 32 * j + l (block height: the warp's longest
+    list), so a warp's loads are coalesced."""
+    off = np.asarray(off, np.int64)
+    sched = list_schedule(off, threads)
+    lens = np.where(sched >= 0, np.diff(off)[np.maximum(sched, 0)], 0)
+    height = lens.reshape(-1, 32).max(axis=1)
+    base = np.zeros(len(height), np.int64)
+    np.cumsum(32 * height[:-1], out=base[1:])
+    stream = np.zeros(max(int(32 * height.sum()), 1), np.int32)
+    slots = np.nonzero(lens)[0]
+    n = lens[slots]
+    rep = np.repeat(slots, n)
+    j = np.arange(len(rep)) - np.repeat(np.cumsum(n) - n, n)
+    stream[base[rep // 32] + 32 * j + rep % 32] = np.asarray(idx)[
+        np.repeat(off[sched[slots]], n) + j]
+    return dict(sched=sched, len=lens.astype(np.int32), base=base,
+                stream=stream)
+
+
+def major_lists(allele_major, major_cnt: int):
+    """Per major allele its alleles, ascending (CSR): the order em.cc's
+    major sums reach them."""
+    allele_major = np.asarray(allele_major, np.int64)
+    maj_off = np.zeros(major_cnt + 1, np.int64)
+    np.cumsum(np.bincount(allele_major, minlength=major_cnt),
+              out=maj_off[1:])
+    return maj_off, np.argsort(allele_major, kind="stable").astype(np.int32)
 
 
 def em_tables(ec_to_alleles, rg_ecs_csr, rg_counts, allele_eff_len,
@@ -92,12 +162,17 @@ def incidence_lists(rg_off, rg_ecs, ec_cnt: int):
     if len(rg_ecs) and (rg_ecs.min() < 0 or rg_ecs.max() >= ec_cnt):
         raise ValueError("EC index out of range in the read-group lists")
     seg_rg = np.repeat(np.arange(rg_cnt, dtype=np.int64), np.diff(rg_off))
-    if np.unique(seg_rg * ec_cnt + rg_ecs).size != rg_ecs.size:
-        raise ValueError("duplicate (read group, EC) pair in the incidence")
-    perm = np.argsort(rg_ecs, kind="stable")
+    # stable: read groups stay ascending within an EC (16-bit keys take
+    # numpy's radix sort)
+    keys = rg_ecs.astype(np.uint16) if ec_cnt <= 1 << 16 else rg_ecs
+    perm = np.argsort(keys, kind="stable")
     col_off = np.zeros(ec_cnt + 1, dtype=np.int64)
     np.cumsum(np.bincount(rg_ecs, minlength=ec_cnt), out=col_off[1:])
-    return col_off, seg_rg[perm].astype(np.int32)
+    col_rgs, col_ecs = seg_rg[perm], rg_ecs[perm]
+    # a repeated pair is one read group twice in a row within one EC
+    if ((col_rgs[1:] == col_rgs[:-1]) & (col_ecs[1:] == col_ecs[:-1])).any():
+        raise ValueError("duplicate (read group, EC) pair in the incidence")
+    return col_off, col_rgs.astype(np.int32)
 
 
 def _padded(off: np.ndarray, idx: np.ndarray, pad: int) -> np.ndarray:
@@ -134,9 +209,7 @@ def squarem_plain(rg_off, rg_ecs, rg_counts, col_off, col_rgs, ec_off,
     i64 = torch.int64
     row_ecs = put(_padded(rg_off, rg_ecs, ec_cnt), i64)       # [R, K]
     col_rg = put(_padded(col_off, col_rgs, rg_cnt), i64)      # [E, L]
-    order = np.argsort(allele_major, kind="stable")
-    maj_off = np.zeros(major_cnt + 1, np.int64)
-    np.cumsum(np.bincount(allele_major, minlength=major_cnt), out=maj_off[1:])
+    maj_off, order = major_lists(allele_major, major_cnt)
     maj_alleles = put(_padded(maj_off, order, allele_cnt), i64)  # [M, Lm]
     cts_z = put(np.append(rg_counts, 0.0), dtype)
     ec_len_t, ec_size_t = put(ec_len, dtype), put(np.diff(ec_off), dtype)
@@ -217,54 +290,109 @@ def _kernel_lib() -> ctypes.CDLL:
     lib.t1k_em_squarem.restype = ctypes.c_int
     lib.t1k_em_squarem.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_double,
-        ctypes.c_double, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+        ctypes.c_double, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p]
+    lib.t1k_em_clock_probe.restype = ctypes.c_int
+    lib.t1k_em_clock_probe.argtypes = [
+        ctypes.c_int, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p]
     return lib
+
+
+def squarem_device(rg_off, rg_ecs, rg_counts, col_off, col_rgs, ec_off,
+                   ec_alleles, ec_len, allele_gene, allele_major, init_x,
+                   gene_cnt: int, major_cnt: int, device, dtype,
+                   shared=None) -> dict:
+    """One EM problem on a CUDA device for csrc/em_squarem.cu: the kernel's
+    inputs (the warp_lists of both passes, the major -> alleles lists),
+    its scratch and outputs, and the instantiation it takes.  `shared`
+    None picks the shared-memory form when em_shared_bytes fits
+    EM_SHARED_LIMIT; True or False forces one (True raises if it does
+    not fit)."""
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"unsupported EM dtype {dtype}")
+    ec_cnt, rg_cnt = len(ec_len), len(rg_counts)
+    allele_cnt = len(allele_gene)
+    itemsize = torch.finfo(dtype).bits // 8
+    fits = em_shared_bytes(rg_cnt, ec_cnt, itemsize) <= EM_SHARED_LIMIT
+    if shared is None:
+        shared = fits
+    elif shared and not fits:
+        raise ValueError("EM problem does not fit in shared memory")
+
+    def put(x, dt):
+        return torch.as_tensor(np.ascontiguousarray(x)).to(
+            device=device, dtype=dt).contiguous()
+
+    def buf(n):
+        return torch.empty(max(n, 1), dtype=dtype, device=device)
+
+    i32, i64 = torch.int32, torch.int64
+    maj_off, maj_alleles = major_lists(allele_major, major_cnt)
+    rows = warp_lists(rg_off, rg_ecs, EM_THREADS)
+    cols = warp_lists(col_off, col_rgs, EM_THREADS)
+    ins = [put(lists[k], dt) for lists in (rows, cols) for k, dt in (
+        ("sched", i32), ("len", i32), ("base", i64), ("stream", i32))]
+    ins += [put(rg_counts, dtype), put(ec_off, i64), put(ec_alleles, i32),
+            put(ec_len, dtype), put(allele_gene, i32),
+            put(allele_major, i32), put(maj_off, i64),
+            put(maj_alleles, i32), put(init_x, dtype)]
+    # the shared form keeps x0-x3, the (psum, count) pairs and per_len
+    # on the chip
+    vec = 0 if shared else 1
+    scratch = [buf(vec * ec_cnt) for _ in range(4)] + [
+        buf(ec_cnt), buf(vec * 2 * rg_cnt), buf(vec * ec_cnt),
+        buf(allele_cnt), buf(allele_cnt), buf(major_cnt), buf(gene_cnt)]
+    dims = (ctypes.c_int64 * 8)(ec_cnt, allele_cnt, gene_cnt, major_cnt,
+                                rg_cnt, 0, len(rows["sched"]),
+                                len(cols["sched"]))
+    return dict(ins=ins, scratch=scratch, dims=dims, shared=bool(shared),
+                dtype=dtype, device=torch.device(device),
+                iterations=torch.zeros(1, dtype=i32, device=device),
+                count=scratch[4][:ec_cnt])
+
+
+def squarem_launch(em_dev: dict, filter_frac: float,
+                   min_squarem_alpha: float, max_iterations: int,
+                   cycles=None) -> None:
+    """Launch csrc/em_squarem.cu once on a problem from squarem_device, on
+    the current stream, without waiting: em_dev["iterations"] and
+    em_dev["count"] hold the result once the stream has run it.
+    `cycles`, an int64 CUDA tensor of EM_PHASES + 1, selects the profiled
+    instantiation and receives its per-phase clock counts."""
+    lib = _kernel_lib()
+    ins, scratch = em_dev["ins"], em_dev["scratch"]
+    em_dev["dims"][5] = max_iterations
+    dev = em_dev["device"]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.t1k_em_squarem(
+            (ctypes.c_void_p * len(ins))(*[t.data_ptr() for t in ins]),
+            (ctypes.c_void_p * len(scratch))(*[t.data_ptr()
+                                               for t in scratch]),
+            em_dev["dims"], float(filter_frac), float(min_squarem_alpha),
+            int(em_dev["dtype"] == torch.float64), int(em_dev["shared"]),
+            em_dev["iterations"].data_ptr(),
+            None if cycles is None else cycles.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"em_squarem kernel launch failed: CUDA error {rc}")
+    launch_counts["em_squarem"] += 1
 
 
 def squarem_cuda(rg_off, rg_ecs, rg_counts, col_off, col_rgs, ec_off,
                  ec_alleles, ec_len, allele_gene, allele_major, init_x,
                  gene_cnt: int, major_cnt: int, filter_frac: float,
                  min_squarem_alpha: float, max_iterations: int, device,
-                 dtype) -> Tuple[int, torch.Tensor]:
-    """Launch csrc/em_squarem.cu once for the whole loop; same result as
-    squarem_plain on the CPU, bit for bit."""
-    if dtype not in (torch.float32, torch.float64):
-        raise ValueError(f"unsupported EM dtype {dtype}")
-    ec_cnt, rg_cnt = len(ec_len), len(rg_counts)
-    allele_cnt = len(allele_gene)
-
-    def put(x, dt):
-        return torch.as_tensor(np.ascontiguousarray(x)).to(
-            device=device, dtype=dt).contiguous()
-
-    i32, i64 = torch.int32, torch.int64
-    ins = [put(rg_off, i64), put(rg_ecs, i32), put(rg_counts, dtype),
-           put(col_off, i64), put(col_rgs, i32), put(ec_off, i64),
-           put(ec_alleles, i32), put(ec_len, dtype), put(allele_gene, i32),
-           put(allele_major, i32)]
-
-    def buf(n):
-        return torch.empty(max(n, 1), dtype=dtype, device=device)
-
-    scratch = [put(init_x, dtype)] + [buf(ec_cnt) for _ in range(4)] + [
-        buf(rg_cnt), buf(ec_cnt), buf(allele_cnt), buf(allele_cnt),
-        buf(major_cnt), buf(gene_cnt)]
-    iters = torch.zeros(1, dtype=i32, device=device)
-    dims = (ctypes.c_int64 * 6)(ec_cnt, allele_cnt, gene_cnt, major_cnt,
-                                rg_cnt, max_iterations)
-    lib = _kernel_lib()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = lib.t1k_em_squarem(
-            (ctypes.c_void_p * len(ins))(*[t.data_ptr() for t in ins]),
-            (ctypes.c_void_p * len(scratch))(*[t.data_ptr()
-                                               for t in scratch]),
-            dims, float(filter_frac), float(min_squarem_alpha),
-            int(dtype == torch.float64), iters.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(f"em_squarem kernel launch failed: CUDA error {rc}")
-    launch_counts["em_squarem"] += 1
-    return int(iters.item()), scratch[4][:ec_cnt]
+                 dtype, shared=None) -> Tuple[int, torch.Tensor]:
+    """Upload one problem and launch csrc/em_squarem.cu once for the whole
+    loop; same result as squarem_plain on the CPU, bit for bit.  `shared`
+    as squarem_device takes it."""
+    em_dev = squarem_device(rg_off, rg_ecs, rg_counts, col_off, col_rgs,
+                            ec_off, ec_alleles, ec_len, allele_gene,
+                            allele_major, init_x, gene_cnt, major_cnt,
+                            device, dtype, shared)
+    squarem_launch(em_dev, filter_frac, min_squarem_alpha, max_iterations)
+    return int(em_dev["iterations"].item()), em_dev["count"]
 
 
 def em_quantify_gpu(
