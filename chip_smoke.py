@@ -56,23 +56,49 @@ Phases, in order; any failure raises and the exit code is non-zero:
                    |t_len - p_len| quantiles, row use of the sorted launch,
                    slot counts of its warps)
  10. extract       the FASTQ extraction stage on the same panel (k = 13,
-                   hashed table): 1,000,000 read pairs of 2 x 100 bp
-                   (20,000 simulated on-panel pairs, 80,000 near-miss
-                   pairs, 900,000 random pairs, shuffled) through
+                   hashed table): 200,000 read pairs of 2 x 100 bp
+                   (4,000 simulated on-panel pairs, 16,000 near-miss
+                   pairs, 180,000 random pairs, shuffled) through
                    t1k_tpu_torch.cli.extract --backend gpu in this process
-                   (so its kernel launches are counted here; its stage
-                   time is a warm one), byte-compared with
+                   (its stage time is a warm one), byte-compared with
                    t1k_tpu.cli.extract --backend native run in a child
                    process; both phase-A kernels must launch and the
                    device must decide a share of the screened reads
  11. screen_timing probe and chain kernels vs their plain versions, in
                    turns, on one full 1024-row chunk of the extract inputs
-Then the card line, one JSON line describing the kernels (times, launches
-on the main path, the bound each could reach on the card and what sets
-it - for the EM the longer of its bytes/operations bound and the chain
-of dependent f64 adds em.cc's order forces, at the add latency the
-card measured; no single PyTorch call computes any of them, so
-library_ms is null), and {"ok": true, "device": {...}} as the last line.  Work files go to a
+ 12. run           the run-t1k chain (extract -> genotype -> analyze) on
+                   the same panel: 1,000,000 read pairs built as extract's
+                   (20,000 simulated, 80,000 near-miss, 900,000 random),
+                   the simulated pairs of two genes drawn from copies of
+                   an allele with three seeded substitutions, and a cell
+                   barcode per pair: t1k_tpu.cli.run --backend native
+                   --emBackend native, then t1k_tpu_torch.cli.run
+                   --backend gpu --emBackend gpu, each in a child process
+                   of its own (the port's with its kernels' launch counts
+                   set to 0 before the run and printed after it); every
+                   output byte-compared (candidate reads, genotype,
+                   alleles, aligned reads, VCF with at least one record,
+                   barcode matrix); both phase-A kernels, the EM kernel
+                   and the band kernel in the genotyper's and in the
+                   analyzer's read assignment must launch; each route's
+                   process wall and stage seconds (between the lines of
+                   its log that open and close each stage) are printed
+ 13. run_profile   the port's analyzer alone on the run's genotyper
+                   outputs under torch.profiler: the same VCF, and the
+                   card's busy and idle share of each analyzer stage; its
+                   largest batch of deferred items is kept
+ 14. analyzer_timing  the thread band kernels vs their plain version on
+                   that batch, exact and in turns, with its shape
+Then the card line, one JSON line describing the kernels (times; launches
+over the run phase's chain, the v1 aligner's over its own phase; the
+band kernel as two entries, band_stats timed on the genotyper's chunk
+with the genotyper's launches and band_stats_analyzer on the analyzer's
+batch with the analyzer's; the
+bound each could reach on the card and what sets it - for the EM the
+longer of its bytes/operations bound and the chain of dependent f64 adds
+em.cc's order forces, at the add latency the card measured; no single
+PyTorch call computes any of them, so library_ms is null), and
+{"ok": true, "device": {...}} as the last line.  Work files go to a
 temporary directory that is removed at exit.
 """
 
@@ -100,6 +126,10 @@ EM_LARGE = (54_210, 10_700)   # about 10x the HLA problem's incidences
 RANDOM_ITEMS = 100_000
 V1_PAIRS = 65_536
 EXTRACT_PAIRS = (20_000, 80_000, 900_000)   # simulated, near-miss, random
+# the extract phase's depth: the run phase extracts EXTRACT_PAIRS
+EXTRACT_SMOKE_PAIRS = (4_000, 16_000, 180_000)
+SNP_GENES = 2                    # genes whose reads carry seeded SNPs
+SNP_POSITIONS = (300, 700, 1100)  # 0-based, in each such allele's copy
 READ_LEN = 100
 
 _LUT = np.full(256, 4, np.int8)
@@ -174,10 +204,13 @@ def build_panel(path: str, n_genes: int = PANEL_GENES,
 
 
 def simulate_reads(panel: str, prefix: str, n_pairs: int = SIM_PAIRS,
-                   n_genes: int = 8) -> None:
+                   n_genes: int = 8, snp_genes: int = 0) -> None:
     """Two alleles from each of `n_genes` genes, fixed seeds, through the
-    shared simulator's command line."""
-    names = [r[0] for r in read_fasta(panel)]
+    shared simulator's command line.  With `snp_genes`, the first chosen
+    allele of that many genes is replaced by a copy carrying substitutions
+    at SNP_POSITIONS (not in the panel), so the analyzer calls variants."""
+    recs = read_fasta(panel)
+    names = [r[0] for r in recs]
     rng = np.random.default_rng(13)
     chosen, abund = [], []
     for g in sorted({n.split("*")[0] for n in names})[:n_genes]:
@@ -185,8 +218,22 @@ def simulate_reads(panel: str, prefix: str, n_pairs: int = SIM_PAIRS,
         for j, p in enumerate(rng.choice(len(alleles), 2, replace=False)):
             chosen.append(alleles[p])
             abund.append(1.0 - 0.3 * j)
+    source = panel
+    if snp_genes:
+        source = prefix + "_donor.fa"
+        by_name = {name: (comment, seq) for name, comment, seq in recs}
+        with open(source, "w") as f:
+            for i, name in enumerate(chosen):
+                comment, seq = by_name[name]
+                if i % 2 == 0 and i // 2 < snp_genes:
+                    s = list(seq)
+                    for p in SNP_POSITIONS:
+                        s[p] = "ACGT"[("ACGT".index(s[p]) + 1) % 4]
+                    seq, name = "".join(s), name + "snp"
+                    chosen[i] = name
+                f.write(f">{name} {comment}\n{seq}\n")
     subprocess.run(
-        [sys.executable, "-m", "t1k_tpu.tools.simulate", "-f", panel,
+        [sys.executable, "-m", "t1k_tpu.tools.simulate", "-f", source,
          "-o", prefix, "-n", str(n_pairs), "--seed", "3", "--alleles",
          *chosen, "--abundances", *map(str, abund)],
         check=True, cwd=ROOT, env=child_env())
@@ -718,10 +765,10 @@ def phase_em_timing(dev, hla: dict, sizes: dict, info: dict):
 
 
 def phase_main(dev, work: str, n_genes: int, copies: int, n_pairs: int,
-               info: dict, em_problems: list) -> dict:
-    """Port CLI vs native CLI on the HLA-scale panel; returns each
-    kernel's launch count over the port's run, and appends the EM
-    problem the port's genotyper solved to `em_problems`."""
+               info: dict, em_problems: list) -> None:
+    """Port CLI vs native CLI on the HLA-scale panel; each kernel must
+    launch over the port's run.  Appends the EM problem the port's
+    genotyper solved to `em_problems`."""
     import inspect
 
     from t1k_tpu_torch.cli import genotype as cli
@@ -787,7 +834,6 @@ def phase_main(dev, work: str, n_genes: int, copies: int, n_pairs: int,
                              f"{launches}")
     if warp_launches:
         raise AssertionError("the main path launched the warp band kernel")
-    launches["band_stats_warp"] = warp_launches
     if ra["deferred_item_count"] <= 0:
         raise AssertionError("the main path deferred no DP item")
     with open(os.path.join(work, "port_genotype.tsv")) as f:
@@ -804,7 +850,6 @@ def phase_main(dev, work: str, n_genes: int, copies: int, n_pairs: int,
     for route, m in metrics.items():
         print(f"  {route} stages: " + " ".join(
             f"{k}={v['seconds']}s" for k, v in m.items()), flush=True)
-    return launches
 
 
 def thread_slots(t_len: int, p_len: int, ml: int) -> int:
@@ -836,33 +881,42 @@ def launch_warps(t_len, p_len, ml: int = 15):
     return np.concatenate(rows), np.concatenate(slots)
 
 
-def main_path_chunk(dev, work: str, n_reads: int):
-    """The largest batch of deferred items one engine chunk sends when the
-    first `n_reads` reads of <work>/r_1.fq meet <work>/panel.fa.  Returns
-    the recording service (its resident ref and reads) and the int64
-    [4, n] descriptors on `dev`."""
-    import torch
-
-    from t1k_tpu_torch.core import pipeline as tp
+def recording_service():
+    """A DeferredDescService class that keeps, on the class, the largest
+    batch of deferred items any of its instances was sent: [ref, reads,
+    int64 [4, n] descriptors] with the resident reference and read
+    tensors that batch was scored against."""
     from t1k_tpu_torch.ops import align_band as ab
 
     class Recorder(ab.DeferredDescService):
         largest = None
 
         def stats_async(self, t_off, t_len, p_off, p_len):
-            if self.largest is None or len(t_len) > len(self.largest[1]):
-                self.largest = [np.asarray(x, np.int64).copy()
-                                for x in (t_off, t_len, p_off, p_len)]
+            cls = type(self)
+            if cls.largest is None or len(t_len) > cls.largest[2].shape[1]:
+                cls.largest = [self._ref, self._reads, np.stack(
+                    [np.asarray(x, np.int64) for x in (t_off, t_len, p_off,
+                                                       p_len)])]
             return super().stats_async(t_off, t_len, p_off, p_len)
 
-    rec = Recorder(dev)
+    return Recorder
+
+
+def main_path_chunk(dev, work: str, n_reads: int):
+    """The largest batch of deferred items one engine chunk sends when the
+    first `n_reads` reads of <work>/r_1.fq meet <work>/panel.fa: the
+    reference and read tensors it was scored against, and its int64
+    [4, n] descriptors on the host."""
+    from t1k_tpu_torch.core import pipeline as tp
+
+    rec = recording_service()(dev)
     seqs = [r.seq for r in tp.read_seq_files([os.path.join(work, "r_1.fq")])]
     refset = tp.RefSet.from_fasta(os.path.join(work, "panel.fa"))
     engine = tp.NativeEngine(refset.packed(), tp.GENOTYPER_KMER_LENGTH)
     tp.assign_unique_reads(engine, seqs[:n_reads], "gpu", rec,
                            store_results=False,
                            defer_chunk=tp.GenotypeOptions().defer_chunk)
-    return rec, torch.from_numpy(np.stack(rec.largest)).to(dev)
+    return rec.largest
 
 
 def phase_timing(dev, check: Checker, check_warp: Checker, work: str,
@@ -874,10 +928,13 @@ def phase_timing(dev, check: Checker, check_warp: Checker, work: str,
     quantiles, the row use of the sorted launch and the warps' slot
     counts.  Returns ((thread ms, plain ms, bound), (warp ms, plain ms,
     bound))."""
+    import torch
+
     from t1k_tpu_torch.ops import align_band as ab
 
-    rec, d = main_path_chunk(dev, work, n_reads)
-    args = (rec._ref, rec._reads, d, ab.DESC_ML, ab.DESC_W)
+    ref, reads, desc = main_path_chunk(dev, work, n_reads)
+    d = torch.from_numpy(desc).to(dev)
+    args = (ref, reads, d, ab.DESC_ML, ab.DESC_W)
     warp = warp_kernel(dev)
 
     def thread():
@@ -904,7 +961,7 @@ def phase_timing(dev, check: Checker, check_warp: Checker, work: str,
                      "band_warp_kernel"):
             us = call_us(warp_fn if "warp" in name else thread, name, 20)
             info[f"{name.strip('_')}_us"] = us
-    t_len, p_len = rec.largest[1], rec.largest[3]
+    t_len, p_len = desc[1], desc[3]
     diff = np.abs(t_len - p_len)
     q = (0, 0.5, 0.9, 0.99, 1)
     info["items"] = int(d.shape[1])
@@ -1275,18 +1332,22 @@ def read_fastq_seqs(path: str, n: int):
     return seqs
 
 
-def extract_inputs(work: str, panel: str, counts=EXTRACT_PAIRS) -> str:
-    """1,000,000 read pairs of 2 x 100 bp with qualities, fixed seeds:
-    simulated on-panel pairs (two alleles from each of 8 genes), near-miss
-    pairs cut from panel alleles with 25-35% substitutions, and uniform
-    random pairs (1% of them low-complexity or N-rich), shuffled.
-    Returns the prefix of <prefix>_1.fq / <prefix>_2.fq."""
+def extract_inputs(work: str, panel: str, counts=EXTRACT_PAIRS,
+                   tag: str = "x", snp_genes: int = 0,
+                   barcodes: bool = False) -> str:
+    """Read pairs of 2 x 100 bp with qualities, fixed seeds (1,000,000 at
+    EXTRACT_PAIRS): simulated on-panel pairs (two alleles from each of 8
+    genes, `snp_genes` of them with seeded SNPs), near-miss pairs cut from
+    panel alleles with 25-35% substitutions, and uniform random pairs (1%
+    of them low-complexity or N-rich), shuffled.  Returns the prefix of
+    <prefix>_1.fq / <prefix>_2.fq (prefix <work>/<tag>); with `barcodes`,
+    also <prefix>_bc.fq, one of 24 cell barcodes of 16 bp per pair."""
     n_sim, n_near, n_rand = counts
     rng = np.random.default_rng(99)
     acgt = np.frombuffer(b"ACGTN", np.uint8)
     comp = np.array([3, 2, 1, 0, 4], np.int8)
-    sim = os.path.join(work, "xsim")
-    simulate_reads(panel, sim, n_sim)
+    sim = os.path.join(work, tag + "sim")
+    simulate_reads(panel, sim, n_sim, snp_genes=snp_genes)
     m1 = np.stack([encode(s.decode()) for s in
                    read_fastq_seqs(sim + "_1.fq", n_sim)])
     m2 = np.stack([encode(s.decode()) for s in
@@ -1322,9 +1383,15 @@ def extract_inputs(work: str, panel: str, counts=EXTRACT_PAIRS) -> str:
     order = rng.permutation(len(mate1))
     quals = rng.integers(35, 74, (len(mate1), READ_LEN)).astype(np.uint8)
     names = [b"x%d" % i for i in range(len(mate1))]
-    prefix = os.path.join(work, "x")
+    prefix = os.path.join(work, tag)
     write_fastq(prefix + "_1.fq", names, acgt[mate1[order]], quals)
     write_fastq(prefix + "_2.fq", names, acgt[mate2[order]], quals[::-1])
+    if barcodes:
+        brng = np.random.default_rng(98)
+        cells = brng.integers(0, 4, (24, 16)).astype(np.int8)
+        write_fastq(prefix + "_bc.fq", names,
+                    acgt[cells[brng.integers(0, 24, len(names))]],
+                    quals[:, :16])
     return prefix
 
 
@@ -1343,9 +1410,9 @@ def stage_line(text: str, name: str) -> dict:
 
 
 def phase_extract(dev, work: str, info: dict, counts=EXTRACT_PAIRS):
-    """Port CLI in this process vs native CLI in a child process; returns
-    the phase-A kernels' launch counts over the port's run and the reads
-    of the first 1024-row screen chunk."""
+    """Port CLI in this process vs native CLI in a child process; both
+    phase-A kernels must launch over the port's run.  Returns the prefix
+    of the inputs."""
     import io
 
     from t1k_tpu_torch.cli import extract as cli
@@ -1398,7 +1465,7 @@ def phase_extract(dev, work: str, info: dict, counts=EXTRACT_PAIRS):
     info["port_stage_s"] = port["seconds"]
     info["native_stage_s"] = native["seconds"]
     info.update({f"{k}_launches": v for k, v in launches.items()})
-    return launches, prefix
+    return prefix
 
 
 def kernel_device_us(fn, kernel: str, reps: int) -> dict:
@@ -1544,10 +1611,243 @@ def phase_screen_timing(dev, check_probe: Checker,
                  for (km, pm), b in zip(out, bounds))
 
 
+# ------------------------------------------------------------ run-t1k chain
+
+CHAIN_OUTPUTS = ("_candidate_1.fq", "_candidate_2.fq", "_candidate_bc.fa",
+                 "_genotype.tsv", "_allele.tsv", "_aligned_1.fa",
+                 "_aligned_2.fa", "_aligned_bc.fa", "_allele.vcf",
+                 "_barcode_expr.tsv")
+# each stage of a run-t1k chain between two lines of its log, which both
+# packages' cli.run write
+STAGE_MARKS = (("extraction", "Start to extract candidate reads",
+                "Finish extracting reads."),
+               ("genotyper", "Finish extracting reads.",
+                "Genotyping finishes."),
+               ("analyzer", "Genotyping finishes.",
+                "Post analysis finishes."))
+# t1k_tpu_torch.cli.run as `python -m` runs it, with the kernels' launch
+# counts set to 0 just before it and printed as the last line after it
+PORT_RUN = ("import json, sys\n"
+            "from t1k_tpu_torch.cli import run\n"
+            "from t1k_tpu_torch.ops import align_band, em, phase_a\n"
+            "counts = (align_band.launch_counts, em.launch_counts,\n"
+            "          phase_a.launch_counts)\n"
+            "for c in counts:\n"
+            "    c.update(dict.fromkeys(c, 0))\n"
+            "rc = run.main(sys.argv[1:])\n"
+            "print(json.dumps({k: v for c in counts for k, v in c.items()}))\n"
+            "sys.exit(rc)\n")
+
+
+def timed_chain(cmd) -> tuple:
+    """Runs a run-t1k chain `cmd` in a child process.  Returns its
+    standard output and {stage: seconds, "process": seconds}: each stage
+    from the arrival of the log line that opens it on the child's
+    standard error to the arrival of the one that closes it (host
+    clock), the process from its start to its exit."""
+    marks = {}
+    err = []
+    with tempfile.TemporaryFile("w+") as out:
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(cmd, cwd=ROOT, env=child_env(), stdout=out,
+                                stderr=subprocess.PIPE, text=True)
+        for line in proc.stderr:
+            now = time.perf_counter() - t0
+            err.append(line)
+            for _, *bounds in STAGE_MARKS:
+                for mark in bounds:
+                    if mark in line:
+                        marks.setdefault(mark, now)
+        proc.wait()
+        secs = {"process": time.perf_counter() - t0}
+        out.seek(0)
+        stdout = out.read()
+    if proc.returncode != 0:
+        raise RuntimeError(f"{cmd[1:3]} exited {proc.returncode}:\n"
+                           + "".join(err)[-4000:])
+    for name, start, end in STAGE_MARKS:
+        secs[name] = marks[end] - marks[start]
+    return stdout, secs
+
+
+def device_busy_ms(trace: str) -> float:
+    """Milliseconds in which the card ran something (the union of the
+    kernel, copy and set intervals of a torch.profiler Chrome trace)."""
+    with open(trace) as f:
+        events = json.load(f)["traceEvents"]
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                   if e.get("ph") == "X" and e.get("cat") in (
+                       "kernel", "gpu_memcpy", "gpu_memset"))
+    busy, end = 0.0, -np.inf
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy / 1e3
+
+
+def phase_run(dev, work: str, info: dict, counts=EXTRACT_PAIRS) -> dict:
+    """t1k_tpu_torch.cli.run (extract -> genotype -> analyze, every route
+    on `dev`) against t1k_tpu.cli.run --backend native --emBackend native,
+    each in a child process of its own, on read pairs whose simulated
+    share carries seeded SNPs in SNP_GENES genes, with cell barcodes.
+    Every output byte-compared, the VCF non-empty; returns the kernels'
+    launch counts over the port's run, the band kernel's split into
+    band_stats (the genotyper's launches) and band_stats_analyzer."""
+    panel = os.path.join(work, "panel.fa")
+    t0 = time.perf_counter()
+    prefix = extract_inputs(work, panel, counts, tag="run",
+                            snp_genes=SNP_GENES, barcodes=True)
+    info["inputs_s"] = f"{time.perf_counter() - t0:.1f}"
+    args = ["-f", panel, "-1", prefix + "_1.fq", "-2", prefix + "_2.fq",
+            "--barcode", prefix + "_bc.fq", "-o", "run"]
+    secs = {}
+    _, secs["native"] = timed_chain(
+        [sys.executable, "-m", "t1k_tpu.cli.run", *args, "--od",
+         os.path.join(work, "rnative"), "--backend", "native",
+         "--emBackend", "native"])
+    out, secs["port"] = timed_chain(
+        [sys.executable, "-c", PORT_RUN, *args, "--od",
+         os.path.join(work, "rport"), "--backend", "gpu", "--emBackend",
+         "gpu", "--device", str(dev)])
+    launches = json.loads(out.splitlines()[-1])
+    for suffix in CHAIN_OUTPUTS:
+        with open(os.path.join(work, "rnative", "run" + suffix), "rb") as f:
+            a = f.read()
+        with open(os.path.join(work, "rport", "run" + suffix), "rb") as f:
+            b = f.read()
+        if a != b:
+            raise AssertionError(f"run {suffix} differs from the native "
+                                 "route")
+        info[f"{suffix.lstrip('_')}_bytes"] = len(b)
+    with open(os.path.join(work, "rport", "run_allele.vcf")) as f:
+        info["vcf_records"] = sum(1 for _ in f)
+    if info["vcf_records"] < 1:
+        raise AssertionError("the run called no variant")
+    with open(os.path.join(work, "rport", "run_metrics.json")) as f:
+        geno = json.load(f)["read_assignment"]
+    with open(os.path.join(work, "rport", "run_analyzer_metrics.json")) as f:
+        ana = json.load(f)
+    band = {"genotyper": geno["band_kernel_launches"],
+            "analyzer": ana["analyzer_read_assignment"][
+                "band_kernel_launches"]}
+    if sum(band.values()) != launches["band_stats"]:
+        raise AssertionError(f"metrics {band} and wrapper "
+                             f"{launches['band_stats']} disagree on launches")
+    if launches["band_stats_warp"]:
+        raise AssertionError("the run launched the warp band kernel")
+    if dev.type == "cuda" and min(*band.values(), launches["em_squarem"],
+                                  launches["phase_a_probe"],
+                                  launches["phase_a_chain"]) <= 0:
+        raise AssertionError(f"a kernel of the run never launched: "
+                             f"{launches}, band {band}")
+    if min(geno["deferred_item_count"], ana["analyzer_read_assignment"][
+            "deferred_item_count"]) <= 0:
+        raise AssertionError("a stage of the run deferred no DP item")
+    launches.update(band_stats=band["genotyper"],
+                    band_stats_analyzer=band["analyzer"])
+    info["pairs"] = sum(counts)
+    info["deferred_items_analyzer"] = ana["analyzer_read_assignment"][
+        "deferred_item_count"]
+    info.update({f"{k}_launches": v for k, v in launches.items()})
+    print("  run stage seconds (child processes, host clock): " + json.dumps(
+        {route: {k: round(v, 3) for k, v in s.items()}
+         for route, s in secs.items()}), flush=True)
+    print("  run port analyzer stages: " + " ".join(
+        f"{k}={v['seconds']}s" for k, v in ana.items()), flush=True)
+    return launches
+
+
+def phase_run_profile(dev, work: str, info: dict):
+    """The port's analyzer alone on the run's genotyper outputs, under
+    torch.profiler (T1K_PROFILE_DIR): its VCF equals the run's, and the
+    card's busy share of each of its stages is reported.  Returns the
+    analyzer's largest batch of deferred items, as main_path_chunk."""
+    import io
+
+    from t1k_tpu_torch.cli import analyze
+    from t1k_tpu_torch.core import analyzer
+
+    port = os.path.join(work, "rport", "run")
+    out = os.path.join(work, "aprof")
+    trace_dir = os.path.join(work, "trace")
+    service = analyzer.DeferredDescService
+    analyzer.DeferredDescService = recorder = recording_service()
+    os.environ["T1K_PROFILE_DIR"] = trace_dir
+    try:
+        with contextlib.redirect_stderr(io.StringIO()):
+            analyze.main(["-f", os.path.join(work, "panel.fa"),
+                          "-a", port + "_allele.tsv",
+                          "-1", port + "_aligned_1.fa",
+                          "-2", port + "_aligned_2.fa", "-o", out,
+                          "--backend", "gpu", "--emBackend", "gpu",
+                          "--device", str(dev)])
+    finally:
+        del os.environ["T1K_PROFILE_DIR"]
+        analyzer.DeferredDescService = service
+    vcfs = []
+    for path in (port, out):
+        with open(path + "_allele.vcf", "rb") as f:
+            vcfs.append(f.read())
+    if vcfs[0] != vcfs[1]:
+        raise AssertionError("the profiled analyzer's VCF differs")
+    with open(out + "_analyzer_metrics.json") as f:
+        stages = json.load(f)
+    for name in ("analyzer_read_assignment", "alignment_info",
+                 "variant_calling"):
+        busy = device_busy_ms(os.path.join(trace_dir, f"{name}.json"))
+        wall = stages[name]["seconds"] * 1e3
+        info[f"{name}_wall_ms"] = f"{wall:.1f}"
+        info[f"{name}_busy_ms"] = f"{busy:.3f}"
+        info[f"{name}_idle"] = f"{1 - busy / wall:.6f}" if wall else "n/a"
+    return recorder.largest
+
+
+def phase_analyzer_timing(dev, check: Checker, batch, info: dict):
+    """The thread kernels against the plain version, exactly and in turns
+    (plain, thread, thread, plain), on the analyzer's largest batch of
+    deferred items (its one launch on the run's selected alleles).
+    Returns (thread ms, plain ms, bound)."""
+    import torch
+
+    from t1k_tpu_torch.ops import align_band as ab
+
+    ref, reads, desc = batch
+    args = (ref, reads, torch.from_numpy(desc).to(dev), ab.DESC_ML,
+            ab.DESC_W)
+
+    def thread():
+        return ab.band_stats(*args)
+
+    def plain():
+        return ab.band_stats_plain(*args)
+
+    check(thread(), plain(), "analyzer batch")
+    cuda = dev.type == "cuda"
+    plain_ms = [time_ms(plain, 3 if cuda else 1, dev)]
+    thread_ms = [time_ms(thread, 50 if cuda else 1, dev) for _ in range(2)]
+    plain_ms.append(time_ms(plain, 3 if cuda else 1, dev))
+    if cuda:
+        for name in ("thread_narrow", "thread_wide", "sort_"):
+            info[f"{name.strip('_')}_us"] = call_us(thread, name, 20)
+    t_len, p_len = desc[1], desc[3]
+    q = (0, 0.5, 0.9, 0.99, 1)
+    info["items"] = int(desc.shape[1])
+    info["p_len_q"] = ",".join(str(int(v)) for v in np.quantile(p_len, q))
+    info["absdiff_q"] = ",".join(
+        str(int(v)) for v in np.quantile(np.abs(t_len - p_len), q))
+    info["thread_ms"] = " ".join(f"{t:.4f}" for t in thread_ms)
+    info["plain_ms"] = " ".join(f"{t:.2f}" for t in plain_ms)
+    b = dp_bound(t_len, p_len, 40 * desc.shape[1])
+    info["bound_ms"] = f"{b[0]:.4f}"
+    return float(np.mean(thread_ms)), float(np.mean(plain_ms)), b
+
+
 SOURCES = ("band_stats", "em_squarem", "align_full", "phase_a_probe",
            "phase_a_chain")
 # kernel record -> its source under t1k_tpu_torch/csrc/
-KERNELS = {"band_stats": "band_stats", "band_stats_warp": "band_stats",
+KERNELS = {"band_stats": "band_stats", "band_stats_analyzer": "band_stats",
+           "band_stats_warp": "band_stats",
            "em_squarem": "em_squarem", "align_full": "align_full",
            "phase_a_probe": "phase_a_probe", "phase_a_chain": "phase_a_chain"}
 
@@ -1589,8 +1889,8 @@ def run(dev, sizes: dict) -> list:
     with tempfile.TemporaryDirectory(prefix="t1k_smoke_") as work:
         with phase("main") as info:
             em_problems = []
-            launches = phase_main(dev, work, PANEL_GENES, PANEL_COPIES,
-                                  sizes["sim_pairs"], info, em_problems)
+            phase_main(dev, work, PANEL_GENES, PANEL_COPIES,
+                       sizes["sim_pairs"], info, em_problems)
         with phase("em_timing") as info:
             *times["em_squarem"], em_err = phase_em_timing(
                 dev, em_problems[0], sizes, info)
@@ -1599,15 +1899,25 @@ def run(dev, sizes: dict) -> list:
                 dev, checks["band_stats"], checks["band_stats_warp"], work,
                 8192, info)
         with phase("extract") as info:
-            pa_launches, prefix = phase_extract(dev, work, info,
-                                                sizes["extract"])
+            prefix = phase_extract(dev, work, info, sizes["extract"])
         with phase("screen_timing") as info:
             times["phase_a_probe"], times["phase_a_chain"] = \
                 phase_screen_timing(dev, checks["phase_a_probe"],
                                     checks["phase_a_chain"], work, prefix,
                                     info)
-    launches.update(pa_launches, align_full=v1_launches)
+        with phase("run") as info:
+            run_launches = phase_run(dev, work, info, sizes["run"])
+        with phase("run_profile") as info:
+            batch = phase_run_profile(dev, work, info)
+        with phase("analyzer_timing") as info:
+            times["band_stats_analyzer"] = phase_analyzer_timing(
+                dev, checks["band_stats_analyzer"], batch, info)
+    # launches over the run-t1k chain, the path users call (the band
+    # kernel's as band_stats in the genotyper, band_stats_analyzer in the
+    # analyzer); the v1 aligner (on no stage) over its own phase
+    launches = dict(run_launches, align_full=v1_launches)
     replaces = {"band_stats": "t1k_tpu/ops/align_pallas_band.py:55",
+                "band_stats_analyzer": "t1k_tpu/ops/align_pallas_band.py:55",
                 "band_stats_warp": "t1k_tpu/ops/align_pallas_band.py:55",
                 "em_squarem": "t1k_tpu/ops/em.py:213",
                 "align_full": "t1k_tpu/ops/align_pallas.py:44",
@@ -1628,7 +1938,7 @@ def run(dev, sizes: dict) -> list:
 FULL_SIZES = dict(random_items=RANDOM_ITEMS, em=(EM_RG, EM_EC),
                   em_large=EM_LARGE,
                   v1_pairs=V1_PAIRS, sim_pairs=SIM_PAIRS,
-                  extract=EXTRACT_PAIRS)
+                  extract=EXTRACT_SMOKE_PAIRS, run=EXTRACT_PAIRS)
 
 
 def main() -> int:

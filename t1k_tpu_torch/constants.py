@@ -2,6 +2,7 @@
 
 Citations point at the reference lines that pin each value:
 
+  * edit codes:       AlignAlgo.hpp:7-10
   * k-mer defaults:   FastqExtractor.cpp:272 (k=9), Genotyper.cpp:207 (k=11)
   * extraction:       FastqExtractor.cpp:390-407 (hit-length thresholds)
   * EM:               Genotyper.hpp:1195 (max iterations)
@@ -9,6 +10,12 @@ Citations point at the reference lines that pin each value:
 """
 
 import numpy as np
+
+# Edit operation codes of the alignment walks (AlignAlgo.hpp:7-10).
+EDIT_MATCH = 0
+EDIT_MISMATCH = 1
+EDIT_INSERT = 2  # insertion to the text (reference consumes nothing)
+EDIT_DELETE = 3  # deletion from the text (read consumes nothing)
 
 # K-mer lengths.
 EXTRACTOR_KMER_LENGTH = 9

@@ -32,6 +32,7 @@ from ..native import NativeEngine
 from ..ops import align_band
 from ..ops.align_band import DeferredDescService
 from ..utils.observability import metrics, reset_metrics, stage
+from .fragment import OverlapRec
 from .genotyper import Genotyper, GenotyperConfig
 
 
@@ -103,9 +104,12 @@ def assign_unique_reads(
     engine, seqs: List[str], backend: str = "native",
     desc_service: Optional[DeferredDescService] = None,
     store_results: bool = True, defer_chunk: int = 0,
+    zero_weights: bool = False,
 ) -> Tuple[List[str], np.ndarray, np.ndarray, np.ndarray]:
     """Group identical read sequences and run the engine once per unique
     sequence with the group size as its weight (Genotyper.cpp:450-479).
+    The analyzer passes zero weights so base coverage is left untouched
+    (Analyzer.cpp:142).
 
     With backend "gpu" the gap-fill and overhang alignments go to
     `desc_service` through the engine's deferred descriptor mode."""
@@ -121,7 +125,7 @@ def assign_unique_reads(
         for k in range(i, j):
             group_of[order[k]] = len(uniq)
         uniq.append(seqs[order[i]])
-        weights.append(j - i)
+        weights.append(0 if zero_weights else j - i)
         i = j
 
     if uniq:
@@ -146,6 +150,59 @@ def assign_unique_reads(
     else:
         raise ValueError(f"unknown alignment backend {backend!r}")
     return uniq, group_of, rec, off
+
+
+def overlap_lists_from_records(rec: np.ndarray,
+                               off: np.ndarray) -> List[List[OverlapRec]]:
+    """Per unique read, its engine records [N,11] as OverlapRec lists."""
+    return [[OverlapRec.from_row(rec[k]) for k in range(off[i], off[i + 1])]
+            for i in range(len(off) - 1)]
+
+
+def load_reads(reads1: List[str], reads2: Optional[List[str]],
+               barcode_file=None):
+    """(ids1, seqs1, ids2, seqs2, barcodes) of the input fragments, in
+    file order.  With a barcode file (one name or a list) a fragment whose
+    barcode reads "missing_barcode" is skipped; barcodes is None
+    without one."""
+    has_mate = reads2 is not None
+    ids1, seqs1, ids2, seqs2 = [], [], [], []
+    barcodes: Optional[List[str]] = [] if barcode_file else None
+    bc_files = (barcode_file if isinstance(barcode_file, (list, tuple))
+                else [barcode_file])
+    bc_iter = iter(read_seq_files(bc_files)) if barcode_file else None
+    it2 = read_seq_files(reads2) if has_mate else None
+    for rec1 in read_seq_files(reads1):
+        rec2 = next(it2) if has_mate else None
+        if bc_iter is not None:
+            bc = next(bc_iter)
+            if bc.seq == "missing_barcode":
+                continue
+            barcodes.append(bc.seq)
+        ids1.append(rec1.id)
+        seqs1.append(rec1.seq)
+        if has_mate:
+            ids2.append(rec2.id)
+            seqs2.append(rec2.seq)
+    return ids1, seqs1, ids2, seqs2, barcodes
+
+
+def new_genotyper(refset: RefSet, opts: GenotypeOptions, device,
+                  max_read_length: int) -> Genotyper:
+    """The stage's Genotyper with the options' filters, EM route and
+    allele whitelist."""
+    gcfg = GenotyperConfig(
+        filter_frac=opts.filter_frac, filter_cov=opts.filter_cov,
+        cross_gene_rate=opts.cross_gene_rate,
+        max_assign_cnt=opts.max_assign_cnt,
+        min_squarem_alpha=opts.min_squarem_alpha,
+        read_length=max_read_length, em_backend=opts.em_backend,
+    )
+    genotyper = Genotyper(refset, gcfg, device=device)
+    if opts.allele_whitelist:
+        with open(opts.allele_whitelist) as f:
+            genotyper.set_allele_whitelist(f.read().split())
+    return genotyper
 
 
 def run_genotyper(
@@ -194,41 +251,11 @@ def prepare_genotyper(
     )
     has_mate = reads2 is not None
 
-    # Ingest reads (+ optional per-read barcodes).
-    ids1, seqs1, ids2, seqs2 = [], [], [], []
-    barcodes: Optional[List[str]] = [] if opts.barcode_file else None
-    bc_files = (opts.barcode_file
-                if isinstance(opts.barcode_file, (list, tuple))
-                else [opts.barcode_file])
-    bc_iter = (iter(read_seq_files(bc_files))
-               if opts.barcode_file else None)
-    it2 = read_seq_files(reads2) if has_mate else None
-    for rec1 in read_seq_files(reads1):
-        rec2 = next(it2) if has_mate else None
-        if bc_iter is not None:
-            bc = next(bc_iter)
-            if bc.seq == "missing_barcode":
-                continue
-            barcodes.append(bc.seq)
-        ids1.append(rec1.id)
-        seqs1.append(rec1.seq)
-        if has_mate:
-            ids2.append(rec2.id)
-            seqs2.append(rec2.seq)
+    ids1, seqs1, ids2, seqs2, barcodes = load_reads(reads1, reads2,
+                                                    opts.barcode_file)
     read_cnt = len(seqs1)
     max_read_length = max((len(s) for s in seqs1 + seqs2), default=0)
-
-    gcfg = GenotyperConfig(
-        filter_frac=opts.filter_frac, filter_cov=opts.filter_cov,
-        cross_gene_rate=opts.cross_gene_rate,
-        max_assign_cnt=opts.max_assign_cnt,
-        min_squarem_alpha=opts.min_squarem_alpha,
-        read_length=max_read_length, em_backend=opts.em_backend,
-    )
-    genotyper = Genotyper(refset, gcfg, device=device)
-    if opts.allele_whitelist:
-        with open(opts.allele_whitelist) as f:
-            genotyper.set_allele_whitelist(f.read().split())
+    genotyper = new_genotyper(refset, opts, device, max_read_length)
     whitelist = genotyper.whitelist if opts.allele_whitelist else None
 
     reset_metrics()

@@ -146,6 +146,17 @@ _lib.t1k_align_global.restype = ct.c_int32
 _lib.t1k_align_global.argtypes = [
     _c_i8p, ct.c_int32, _c_i8p, ct.c_int32, ct.c_int32, _c_i8p,
 ]
+_lib.t1k_align_global_batch.restype = None
+_lib.t1k_align_global_batch.argtypes = [
+    _c_i8p, _c_i64p, _c_i32p, _c_i8p, _c_i64p, _c_i32p, _c_i64p,
+    ct.c_int64, ct.c_int32, _c_i8p, _c_i32p,
+]
+_lib.t1k_variant_update.restype = None
+_lib.t1k_variant_update.argtypes = [
+    ct.c_int64, _c_i8p, _c_i64p, _c_i32p, _c_i32p, _c_i32p, _c_i32p,
+    _c_i32p, _c_f64p, _c_u8p, _c_i8p, _c_i64p, ct.c_int32, _c_i64p,
+    _c_f64p, _c_f64p, _c_f64p, _c_i64p, _c_f64p, _c_i64p,
+]
 _lib.t1k_engine_set_store_results.argtypes = [ct.c_void_p, ct.c_int32]
 _lib.t1k_defer_reserve.argtypes = [ct.c_void_p, ct.c_int64]
 _lib.t1k_defer_set_base.argtypes = [ct.c_void_p, ct.c_int64]
@@ -189,6 +200,46 @@ def align_global(t: np.ndarray, p: np.ndarray,
     score = _lib.t1k_align_global(t, len(t), p, len(p), band, out)
     n = int(np.argmax(out == -1))
     return score, out[:n]
+
+
+def align_global_batch(ts, ps, band: int = 5):
+    """Banded global alignment of many (text, pattern) pairs in one
+    native call; returns a list of edit-walk int8 arrays (views into one
+    shared buffer)."""
+    n = len(ts)
+    if n == 0:
+        return []
+    tlen = np.array([len(t) for t in ts], dtype=np.int32)
+    plen = np.array([len(p) for p in ps], dtype=np.int32)
+    toff = np.zeros(n, dtype=np.int64)
+    np.cumsum(tlen[:-1], dtype=np.int64, out=toff[1:])
+    poff = np.zeros(n, dtype=np.int64)
+    np.cumsum(plen[:-1], dtype=np.int64, out=poff[1:])
+    tcat = np.ascontiguousarray(np.concatenate(ts), dtype=np.int8)
+    pcat = np.ascontiguousarray(np.concatenate(ps), dtype=np.int8)
+    # the walk's capacity, as in align_global
+    cap = tlen.astype(np.int64) + plen + 3
+    aoff = np.zeros(n, dtype=np.int64)
+    np.cumsum(cap[:-1], out=aoff[1:])
+    acat = np.empty(int(cap.sum()), dtype=np.int8)
+    alens = np.zeros(n, dtype=np.int32)
+    _lib.t1k_align_global_batch(tcat, toff, tlen, pcat, poff, plen,
+                                aoff, n, band, acat, alens)
+    return [acat[aoff[i]:aoff[i] + alens[i]] for i in range(n)]
+
+
+def variant_update(align_cat, align_off, align_len, seq_idx, seq_start,
+                   read_start, match_cnt, similarity, uniq_add, reads_cat,
+                   read_off, filter_low_qual, seq_base, count, uniq,
+                   unweighted, best_match, best_sim, best_match_max):
+    """Exact per-base evidence accumulation over one update pass of the
+    analyzer's variant caller (native/variant.cc); all state arrays are
+    updated in place."""
+    _lib.t1k_variant_update(
+        len(align_len), align_cat, align_off, align_len, seq_idx,
+        seq_start, read_start, match_cnt, similarity, uniq_add,
+        reads_cat, read_off, int(filter_low_qual), seq_base, count, uniq,
+        unweighted, best_match, best_sim, best_match_max)
 
 
 class NativeEngine:

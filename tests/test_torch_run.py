@@ -1,0 +1,255 @@
+"""The port's pipeline driver (t1k_tpu_torch.cli.run) against the JAX
+package's (t1k_tpu.cli.run --backend native --emBackend native): the whole
+chain extract -> genotype -> analyze on reads simulated from the
+multigene panel with three seeded substitutions in one allele (so the VCF
+has records) and a barcode file, single-end input, two processes, and
+the multigene driver cases of tests/test_runt1k.py.  The gpu routes run
+on the CPU through the kernels' plain versions (--device cpu)."""
+
+import json
+import os
+import shutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from t1k_tpu.cli import fold_negative_values as host_fold
+from t1k_tpu.cli.run import main as host_main
+from t1k_tpu.io.reads import SeqRecord, read_seq_file, write_fastq
+from t1k_tpu.tools.simulate import SimConfig, simulate_pairs
+from t1k_tpu_torch.cli import fold_negative_values
+from t1k_tpu_torch.cli.run import build_parser, main
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+REPO = os.path.dirname(HERE)
+DATA_DIR = os.path.join(HERE, "data")
+REF = os.path.join(DATA_DIR, "multigene_rna.fa")
+MULTIGENE = (os.path.join(DATA_DIR, "multigene_1.fq"),
+             os.path.join(DATA_DIR, "multigene_2.fq"))
+SNP_POSITIONS = (300, 700, 1100)   # 0-based, in the copy of GENA*83
+NATIVE = ["--backend", "native", "--emBackend", "native"]
+PAIRED_OUTPUTS = ("_candidate_1.fq", "_candidate_2.fq", "_genotype.tsv",
+                  "_allele.tsv", "_aligned_1.fa", "_aligned_2.fa",
+                  "_allele.vcf")
+BARCODE_OUTPUTS = ("_candidate_bc.fa", "_aligned_bc.fa", "_barcode_expr.tsv")
+SINGLE_OUTPUTS = ("_candidate.fq", "_genotype.tsv", "_allele.tsv",
+                  "_aligned.fa", "_allele.vcf")
+
+
+def _read(path):
+    with open(path, "rb") as f:
+        return f.read()
+
+
+@pytest.fixture(scope="module")
+def snp_reads(tmp_path_factory):
+    """800 pairs from GENB*104 and from a copy of GENA*83 with
+    substitutions at SNP_POSITIONS (seed 5), and a barcode FASTQ with one
+    of three barcodes per pair."""
+    work = tmp_path_factory.mktemp("snp")
+    recs = {r.id: r for r in read_seq_file(REF)}
+    seq = list(recs["GENA*83"].seq)
+    for p in SNP_POSITIONS:
+        seq[p] = "ACGT"[("ACGT".index(seq[p]) + 1) % 4]
+    donor = SeqRecord("GENA*83snp", "".join(seq), None)
+    r1, r2 = simulate_pairs([recs["GENB*104"], donor], [1.0, 1.0],
+                            SimConfig(n_pairs=800, seed=5))
+    fq1, fq2, bc = (str(work / n) for n in ("snp_1.fq", "snp_2.fq",
+                                            "snp_bc.fq"))
+    write_fastq(fq1, r1)
+    write_fastq(fq2, r2)
+    rng = np.random.default_rng(4)
+    codes = ("ACGTACGTAAGGCCTT", "TTGACCATGGCAACGT", "GATTACAGATTACAGG")
+    write_fastq(bc, [SeqRecord(r.id, codes[int(rng.integers(0, 3))],
+                               "I" * 16) for r in r1])
+    return fq1, fq2, bc
+
+
+def _chain_args(snp_reads, outdir):
+    fq1, fq2, bc = snp_reads
+    return ["-f", REF, "-1", fq1, "-2", fq2, "--barcode", bc,
+            "--od", outdir, "-o", "c"]
+
+
+@pytest.fixture(scope="module")
+def host_chain(snp_reads, tmp_path_factory):
+    """The JAX package's chain, native routes; its VCF has records."""
+    out = str(tmp_path_factory.mktemp("host"))
+    assert host_main([*_chain_args(snp_reads, out), *NATIVE]) == 0
+    vcf = _read(os.path.join(out, "c_allele.vcf")).decode()
+    assert len(vcf.splitlines()) >= len(SNP_POSITIONS)
+    return out
+
+
+def _same_outputs(got_dir, want_dir, suffixes, prefix="c"):
+    for suffix in suffixes:
+        got = _read(os.path.join(got_dir, prefix + suffix))
+        assert got == _read(os.path.join(want_dir, prefix + suffix)), suffix
+        if suffix != "_allele.vcf":
+            assert got, suffix
+
+
+@pytest.mark.parametrize("flags", [["--device", "cpu"], NATIVE],
+                         ids=["device_cpu", "native"])
+def test_chain_matches_jax_native_on_every_output(snp_reads, host_chain,
+                                                  tmp_path, flags):
+    out = str(tmp_path)
+    assert main([*_chain_args(snp_reads, out), *flags]) == 0
+    _same_outputs(out, host_chain, PAIRED_OUTPUTS + BARCODE_OUTPUTS)
+    metrics = json.loads(_read(os.path.join(out, "c_analyzer_metrics.json")))
+    deferred = metrics["analyzer_read_assignment"]["deferred_item_count"]
+    assert (deferred > 0) == (flags[0] == "--device")
+
+
+def test_single_end_chain_matches_jax_native(snp_reads, tmp_path):
+    fq1 = snp_reads[0]
+    host, port = str(tmp_path / "host"), str(tmp_path / "port")
+    args = ["-f", REF, "-u", fq1, "-o", "s"]
+    assert host_main([*args, "--od", host, *NATIVE]) == 0
+    assert main([*args, "--od", port, "--device", "cpu"]) == 0
+    _same_outputs(port, host, SINGLE_OUTPUTS, prefix="s")
+    assert _read(os.path.join(host, "s_allele.vcf"))
+
+
+def test_two_processes_match_one(snp_reads, host_chain, tmp_path):
+    """T1K_NUM_PROCESSES=2: process 1 assigns its shard on the gpu route
+    it was given (no pin to the host engine), process 0 extracts, merges
+    through the single-process tail and analyzes; the outputs equal the
+    single-process chain's."""
+    fq1, fq2, _ = snp_reads
+    out = str(tmp_path)
+    cmd = [sys.executable, "-m", "t1k_tpu_torch.cli.run", "-f", REF,
+           "-1", fq1, "-2", fq2, "--od", out, "-o", "c", "--backend", "gpu",
+           "--emBackend", "gpu", "--device", "cpu"]
+    procs = []
+    for pid in (1, 0):
+        # two processes at torch's default thread count oversubscribe the
+        # cores: the plain band kernel then runs some 20x slower
+        env = dict(os.environ, PYTHONPATH=REPO, T1K_NUM_PROCESSES="2",
+                   T1K_PROCESS_ID=str(pid), OMP_NUM_THREADS="2")
+        for var in ("T1K_BACKEND", "T1K_GPU_PRESENT", "T1K_EM_BACKEND"):
+            env.pop(var, None)
+        procs.append(subprocess.Popen(cmd, cwd=REPO, env=env, text=True,
+                                      stdout=subprocess.PIPE,
+                                      stderr=subprocess.PIPE))
+    logs = [p.communicate(timeout=300) for p in procs]
+    for p, (_, err) in zip(procs, logs):
+        assert p.returncode == 0, err[-3000:]
+    worker = [line for line in logs[0][1].splitlines()
+              if "stage read_assignment finished" in line]
+    assert len(worker) == 1
+    counters = dict(kv.split("=") for kv in worker[0].split() if "=" in kv)
+    assert int(counters["deferred_item_count"]) > 0, worker
+    _same_outputs(out, host_chain, PAIRED_OUTPUTS)
+    # the merge runs the single-process tail, metrics included
+    metrics = json.loads(_read(os.path.join(out, "c_metrics.json")))
+    assert {"read_assignment", "em_quantification",
+            "allele_selection"} <= set(metrics)
+
+
+def test_worker_resolves_its_own_backend(host_chain, tmp_path, monkeypatch,
+                                         capfd):
+    """A worker process keeps the presence verdict unpinned and runs the
+    route --backend / --device resolve to, as one process does."""
+    for var in ("T1K_BACKEND", "T1K_GPU_PRESENT", "T1K_EM_BACKEND"):
+        monkeypatch.delenv(var, raising=False)
+    monkeypatch.setenv("T1K_NUM_PROCESSES", "2")
+    monkeypatch.setenv("T1K_PROCESS_ID", "1")
+    out = str(tmp_path)
+    for suffix in ("_candidate_1.fq", "_candidate_2.fq"):
+        shutil.copy(os.path.join(host_chain, "c" + suffix), out)
+    assert main(["-f", REF, "-1", *MULTIGENE[:1], "--od", out, "-o", "c",
+                 "--stage", "1", "--device", "cpu"]) == 0
+    assert "T1K_GPU_PRESENT" not in os.environ
+    assert os.path.exists(os.path.join(out, "c_dshard_1.npz"))
+    assert not os.path.exists(os.path.join(out, "c_genotype.tsv"))
+    line = [x for x in capfd.readouterr().err.splitlines()
+            if "stage read_assignment finished" in x][0]
+    assert "deferred_item_count=0 " not in line + " "
+
+
+def test_negative_and_range_values_parse():
+    argv = ["-f", "r.fa", "-1", "a.fq", "--read1Range", "0", "-1",
+            "--read2Range", "5", "-1", "--barcodeRange", "0", "15", "-",
+            "--post-varMaxGroup", "-1", "--squaremMinAlpha", "-0.5",
+            "--alleleDigitUnits", "-1", "-2", "b.fq"]
+    assert fold_negative_values(argv) == host_fold(argv)
+    args = build_parser().parse_args(fold_negative_values(argv))
+    assert args.read1Range == [0, -1] and args.read2Range == [5, -1]
+    assert args.barcodeRange == ["0", "15", "-"]
+    assert args.varMaxGroup == -1 and args.squaremMinAlpha == -0.5
+    assert args.alleleDigitUnits == -1
+    assert args.first == ["a.fq"] and args.second == ["b.fq"]
+
+
+def test_interleaved_prefix_inference(tmp_path):
+    """Interleaved-only input infers the bare `T1K` prefix: run-t1k's
+    inference looks only at -b and -1/-u (run-t1k:316-331)."""
+    r1 = list(read_seq_file(MULTIGENE[0]))
+    r2 = list(read_seq_file(MULTIGENE[1]))
+    inter = str(tmp_path / "sample.inter.fq")
+    write_fastq(inter, [x for pair in zip(r1, r2) for x in pair])
+    outdir = str(tmp_path / "out")
+    assert main(["-f", REF, "-i", inter, "--od", outdir,
+                 "--skipPostAnalysis", "--device", "cpu"]) == 0
+    names = set(os.listdir(outdir))
+    assert "T1K_genotype.tsv" in names, names
+    assert not any(n.startswith("T1K_sample") for n in names), names
+
+
+def test_no_extraction_requires_direct_reads(tmp_path):
+    rc = main(["-f", REF, "-i", MULTIGENE[0], "--od", str(tmp_path),
+               "--noExtraction", "--device", "cpu"])
+    assert rc == 1
+    assert os.listdir(str(tmp_path)) == []
+
+
+def test_config_and_metrics_provenance(tmp_path):
+    """The resolved config (<prefix>_config.json, PipelineConfig round
+    trip) and per-stage metrics (<prefix>_metrics.json)."""
+    from t1k_tpu_torch.config import PipelineConfig
+
+    outdir = str(tmp_path / "prov")
+    assert main(["-f", REF, "-1", *MULTIGENE[:1], "-2", MULTIGENE[1],
+                 "--od", outdir, "-o", "p", "--preset", "hla",
+                 "--skipPostAnalysis", "--device", "cpu"]) == 0
+    path = os.path.join(outdir, "p_config.json")
+    cfg = PipelineConfig.load(path)
+    assert cfg.preset == "hla"
+    assert cfg.similarity == 0.97  # hla preset resolved into the config
+    assert cfg.skip_post_analysis
+    assert (cfg.backend, cfg.device) == ("auto", "cpu")
+    cfg.save(str(tmp_path / "again.json"))
+    assert _read(str(tmp_path / "again.json")) == _read(path)
+    metrics = json.loads(_read(os.path.join(outdir, "p_metrics.json")))
+    for stage_name in ("read_assignment", "fragment_assignment",
+                       "em_quantification", "allele_selection"):
+        assert stage_name in metrics, metrics.keys()
+        assert metrics[stage_name]["seconds"] >= 0
+    assert metrics["read_assignment"]["read_count"] > 0
+
+
+def test_auto_without_a_card_exits_before_any_output(tmp_path, monkeypatch,
+                                                     capsys):
+    for var in ("T1K_BACKEND", "T1K_GPU_PRESENT", "T1K_EM_BACKEND"):
+        monkeypatch.delenv(var, raising=False)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    outdir = str(tmp_path / "x")
+    with pytest.raises(SystemExit) as exc:
+        main(["-f", REF, "-1", MULTIGENE[0], "-2", MULTIGENE[1],
+              "--od", outdir])
+    assert exc.value.code == 2
+    err = capsys.readouterr().err
+    assert "--backend native" in err and "--device cpu" in err
+    assert not os.path.exists(outdir)
+
+
+@pytest.mark.parametrize("flags", [["-b", "x.bam"], ["--deviceCandidates"]])
+def test_unported_inputs_are_refused(tmp_path, capsys, flags):
+    assert main(["-f", REF, "-1", MULTIGENE[0], "--od", str(tmp_path / "o"),
+                 "--device", "cpu", *flags]) == 1
+    assert "not supported by t1k_tpu_torch" in capsys.readouterr().err
+    assert not os.path.exists(str(tmp_path / "o"))

@@ -14,8 +14,9 @@ import pytest
 import t1k_tpu_torch
 from t1k_tpu.constants import encode_seq
 from t1k_tpu.native import align_global as host_align_global
+from t1k_tpu.native import align_global_batch as host_align_global_batch
 from t1k_tpu.native import em_quantify as host_em_quantify
-from t1k_tpu_torch.native import align_global, em_quantify
+from t1k_tpu_torch.native import align_global, align_global_batch, em_quantify
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(HERE)
@@ -45,15 +46,20 @@ def test_every_port_module_imports_without_the_jax_package():
     names = _port_modules()
     assert {"t1k_tpu_torch.native", "t1k_tpu_torch.core.pipeline",
             "t1k_tpu_torch.cli.extract", "t1k_tpu_torch.io.refset",
-            "t1k_tpu_torch.utils.observability"} <= set(names)
+            "t1k_tpu_torch.utils.observability", "t1k_tpu_torch.config",
+            "t1k_tpu_torch.core.fragment", "t1k_tpu_torch.core.variant",
+            "t1k_tpu_torch.core.analyzer", "t1k_tpu_torch.cli.analyze",
+            "t1k_tpu_torch.cli.run",
+            "t1k_tpu_torch.parallel.distributed"} <= set(names)
     code = "".join(f"import {n}\n" for n in names) + _CHECK_MODULES
     proc = _run(code)
     assert proc.returncode == 0, proc.stderr[-3000:]
 
 
 def test_chip_smoke_imports_without_the_jax_package():
-    """chip_smoke.py's module-level imports load neither, and no import
-    statement anywhere in it or in the package names either."""
+    """chip_smoke.py's module-level imports load neither; no import
+    statement anywhere in it or in the package names either, and none
+    imports importlib or calls __import__."""
     proc = _run("import chip_smoke\n" + _CHECK_MODULES)
     assert proc.returncode == 0, proc.stderr[-3000:]
     files = [os.path.join(REPO, "chip_smoke.py")]
@@ -63,6 +69,9 @@ def test_chip_smoke_imports_without_the_jax_package():
         with open(path) as f:
             tree = ast.parse(f.read(), path)
         for node in ast.walk(tree):
+            # a module name built at run time would hide from this check
+            assert not (isinstance(node, ast.Name)
+                        and node.id == "__import__"), path
             if isinstance(node, ast.Import):
                 mods = [a.name for a in node.names]
             elif isinstance(node, ast.ImportFrom) and node.level == 0:
@@ -71,7 +80,8 @@ def test_chip_smoke_imports_without_the_jax_package():
                 continue
             for m in mods:
                 top = m.split(".")[0]
-                assert top not in ("t1k_tpu", "jax"), f"{path}: imports {m}"
+                assert top not in ("t1k_tpu", "jax", "importlib"), \
+                    f"{path}: imports {m}"
 
 
 def test_align_global_copy_matches_the_original_on_the_golden_cases():
@@ -87,6 +97,24 @@ def test_align_global_copy_matches_the_original_on_the_golden_cases():
             assert np.array_equal(got[1], want[1])
             cases += 1
     assert cases == 400
+
+
+def test_align_global_batch_copy_matches_the_original():
+    rng = np.random.default_rng(2)
+    ts, ps = [], []
+    for _ in range(300):
+        t = rng.integers(0, 5, int(rng.integers(0, 160))).astype(np.int8)
+        p = t[int(rng.integers(0, 4)):].copy()
+        mut = rng.random(len(p)) < 0.08
+        p[mut] = rng.integers(0, 5, int(mut.sum()))
+        ts.append(t)
+        ps.append(p)
+    got = align_global_batch(ts, ps)
+    want = host_align_global_batch(ts, ps)
+    assert len(got) == len(want) == 300
+    for g, w, t, p in zip(got, want, ts, ps):
+        assert g.tobytes() == w.tobytes()
+        assert g.tobytes() == align_global(t, p)[1].tobytes()
 
 
 @pytest.mark.parametrize("seed", [3, 8])
