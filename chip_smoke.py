@@ -83,14 +83,33 @@ Phases, in order; any failure raises and the exit code is non-zero:
                    analyzer's read assignment must launch; each route's
                    process wall and stage seconds (between the lines of
                    its log that open and close each stage) are printed
- 13. run_profile   the port's analyzer alone on the run's genotyper
+ 13. bam_run       the run-t1k chain on a BAM (-b, with -c the coordinate
+                   fasta: every panel allele on its gene's interval of
+                   chr6): 1,000,000 pairs of 2 x 100 bp (BAM_PAIRS:
+                   20,000 on-panel pairs in their gene's interval, 2,000
+                   on an alt contig, 100,000 unaligned templates, 10,000
+                   pairs within 5 kb of an interval, the rest off target
+                   on chr1), CB and UB tags on every record, written by a
+                   packer that writes BamWriter's bytes (held against it
+                   on 1,000 aligned and 1,000 unaligned records): t1k_tpu.cli.run -b --backend native
+                   --emBackend native with T1K_BACKEND=native, then
+                   t1k_tpu_torch.cli.run -b --backend gpu --emBackend gpu,
+                   as the run phase runs them; every output byte-compared
+                   (the UMI file too), VCF records >= 1, the same kernels
+                   launched, the device deciding reads; extraction timed
+                   from the child's start to the genotyper's first line;
+                   then the port's extraction alone in this process, its
+                   screen on the host engine and on the card in turns,
+                   each run timed and its outputs equal to the chain's
+ 14. run_profile   the port's analyzer alone on the run's genotyper
                    outputs under torch.profiler: the same VCF, and the
                    card's busy and idle share of each analyzer stage; its
                    largest batch of deferred items is kept
- 14. analyzer_timing  the thread band kernels vs their plain version on
+ 15. analyzer_timing  the thread band kernels vs their plain version on
                    that batch, exact and in turns, with its shape
 Then the card line, one JSON line describing the kernels (times; launches
-over the run phase's chain, the v1 aligner's over its own phase; the
+over the run phase's chain, the v1 aligner's over its own phase, and
+launches_bam_run over the bam_run phase's chain; the
 band kernel as two entries, band_stats timed on the genotyper's chunk
 with the genotyper's launches and band_stats_analyzer on the analyzer's
 batch with the analyzer's; the
@@ -1332,27 +1351,15 @@ def read_fastq_seqs(path: str, n: int):
     return seqs
 
 
-def extract_inputs(work: str, panel: str, counts=EXTRACT_PAIRS,
-                   tag: str = "x", snp_genes: int = 0,
-                   barcodes: bool = False) -> str:
-    """Read pairs of 2 x 100 bp with qualities, fixed seeds (1,000,000 at
-    EXTRACT_PAIRS): simulated on-panel pairs (two alleles from each of 8
-    genes, `snp_genes` of them with seeded SNPs), near-miss pairs cut from
-    panel alleles with 25-35% substitutions, and uniform random pairs (1%
-    of them low-complexity or N-rich), shuffled.  Returns the prefix of
-    <prefix>_1.fq / <prefix>_2.fq (prefix <work>/<tag>); with `barcodes`,
-    also <prefix>_bc.fq, one of 24 cell barcodes of 16 bp per pair."""
-    n_sim, n_near, n_rand = counts
-    rng = np.random.default_rng(99)
-    acgt = np.frombuffer(b"ACGTN", np.uint8)
-    comp = np.array([3, 2, 1, 0, 4], np.int8)
-    sim = os.path.join(work, tag + "sim")
-    simulate_reads(panel, sim, n_sim, snp_genes=snp_genes)
-    m1 = np.stack([encode(s.decode()) for s in
-                   read_fastq_seqs(sim + "_1.fq", n_sim)])
-    m2 = np.stack([encode(s.decode()) for s in
-                   read_fastq_seqs(sim + "_2.fq", n_sim)])
+# base codes of the complements of A, C, G, T, N
+_COMP = np.array([3, 2, 1, 0, 4], np.int8)
 
+
+def off_panel_pairs(rng, panel: str, n_near: int, n_rand: int):
+    """(near1, near2, rand1, rand2), [n, READ_LEN] base codes in
+    sequencing orientation: near-miss pairs cut from `panel`'s alleles
+    (fragments of 200-350 bp) with 25-35% substitutions, and uniform
+    random pairs, 1% of them low-complexity or N-rich."""
     alleles = [encode(r[2]) for r in read_fasta(panel)]
     ai = rng.integers(0, len(alleles), n_near)
     flen = rng.integers(200, 351, n_near)
@@ -1362,7 +1369,7 @@ def extract_inputs(work: str, panel: str, counts=EXTRACT_PAIRS,
         a = alleles[ai[i]]
         st = int(rng.integers(0, len(a) - flen[i] + 1))
         n1[i] = a[st:st + READ_LEN]
-        n2[i] = comp[a[st + flen[i] - READ_LEN:st + flen[i]][::-1]]
+        n2[i] = _COMP[a[st + flen[i] - READ_LEN:st + flen[i]][::-1]]
     rate = rng.uniform(0.25, 0.35, n_near)[:, None]
     for mate in (n1, n2):
         sub = rng.random(mate.shape) < rate
@@ -1377,6 +1384,29 @@ def extract_inputs(work: str, panel: str, counts=EXTRACT_PAIRS,
             r1[i, mask] = 0                       # one base dominates
         else:
             r1[i, rng.random(READ_LEN) < 0.15] = 4  # N-rich
+    return n1, n2, r1, r2
+
+
+def extract_inputs(work: str, panel: str, counts=EXTRACT_PAIRS,
+                   tag: str = "x", snp_genes: int = 0,
+                   barcodes: bool = False) -> str:
+    """Read pairs of 2 x 100 bp with qualities, fixed seeds (1,000,000 at
+    EXTRACT_PAIRS): simulated on-panel pairs (two alleles from each of 8
+    genes, `snp_genes` of them with seeded SNPs), near-miss pairs cut from
+    panel alleles with 25-35% substitutions, and uniform random pairs (1%
+    of them low-complexity or N-rich), shuffled.  Returns the prefix of
+    <prefix>_1.fq / <prefix>_2.fq (prefix <work>/<tag>); with `barcodes`,
+    also <prefix>_bc.fq, one of 24 cell barcodes of 16 bp per pair."""
+    n_sim, n_near, n_rand = counts
+    rng = np.random.default_rng(99)
+    acgt = np.frombuffer(b"ACGTN", np.uint8)
+    sim = os.path.join(work, tag + "sim")
+    simulate_reads(panel, sim, n_sim, snp_genes=snp_genes)
+    m1 = np.stack([encode(s.decode()) for s in
+                   read_fastq_seqs(sim + "_1.fq", n_sim)])
+    m2 = np.stack([encode(s.decode()) for s in
+                   read_fastq_seqs(sim + "_2.fq", n_sim)])
+    n1, n2, r1, r2 = off_panel_pairs(rng, panel, n_near, n_rand)
 
     mate1 = np.concatenate([m1, n1, r1])
     mate2 = np.concatenate([m2, n2, r2])
@@ -1639,24 +1669,27 @@ PORT_RUN = ("import json, sys\n"
             "sys.exit(rc)\n")
 
 
-def timed_chain(cmd) -> tuple:
-    """Runs a run-t1k chain `cmd` in a child process.  Returns its
-    standard output and {stage: seconds, "process": seconds}: each stage
-    from the arrival of the log line that opens it on the child's
-    standard error to the arrival of the one that closes it (host
-    clock), the process from its start to its exit."""
-    marks = {}
+def timed_chain(cmd, stage_marks=STAGE_MARKS, env=None) -> tuple:
+    """Runs a run-t1k chain `cmd` in a child process (environment `env`,
+    child_env() by default).  Returns its standard output, its standard
+    error and {stage: seconds, "process": seconds}: each stage of
+    `stage_marks` from the arrival of the first log line on the child's
+    standard error that holds its opening mark (the child's start where
+    that is None) to the arrival of the first that holds its closing
+    one (host clock), the process from its start to its exit."""
+    marks = {None: 0.0}
     err = []
     with tempfile.TemporaryFile("w+") as out:
         t0 = time.perf_counter()
-        proc = subprocess.Popen(cmd, cwd=ROOT, env=child_env(), stdout=out,
-                                stderr=subprocess.PIPE, text=True)
+        proc = subprocess.Popen(cmd, cwd=ROOT, env=env or child_env(),
+                                stdout=out, stderr=subprocess.PIPE,
+                                text=True)
         for line in proc.stderr:
             now = time.perf_counter() - t0
             err.append(line)
-            for _, *bounds in STAGE_MARKS:
+            for _, *bounds in stage_marks:
                 for mark in bounds:
-                    if mark in line:
+                    if mark is not None and mark in line:
                         marks.setdefault(mark, now)
         proc.wait()
         secs = {"process": time.perf_counter() - t0}
@@ -1665,9 +1698,9 @@ def timed_chain(cmd) -> tuple:
     if proc.returncode != 0:
         raise RuntimeError(f"{cmd[1:3]} exited {proc.returncode}:\n"
                            + "".join(err)[-4000:])
-    for name, start, end in STAGE_MARKS:
+    for name, start, end in stage_marks:
         secs[name] = marks[end] - marks[start]
-    return stdout, secs
+    return stdout, "".join(err), secs
 
 
 def device_busy_ms(trace: str) -> float:
@@ -1702,31 +1735,49 @@ def phase_run(dev, work: str, info: dict, counts=EXTRACT_PAIRS) -> dict:
     args = ["-f", panel, "-1", prefix + "_1.fq", "-2", prefix + "_2.fq",
             "--barcode", prefix + "_bc.fq", "-o", "run"]
     secs = {}
-    _, secs["native"] = timed_chain(
+    *_, secs["native"] = timed_chain(
         [sys.executable, "-m", "t1k_tpu.cli.run", *args, "--od",
          os.path.join(work, "rnative"), "--backend", "native",
          "--emBackend", "native"])
-    out, secs["port"] = timed_chain(
+    out, _, secs["port"] = timed_chain(
         [sys.executable, "-c", PORT_RUN, *args, "--od",
          os.path.join(work, "rport"), "--backend", "gpu", "--emBackend",
          "gpu", "--device", str(dev)])
-    launches = json.loads(out.splitlines()[-1])
-    for suffix in CHAIN_OUTPUTS:
-        with open(os.path.join(work, "rnative", "run" + suffix), "rb") as f:
+    launches = check_chain(dev, os.path.join(work, "rnative", "run"),
+                           os.path.join(work, "rport", "run"),
+                           CHAIN_OUTPUTS, out, secs, info)
+    info["pairs"] = sum(counts)
+    return launches
+
+
+def check_chain(dev, native: str, port: str, outputs, port_stdout: str,
+                secs: dict, info: dict) -> dict:
+    """Holds the outputs of a port chain (prefix `port`) byte for byte
+    against the native route's (prefix `native`), with at least one VCF
+    record, and its kernels' launch counts (the last line of
+    `port_stdout`, printed by PORT_RUN) against its two metrics files:
+    probe, chain, EM and the band kernel in both read assignments must
+    launch, the warp band kernel never.  Prints each route's stage
+    seconds `secs`; returns the launch counts, the band kernel's split
+    into band_stats (the genotyper's) and band_stats_analyzer."""
+    label = os.path.basename(port)
+    launches = json.loads(port_stdout.splitlines()[-1])
+    for suffix in outputs:
+        with open(native + suffix, "rb") as f:
             a = f.read()
-        with open(os.path.join(work, "rport", "run" + suffix), "rb") as f:
+        with open(port + suffix, "rb") as f:
             b = f.read()
         if a != b:
-            raise AssertionError(f"run {suffix} differs from the native "
+            raise AssertionError(f"{label} {suffix} differs from the native "
                                  "route")
         info[f"{suffix.lstrip('_')}_bytes"] = len(b)
-    with open(os.path.join(work, "rport", "run_allele.vcf")) as f:
+    with open(port + "_allele.vcf") as f:
         info["vcf_records"] = sum(1 for _ in f)
     if info["vcf_records"] < 1:
-        raise AssertionError("the run called no variant")
-    with open(os.path.join(work, "rport", "run_metrics.json")) as f:
+        raise AssertionError(f"the {label} chain called no variant")
+    with open(port + "_metrics.json") as f:
         geno = json.load(f)["read_assignment"]
-    with open(os.path.join(work, "rport", "run_analyzer_metrics.json")) as f:
+    with open(port + "_analyzer_metrics.json") as f:
         ana = json.load(f)
     band = {"genotyper": geno["band_kernel_launches"],
             "analyzer": ana["analyzer_read_assignment"][
@@ -1735,27 +1786,360 @@ def phase_run(dev, work: str, info: dict, counts=EXTRACT_PAIRS) -> dict:
         raise AssertionError(f"metrics {band} and wrapper "
                              f"{launches['band_stats']} disagree on launches")
     if launches["band_stats_warp"]:
-        raise AssertionError("the run launched the warp band kernel")
+        raise AssertionError(f"the {label} chain launched the warp band "
+                             "kernel")
     if dev.type == "cuda" and min(*band.values(), launches["em_squarem"],
                                   launches["phase_a_probe"],
                                   launches["phase_a_chain"]) <= 0:
-        raise AssertionError(f"a kernel of the run never launched: "
-                             f"{launches}, band {band}")
+        raise AssertionError(f"a kernel of the {label} chain never "
+                             f"launched: {launches}, band {band}")
     if min(geno["deferred_item_count"], ana["analyzer_read_assignment"][
             "deferred_item_count"]) <= 0:
-        raise AssertionError("a stage of the run deferred no DP item")
+        raise AssertionError(f"a stage of the {label} chain deferred no DP "
+                             "item")
     launches.update(band_stats=band["genotyper"],
                     band_stats_analyzer=band["analyzer"])
-    info["pairs"] = sum(counts)
     info["deferred_items_analyzer"] = ana["analyzer_read_assignment"][
         "deferred_item_count"]
     info.update({f"{k}_launches": v for k, v in launches.items()})
-    print("  run stage seconds (child processes, host clock): " + json.dumps(
-        {route: {k: round(v, 3) for k, v in s.items()}
-         for route, s in secs.items()}), flush=True)
-    print("  run port analyzer stages: " + " ".join(
+    print(f"  {label} stage seconds (child processes, host clock): "
+          + json.dumps({route: {k: round(v, 3) for k, v in s.items()}
+                        for route, s in secs.items()}), flush=True)
+    print(f"  {label} port analyzer stages: " + " ".join(
         f"{k}={v['seconds']}s" for k, v in ana.items()), flush=True)
     return launches
+
+
+# ---------------------------------------------------------- run-t1k -b
+
+# the bam_run phase's BAM, in read pairs of 2 x 100 bp: on-panel pairs
+# aligned inside their gene's interval and on the alt contig, unaligned
+# templates (on-panel, near-miss, random), pairs within 5 kb of an
+# interval on chr6, and off-target pairs on chr1
+BAM_PAIRS = dict(region=20_000, alt=2_000, unaligned_panel=8_000,
+                 unaligned_near=32_000, unaligned_random=60_000,
+                 near_edge=10_000, off_target=868_000)
+BAM_CONTIGS = (("chr1", 200_000_000), ("chr6", 171_000_000),
+               ("chr6_GL000251v2_alt", 4_700_000))
+# gene g of the panel lies on chr6 at [GENE_START + GENE_STEP g,
+# GENE_START + GENE_STEP g + GENE_SPAN]
+GENE_START, GENE_STEP, GENE_SPAN = 1_000_000, 200_000, 12_000
+# The reference's BAM chain writes no line around its extraction: there
+# it runs from the child's start to the genotyper's first line after
+# loading its reads, which both packages write
+BAM_STAGE_MARKS = ((("extraction", None,
+                     "read fragments. Start read assignment."),
+                    ("genotyper", "read fragments. Start read assignment.",
+                     "Genotyping finishes."))
+                   + STAGE_MARKS[2:])
+BAM_OUTPUTS = CHAIN_OUTPUTS + ("_candidate_umi.fa",)
+BAM_HEADER = "@HD\tVN:1.6\tSO:coordinate\n"
+# BAM 4-bit codes of A, C, G, T, N ("=ACMGRSVTWYHKDBN")
+_NIBBLE = np.array([1, 2, 4, 8, 15], np.uint8)
+
+
+def _put(rows: np.ndarray, off: int, values, dtype: str) -> None:
+    """Little-endian `values` (one per row) into byte columns at `off`."""
+    v = np.ascontiguousarray(np.broadcast_to(
+        np.asarray(values, dtype), (rows.shape[0],)))
+    rows[:, off:off + v.itemsize] = v.view(np.uint8).reshape(len(v), -1)
+
+
+def pack_records(r: dict, aligned: bool) -> np.ndarray:
+    """BAM records, block sizes included, as rows of one uint8 array laid
+    out byte for byte as BamWriter.write lays them out: the name p%07d of
+    `id`, READ_LEN bases (codes 0-4, as stored) and raw qualities, one M
+    CIGAR op where `aligned` (none otherwise), bin 0, then the CB and UB
+    tags (codes)."""
+    n, L = r["seq"].shape
+    n_cig = 1 if aligned else 0
+    tags = 2 * 3 + r["cb"].shape[1] + r["ub"].shape[1] + 2
+    size = 36 + 9 + 4 * n_cig + L // 2 + L + tags
+    rows = np.zeros((n, size), np.uint8)
+    acgt = np.frombuffer(b"ACGTN", np.uint8)
+    _put(rows, 0, size - 4, "<i4")
+    for off, key in ((4, "tid"), (8, "pos"), (24, "mtid"), (28, "mpos"),
+                     (32, "tlen")):
+        _put(rows, off, r[key], "<i4")
+    _put(rows, 12, 9, "u1")
+    _put(rows, 13, 60 if aligned else 0, "u1")
+    _put(rows, 16, n_cig, "<u2")
+    _put(rows, 18, r["flag"], "<u2")
+    _put(rows, 20, L, "<i4")
+    digits = (r["id"][:, None] // 10 ** np.arange(6, -1, -1)) % 10
+    rows[:, 36] = ord("p")
+    rows[:, 37:44] = digits + ord("0")
+    off = 45
+    if aligned:
+        _put(rows, off, (L << 4) | 0, "<u4")
+        off += 4
+    nib = _NIBBLE[r["seq"]]
+    rows[:, off:off + L // 2] = (nib[:, 0::2] << 4) | nib[:, 1::2]
+    off += L // 2
+    rows[:, off:off + L] = r["qual"]
+    off += L
+    for tag, key in ((b"CBZ", "cb"), (b"UBZ", "ub")):
+        w = r[key].shape[1]
+        rows[:, off:off + 3] = np.frombuffer(tag, np.uint8)
+        rows[:, off + 3:off + 3 + w] = acgt[r[key]]
+        off += 4 + w
+    return rows
+
+
+def write_bam(path: str, groups) -> None:
+    """A BAM with BAM_CONTIGS of the record rows `groups` (pack_records),
+    in order, cut into BGZF blocks where BamWriter cuts them (after the
+    record that takes its buffer past 32,000 bytes), so that the file is
+    the one BamWriter writes; the blocks are compressed on 8 threads."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from t1k_tpu_torch.io.bam import BamWriter, _bgzf_block
+
+    sizes = np.concatenate([np.full(len(g), g.shape[1]) for g in groups])
+    data = np.concatenate([g.reshape(-1) for g in groups])
+    ends, buf = [], 0
+    for i, size in enumerate(sizes.tolist()):
+        buf += size
+        if buf > 32000:
+            ends.append(i + 1)
+            buf = 0
+    if buf:
+        ends.append(len(sizes))
+    offs = np.concatenate([[0], np.cumsum(sizes)])
+    payloads = [data[offs[a]:offs[b]].tobytes()
+                for a, b in zip([0] + ends[:-1], ends)]
+    with ThreadPoolExecutor(8) as pool:
+        blocks = list(pool.map(_bgzf_block, payloads))
+    w = BamWriter(path, *zip(*BAM_CONTIGS), BAM_HEADER)
+    for block in blocks:
+        w._f.write(block)
+    w.close()
+
+
+def writer_records(r: dict, aligned: bool, n: int):
+    """The first `n` rows of `r` as port BamRecords, for BamWriter."""
+    from t1k_tpu_torch.io.bam import BamRecord
+
+    acgt = np.frombuffer(b"ACGTN", np.uint8)
+    out = []
+    for i in range(n):
+        seq = acgt[r["seq"][i]].tobytes().decode()
+        out.append(BamRecord(
+            "p%07d" % r["id"][i], int(r["flag"][i]), int(r["tid"][i]),
+            int(r["pos"][i]), 60 if aligned else 0,
+            [(len(seq), 0)] if aligned else [], int(r["mtid"][i]),
+            int(r["mpos"][i]), int(r["tlen"][i]), seq,
+            (r["qual"][i] + 33).tobytes().decode(),
+            {"CB": acgt[r["cb"][i]].tobytes().decode(),
+             "UB": acgt[r["ub"][i]].tobytes().decode()}))
+    return out
+
+
+def read_fastq(path: str):
+    """(names, [n, READ_LEN] base codes) of a FASTQ of READ_LEN reads."""
+    names, seqs = [], []
+    with open(path) as f:
+        for i, line in enumerate(f):
+            if i % 4 == 0:
+                names.append(line[1:].split()[0])
+            elif i % 4 == 1:
+                seqs.append(encode(line.strip()))
+    return names, np.stack(seqs)
+
+
+def gene_index(name: str) -> int:
+    """The panel gene's index g of an allele name GEN<g in base 26>*..."""
+    return (ord(name[3]) - 65) * 26 + ord(name[4]) - 65
+
+
+def bam_inputs(work: str, panel: str, counts: dict, info: dict):
+    """The bam_run inputs, fixed seeds: the coordinate fasta (every panel
+    allele with its gene's interval on chr6) and a coordinate-sorted BAM
+    of `counts` read pairs (BAM_PAIRS), aligned records first and
+    unaligned templates (flags 0x4D/0x8D, shuffled) last, CB (one of 24
+    barcodes of 16 bp) and UB (10 bp) on every record.  The on-panel
+    pairs are simulate_reads' (two genes with seeded SNPs), the rest as
+    extract_inputs makes them.  Returns (bam, coord)."""
+    rng = np.random.default_rng(97)
+    c = counts
+    coord = os.path.join(work, "coord.fa")
+    with open(coord, "w") as f:
+        for name, _, seq in read_fasta(panel):
+            lo = GENE_START + GENE_STEP * gene_index(name)
+            f.write(f">{name} chr6 {lo} {lo + GENE_SPAN} +\n{seq}\n")
+    n_panel = c["region"] + c["alt"] + c["unaligned_panel"]
+    sim = os.path.join(work, "bamsim")
+    simulate_reads(panel, sim, n_panel, snp_genes=SNP_GENES)
+    names, m1 = read_fastq(sim + "_1.fq")
+    m2 = read_fastq(sim + "_2.fq")[1]
+
+    def rand(n):
+        return rng.integers(0, 4, (n, READ_LEN)).astype(np.int8)
+
+    n_near = c["unaligned_near"]
+    n1, n2, r1, r2 = off_panel_pairs(rng, panel, n_near,
+                                     c["unaligned_random"])
+
+    # aligned pairs: (mate 1, mate 2 in sequencing orientation, tid, p1)
+    k0, k1 = c["region"], c["region"] + c["alt"]
+    # simulate_reads' names: sim_<i>_<allele>_<fragment start>
+    gene = np.array([gene_index(x.split("_")[2]) for x in names[:k0]])
+    start = np.array([int(x.split("_")[-1]) for x in names[:k0]])
+    n_edge = c["near_edge"]
+    eg = np.arange(n_edge) % PANEL_GENES
+    lo = GENE_START + GENE_STEP * eg
+    u = rng.integers(0, 4700, n_edge)
+    edge_p1 = np.where(np.arange(n_edge) // PANEL_GENES % 2,
+                       lo + GENE_SPAN + 1 + u, lo - 5000 + u)
+    n_off = c["off_target"]
+    al = dict(
+        m1=np.concatenate([m1[:k1], rand(n_edge), rand(n_off)]),
+        m2=np.concatenate([m2[:k1], rand(n_edge), rand(n_off)]),
+        tid=np.concatenate([np.full(k0, 1), np.full(c["alt"], 2),
+                            np.full(n_edge, 1), np.zeros(n_off, int)]),
+        p1=np.concatenate([GENE_START + GENE_STEP * gene + start,
+                           10_000 + 100 * np.arange(c["alt"]), edge_p1,
+                           rng.integers(0, 199_000_000, n_off)]))
+    order = rng.permutation(n_panel - k1 + n_near + len(r1))
+    un = dict(m1=np.concatenate([m1[k1:], n1, r1])[order],
+              m2=np.concatenate([m2[k1:], n2, r2])[order])
+
+    cells = rng.integers(0, 4, (24, 16)).astype(np.int8)
+
+    def records(m1, m2, ids, aligned, tid=None, p1=None):
+        """Both mates' records of the pairs `ids`, the pair's tags on
+        both."""
+        n = len(m1)
+        cb = cells[rng.integers(0, 24, n)]
+        ub = rng.integers(0, 4, (n, 10)).astype(np.int8)
+        q = rng.integers(2, 41, (2, n, READ_LEN)).astype(np.uint8)
+        if aligned:
+            p2 = p1 + 150
+            tlen = p2 - p1 + READ_LEN
+            mate = [dict(flag=0x63, tid=tid, pos=p1, mtid=tid, mpos=p2,
+                         tlen=tlen, seq=m1, qual=q[0]),
+                    dict(flag=0x93, tid=tid, pos=p2, mtid=tid, mpos=p1,
+                         tlen=-tlen, seq=_COMP[m2[:, ::-1]],
+                         qual=q[1][:, ::-1])]
+        else:
+            mate = [dict(flag=0x4D, seq=m1, qual=q[0]),
+                    dict(flag=0x8D, seq=m2, qual=q[1])]
+            for m in mate:
+                m.update(tid=-1, pos=-1, mtid=-1, mpos=-1, tlen=0)
+        out = {}
+        for key in ("flag", "tid", "pos", "mtid", "mpos", "tlen", "seq",
+                    "qual"):
+            both = [np.broadcast_to(m[key], (n,) + np.shape(m[key])[1:])
+                    for m in mate]
+            out[key] = np.stack(both, 1).reshape((2 * n,) + both[0].shape[1:])
+        for key, v in (("id", ids), ("cb", cb), ("ub", ub)):
+            out[key] = np.repeat(v, 2, axis=0)
+        return out
+
+    n_al = len(al["m1"])
+    a = records(al["m1"], al["m2"], np.arange(n_al), True, al["tid"],
+                al["p1"])
+    order = np.lexsort((a["pos"], a["tid"]))
+    a = {k: v[order] for k, v in a.items()}
+    un = records(un["m1"], un["m2"], n_al + np.arange(len(un["m1"])),
+                 False)
+    bam = os.path.join(work, "in.bam")
+    t0 = time.perf_counter()
+    groups = [pack_records(a, True), pack_records(un, False)]
+    write_bam(bam, groups)
+    # the packer writes what BamWriter writes: the first 1,000 aligned
+    # and the first 1,000 unaligned records
+    from t1k_tpu_torch.io.bam import BamWriter
+
+    check = [os.path.join(work, f"check_{w}.bam") for w in ("pack", "writer")]
+    write_bam(check[0], [g[:1000] for g in groups])
+    w = BamWriter(check[1], *zip(*BAM_CONTIGS), BAM_HEADER)
+    for r, aligned in ((a, True), (un, False)):
+        for rec in writer_records(r, aligned, min(1000, len(r["flag"]))):
+            w.write(rec)
+    w.close()
+    with open(check[0], "rb") as f, open(check[1], "rb") as g:
+        if f.read() != g.read():
+            raise AssertionError("the BAM packer and BamWriter differ")
+    info["bam_write_s"] = f"{time.perf_counter() - t0:.1f}"
+    info["bam_records"] = len(a["flag"]) + len(un["flag"])
+    info["bam_mib"] = f"{os.path.getsize(bam) / 2 ** 20:.1f}"
+    return bam, coord
+
+
+def phase_bam_run(dev, work: str, info: dict, counts=BAM_PAIRS) -> dict:
+    """t1k_tpu_torch.cli.run -b (BAM scan -> selection -> the device
+    screen -> native re-screen -> mate recovery -> genotype -> analyze,
+    every route on `dev`) against t1k_tpu.cli.run -b --backend native
+    --emBackend native with T1K_BACKEND=native (which pins the JAX
+    package's BAM screen to the host engine), each in a child process of
+    its own, on the bam_inputs BAM with CB barcodes and UB UMIs.  Every
+    output byte-compared, as check_chain holds them; the device must
+    decide reads.  Returns the launch counts as check_chain does."""
+    panel = os.path.join(work, "panel.fa")
+    t0 = time.perf_counter()
+    bam, coord = bam_inputs(work, panel, counts, info)
+    info["inputs_s"] = f"{time.perf_counter() - t0:.1f}"
+    args = ["-f", panel, "-b", bam, "-c", coord, "--barcode", "CB",
+            "--UMI", "UB", "-o", "bam"]
+    secs = {}
+    *_, secs["native"] = timed_chain(
+        [sys.executable, "-m", "t1k_tpu.cli.run", *args, "--od",
+         os.path.join(work, "bnative"), "--backend", "native",
+         "--emBackend", "native"], BAM_STAGE_MARKS,
+        dict(child_env(), T1K_BACKEND="native"))
+    out, err, secs["port"] = timed_chain(
+        [sys.executable, "-c", PORT_RUN, *args, "--od",
+         os.path.join(work, "bport"), "--backend", "gpu", "--emBackend",
+         "gpu", "--device", str(dev)], BAM_STAGE_MARKS)
+    launches = check_chain(dev, os.path.join(work, "bnative", "bam"),
+                           os.path.join(work, "bport", "bam"), BAM_OUTPUTS,
+                           out, secs, info)
+    screen = stage_line(err, "extraction_screen")
+    if int(screen["device_decided_reads"]) <= 0:
+        raise AssertionError("the device decided no read of the BAM")
+    info["pairs"] = sum(counts.values())
+    info["records_streamed"] = screen["read_count"]
+    info["candidates"] = screen["candidate_count"]
+    info["device_screened"] = screen["device_screened_reads"]
+    info["device_decided"] = screen["device_decided_reads"]
+    bam_screen_routes(dev, bam, coord, work, info)
+    return launches
+
+
+def bam_screen_routes(dev, bam: str, coord: str, work: str, info: dict):
+    """The port's extraction of the bam_run BAM in this process, in turns
+    with its screen on the host engine (backend "native", where "auto"
+    stays below its gate) and on `dev` (backend "gpu", where "auto" goes
+    once the gate opens): each run's seconds, host clock, and every
+    output equal to the port's chain's candidate files."""
+    from t1k_tpu_torch.io.bam import extract_from_bam
+    from t1k_tpu_torch.utils.observability import metrics
+
+    def outputs(prefix):
+        got = []
+        for suffix in ("_1.fq", "_2.fq", "_bc.fa", "_umi.fa"):
+            with open(prefix + suffix, "rb") as f:
+                got.append(f.read())
+        return got
+
+    want = outputs(os.path.join(work, "bport", "bam_candidate"))
+    secs = {"native": [], "gpu": []}
+    for i, backend in enumerate(("native", "gpu") * 2):
+        prefix = os.path.join(work, f"bscreen{i}")
+        t0 = time.perf_counter()
+        extract_from_bam(bam, coord, coord, prefix, bc_field="CB",
+                         umi_field="UB", backend=backend, device=dev)
+        secs[backend].append(time.perf_counter() - t0)
+        if outputs(prefix) != want:
+            raise AssertionError(f"BAM extraction on {backend} differs "
+                                 f"from the chain's")
+        if backend == "gpu":
+            st = metrics().stages["extraction_screen"]
+            info["screen_gpu_screened"] = st["device_screened_reads"]
+            info["screen_gpu_decided"] = st["device_decided_reads"]
+    for backend, t in secs.items():
+        info[f"screen_{backend}_s"] = " ".join(f"{x:.3f}" for x in t)
 
 
 def phase_run_profile(dev, work: str, info: dict):
@@ -1907,6 +2291,8 @@ def run(dev, sizes: dict) -> list:
                                     info)
         with phase("run") as info:
             run_launches = phase_run(dev, work, info, sizes["run"])
+        with phase("bam_run") as info:
+            bam_launches = phase_bam_run(dev, work, info, sizes["bam"])
         with phase("run_profile") as info:
             batch = phase_run_profile(dev, work, info)
         with phase("analyzer_timing") as info:
@@ -1914,7 +2300,8 @@ def run(dev, sizes: dict) -> list:
                 dev, checks["band_stats_analyzer"], batch, info)
     # launches over the run-t1k chain, the path users call (the band
     # kernel's as band_stats in the genotyper, band_stats_analyzer in the
-    # analyzer); the v1 aligner (on no stage) over its own phase
+    # analyzer); the v1 aligner (on no stage) over its own phase; and
+    # over the run-t1k -b chain (the v1 aligner's not counted there)
     launches = dict(run_launches, align_full=v1_launches)
     replaces = {"band_stats": "t1k_tpu/ops/align_pallas_band.py:55",
                 "band_stats_analyzer": "t1k_tpu/ops/align_pallas_band.py:55",
@@ -1929,6 +2316,7 @@ def run(dev, sizes: dict) -> list:
     return [{"name": name, "route": "cuda",
              "source": f"t1k_tpu_torch/csrc/{KERNELS[name]}.cu",
              "replaces": replaces[name], "launches": launches[name],
+             "launches_bam_run": bam_launches.get(name),
              "max_abs_err": errs[name], "ms": times[name][0],
              "plain_ms": times[name][1], "bound_ms": times[name][2][0],
              "bound_by": times[name][2][1], "library_ms": None}
@@ -1938,7 +2326,8 @@ def run(dev, sizes: dict) -> list:
 FULL_SIZES = dict(random_items=RANDOM_ITEMS, em=(EM_RG, EM_EC),
                   em_large=EM_LARGE,
                   v1_pairs=V1_PAIRS, sim_pairs=SIM_PAIRS,
-                  extract=EXTRACT_SMOKE_PAIRS, run=EXTRACT_PAIRS)
+                  extract=EXTRACT_SMOKE_PAIRS, run=EXTRACT_PAIRS,
+                  bam=BAM_PAIRS)
 
 
 def main() -> int:

@@ -2,6 +2,8 @@
 
   python -m t1k_tpu_torch.cli.run -f ref.fa -1 r_1.fq -2 r_2.fq \\
       --od out -o sample [--backend gpu --emBackend gpu --device cuda:0]
+  python -m t1k_tpu_torch.cli.run -f ref.fa -b in.bam -c coord.fa \\
+      --od out -o sample [--barcode CB --UMI UB] [--backend gpu ...]
 
 Runs candidate extraction -> genotyping -> post analysis with the same
 staging, presets and output naming as the reference driver (run-t1k) and
@@ -17,10 +19,10 @@ hla-wgs additionally -s 0.97 for the extractor; kir-wgs -> -s 0.9
 --relaxIntronAlign; kir-wes -> --relaxIntronAlign.
 
 ``--backend`` and ``--emBackend`` take ``gpu`` in place of ``tpu`` /
-``jax``, and ``--device`` names the torch device of the gpu routes.
-Without a CUDA card, ``auto`` (the default) exits with an error naming
-``--backend native`` and ``--device cpu``.  BAM input (-b) and
-``--deviceCandidates`` are not supported by the port yet.
+``jax``, and ``--device`` names the torch device of the gpu routes (BAM
+input, -b, screens on them too).  Without a CUDA card, ``auto`` (the
+default) exits with an error naming ``--backend native`` and ``--device
+cpu``.  ``--deviceCandidates`` is not supported by the port yet.
 """
 
 from __future__ import annotations
@@ -51,9 +53,9 @@ def build_parser() -> argparse.ArgumentParser:
                     default=[])
     ap.add_argument("-i", dest="interleaved", nargs="+", action="extend",
                     default=[])
-    ap.add_argument("-b", dest="bam", default=None,
-                    help="BAM input: not supported by the port yet")
+    ap.add_argument("-b", dest="bam", default=None)
     ap.add_argument("-f", dest="ref", required=True)
+    ap.add_argument("-c", dest="coord", default=None)
     ap.add_argument("-o", dest="prefix", default="")
     ap.add_argument("--od", dest="outdir", default="")
     ap.add_argument("-t", dest="threads", type=int, default=1)
@@ -71,8 +73,12 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--barcodeRange", nargs=3, default=None,
                     metavar=("START", "END", "STRAND"))
     ap.add_argument("--barcodeWhitelist", default=None)
+    ap.add_argument("--UMI", dest="umi", default="",
+                    help="if -b: BAM tag carrying the UMI (run-t1k:230-234)")
     ap.add_argument("--read1Range", nargs=2, type=int, default=None)
     ap.add_argument("--read2Range", nargs=2, type=int, default=None)
+    ap.add_argument("--mateIdSuffixLen", type=int, default=0)
+    ap.add_argument("--abnormalUnmapFlag", action="store_true")
     ap.add_argument("--relaxIntronAlign", action="store_true")
     ap.add_argument("--preset", default="",
                     choices=["", "hla", "hla-wgs", "kir-wgs", "kir-wes"])
@@ -131,11 +137,6 @@ def main(argv: Optional[List[str]] = None) -> int:
     # argparse as the -1/-2 options; fold them in
     args = ap.parse_args(fold_negative_values(argv))
 
-    if args.bam:
-        print("BAM input (-b) is not supported by t1k_tpu_torch yet: "
-              "extract its candidate reads to FASTQ and pass -1/-2 or -u.",
-              file=sys.stderr)
-        return 1
     if args.deviceCandidates:
         print("--deviceCandidates is not supported by t1k_tpu_torch yet.",
               file=sys.stderr)
@@ -145,8 +146,14 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     first = args.first or args.single
     paired = bool(args.second) or bool(args.interleaved)
-    if not first and not args.interleaved:
-        print("Need -1/-2, -u or -i to specify input reads.", file=sys.stderr)
+    if not first and not args.interleaved and not args.bam:
+        print("Need -1/-2, -u, -i or -b to specify input reads.",
+              file=sys.stderr)
+        return 1
+    if args.bam and not args.coord:
+        # run-t1k:284-287 dies with the same diagnostic
+        print("Need to use -c to specify gene coordinate file for BAM "
+              "input.", file=sys.stderr)
         return 1
     if args.noExtraction and not first:
         # validated BEFORE any output (incl. the config file) is written
@@ -161,11 +168,11 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     prefix = args.prefix
     if not prefix:
-        # inference looks only at -1/-u (and -b in the reference);
-        # interleaved-only input falls through to the bare "T1K" default
-        # (run-t1k:316-331)
-        prefix = ("T1K_" + os.path.basename(first[0]).split(".")[0]
-                  if first else "T1K")
+        # inference only looks at -b and -1/-u; interleaved-only input
+        # falls through to the bare "T1K" default (run-t1k:316-331)
+        base = args.bam or (first[0] if first else None)
+        prefix = ("T1K_" + os.path.basename(base).split(".")[0]
+                  if base else "T1K")
     if args.outdir:
         os.makedirs(args.outdir, exist_ok=True)
         prefix = os.path.join(args.outdir, prefix)
@@ -244,13 +251,26 @@ def _run(args, prefix: str, first: List[str], paired: bool,
             eopts.read1_start, eopts.read1_end = args.read1Range
         if args.read2Range:
             eopts.read2_start, eopts.read2_end = args.read2Range
-        log("Start to extract candidate reads from read files.")
-        run_extractor(
-            args.ref, first if not args.interleaved else args.interleaved,
-            args.second or None, f"{prefix}_candidate", eopts,
-            interleaved=bool(args.interleaved),
-        )
-        log("Finish extracting reads.")
+        if args.bam:
+            from ..io.bam import extract_from_bam
+            # the coordinate fasta doubles as the screening reference
+            # (run-t1k:350 passes it as bam-extractor's -f); the screen
+            # takes --backend and --device as the FASTQ route does
+            extract_from_bam(
+                args.bam, args.coord, args.coord, f"{prefix}_candidate",
+                abnormal_unmap_flag=args.abnormalUnmapFlag,
+                mate_id_len=args.mateIdSuffixLen or -1,
+                bc_field=args.barcode[0] if args.barcode else "",
+                umi_field=args.umi, backend=args.backend,
+                device=args.device)
+        else:
+            log("Start to extract candidate reads from read files.")
+            run_extractor(
+                args.ref, first if not args.interleaved else args.interleaved,
+                args.second or None, f"{prefix}_candidate", eopts,
+                interleaved=bool(args.interleaved),
+            )
+            log("Finish extracting reads.")
         if nproc > 1 and pid == 0:
             with open(f"{prefix}_extract.done", "w") as f:
                 f.write("done\n")

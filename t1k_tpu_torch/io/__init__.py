@@ -1,1 +1,2 @@
-"""FASTA/FASTQ ingestion and the allele reference model of the port."""
+"""FASTA/FASTQ and BAM ingestion and the allele reference model of the
+port."""

@@ -1,9 +1,10 @@
 """ctypes bindings for the port's native host engine (libt1k_native.so).
 
 The engine implements the seed/chain/banded-DP/extend read-assignment hot
-path, the extraction screen and the exact-f64 EM loop; the sources here
-(``engine.cc``, ``em.cc``, ``bamscan.cc``, ``variant.cc``) are the port's
-own copy of the reference package's engine.  The library is built at
+path, the extraction screen, the exact-f64 EM loop and the BAM scanner
+(``BamScan``); the sources here (``engine.cc``, ``em.cc``,
+``bamscan.cc``, ``variant.cc``) are the port's own copy of the reference
+package's engine.  The library is built at
 first import into ``build/t1k_tpu_torch/native/`` at the repository root
 (gitignored) when it is missing, older than a source or built on another
 machine, with the flags the reference's Makefile uses:
@@ -240,6 +241,84 @@ def variant_update(align_cat, align_off, align_len, seq_idx, seq_start,
         seq_start, read_start, match_cnt, similarity, uniq_add,
         reads_cat, read_off, int(filter_low_qual), seq_base, count, uniq,
         unweighted, best_match, best_sim, best_match_max)
+
+
+# ------------------------------------------------------- native BAM scan
+_lib.t1k_bam_open2.restype = ct.c_void_p
+_lib.t1k_bam_open2.argtypes = [ct.c_char_p, ct.c_char_p, ct.c_char_p,
+                               ct.c_int32]
+_lib.t1k_bam_close.argtypes = [ct.c_void_p]
+_lib.t1k_bam_n_refs.restype = ct.c_int32
+_lib.t1k_bam_n_refs.argtypes = [ct.c_void_p]
+_lib.t1k_bam_ref_name.restype = ct.c_char_p
+_lib.t1k_bam_ref_name.argtypes = [ct.c_void_p, ct.c_int32]
+_lib.t1k_bam_scan2.restype = ct.c_int64
+_lib.t1k_bam_scan2.argtypes = [ct.c_void_p, ct.c_int64, ct.c_int32]
+_lib.t1k_bam_fetch.restype = None
+_lib.t1k_bam_fetch.argtypes = [ct.c_void_p, _c_i64p, ct.c_int64]
+_lib.t1k_bam_fields.restype = ct.POINTER(ct.c_int32)
+_lib.t1k_bam_fields.argtypes = [ct.c_void_p]
+_lib.t1k_bam_name_hashes.restype = ct.POINTER(ct.c_uint64)
+_lib.t1k_bam_name_hashes.argtypes = [ct.c_void_p]
+_lib.t1k_bam_offsets.restype = ct.POINTER(ct.c_int64)
+_lib.t1k_bam_offsets.argtypes = [ct.c_void_p, ct.c_int32]
+_lib.t1k_bam_blob.restype = ct.c_void_p
+_lib.t1k_bam_blob.argtypes = [ct.c_void_p, ct.c_int32,
+                              ct.POINTER(ct.c_int64)]
+
+
+class BamScan:
+    """Streaming native BAM scanner; yields batches of flat arrays."""
+
+    def __init__(self, path: str, bc_tag: str = "", umi_tag: str = "",
+                 trim_len: int = -1):
+        self._handle = _lib.t1k_bam_open2(
+            path.encode(), bc_tag.encode(), umi_tag.encode(), trim_len)
+        if not self._handle:
+            raise IOError(f"cannot open BAM: {path}")
+        n = _lib.t1k_bam_n_refs(self._handle)
+        self.ref_names = [
+            _lib.t1k_bam_ref_name(self._handle, i).decode() for i in range(n)]
+
+    def close(self):
+        if self._handle:
+            _lib.t1k_bam_close(self._handle)
+            self._handle = None
+
+    def __del__(self):
+        self.close()
+
+    def _text_views(self, n: int):
+        offs = {}
+        blobs = {}
+        for i, key in enumerate(("name", "seq", "qual", "bc", "umi")):
+            offs[key] = np.ctypeslib.as_array(
+                _lib.t1k_bam_offsets(self._handle, i), shape=(n + 1,)).copy()
+            ln = ct.c_int64()
+            ptr = _lib.t1k_bam_blob(self._handle, i, ct.byref(ln))
+            blobs[key] = (ct.string_at(ptr, ln.value)
+                          if ln.value else b"")
+        return offs, blobs
+
+    def scan_lazy(self, max_records: int = 262144):
+        """Lazy scan: returns (fields [n,9] i32: flag, tid, pos, mapq,
+        mtid, mpos, tlen, l_seq, ref_span; name_hash [n] u64) or None;
+        call fetch(idxs) for the text blobs of selected rows."""
+        n = int(_lib.t1k_bam_scan2(self._handle, max_records, 1))
+        if n == 0:
+            return None
+        fields = np.ctypeslib.as_array(
+            _lib.t1k_bam_fields(self._handle), shape=(n, 9)).copy()
+        hashes = np.ctypeslib.as_array(
+            _lib.t1k_bam_name_hashes(self._handle), shape=(n,)).copy()
+        return fields, hashes
+
+    def fetch(self, idxs: np.ndarray):
+        """Decode text blobs for `idxs` (rows of the last scan_lazy
+        batch); returns (offs dict, blobs dict) indexed 0..len(idxs)."""
+        idxs = np.ascontiguousarray(idxs, np.int64)
+        _lib.t1k_bam_fetch(self._handle, idxs, len(idxs))
+        return self._text_views(len(idxs))
 
 
 class NativeEngine:

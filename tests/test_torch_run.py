@@ -2,8 +2,9 @@
 package's (t1k_tpu.cli.run --backend native --emBackend native): the whole
 chain extract -> genotype -> analyze on reads simulated from the
 multigene panel with three seeded substitutions in one allele (so the VCF
-has records) and a barcode file, single-end input, two processes, and
-the multigene driver cases of tests/test_runt1k.py.  The gpu routes run
+has records) and a barcode file, the same reads as a BAM (-b, with CB/UB
+tags), single-end input, two processes, and the multigene driver cases
+of tests/test_runt1k.py.  The gpu routes run
 on the CPU through the kernels' plain versions (--device cpu)."""
 
 import json
@@ -18,6 +19,8 @@ import torch
 
 from t1k_tpu.cli import fold_negative_values as host_fold
 from t1k_tpu.cli.run import main as host_main
+from t1k_tpu.constants import revcomp_str
+from t1k_tpu.io.bam import BamRecord, BamWriter
 from t1k_tpu.io.reads import SeqRecord, read_seq_file, write_fastq
 from t1k_tpu.tools.simulate import SimConfig, simulate_pairs
 from t1k_tpu_torch.cli import fold_negative_values
@@ -37,6 +40,8 @@ PAIRED_OUTPUTS = ("_candidate_1.fq", "_candidate_2.fq", "_genotype.tsv",
 BARCODE_OUTPUTS = ("_candidate_bc.fa", "_aligned_bc.fa", "_barcode_expr.tsv")
 SINGLE_OUTPUTS = ("_candidate.fq", "_genotype.tsv", "_allele.tsv",
                   "_aligned.fa", "_allele.vcf")
+# gene g's alleles on chr6 at [100,000 + 20,000 g, + 2,000] in the BAM test
+GENE_START, GENE_STEP, GENE_SPAN = 100_000, 20_000, 2_000
 
 
 def _read(path):
@@ -249,7 +254,121 @@ def test_auto_without_a_card_exits_before_any_output(tmp_path, monkeypatch,
 
 @pytest.mark.parametrize("flags", [["-b", "x.bam"], ["--deviceCandidates"]])
 def test_unported_inputs_are_refused(tmp_path, capsys, flags):
+    """--deviceCandidates is refused; -b without -c exits 1 with the
+    reference's diagnostic (run-t1k:284-287).  Neither writes output."""
     assert main(["-f", REF, "-1", MULTIGENE[0], "--od", str(tmp_path / "o"),
                  "--device", "cpu", *flags]) == 1
-    assert "not supported by t1k_tpu_torch" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    if flags[0] == "-b":
+        assert host_main(["-f", REF, "-1", MULTIGENE[0], "--od",
+                          str(tmp_path / "h"), *flags]) == 1
+        assert capsys.readouterr().err == err
+        assert err == ("Need to use -c to specify gene coordinate file for "
+                       "BAM input.\n")
+    else:
+        assert "not supported by t1k_tpu_torch" in err
     assert not os.path.exists(str(tmp_path / "o"))
+    assert not os.path.exists(str(tmp_path / "h"))
+
+
+@pytest.fixture(scope="module")
+def snp_bam(snp_reads, tmp_path_factory):
+    """The snp_reads pairs as a coordinate-sorted BAM with CB/UB tags
+    (the pair's barcode, a UMI per pair; every fifth pair untagged): 500
+    pairs aligned inside their gene's interval on chr6, 100 on an
+    alternative contig, 200 unaligned templates, and 200 random pairs on
+    chr1; and its coordinate fasta.  Returns (bam, coord)."""
+    work = tmp_path_factory.mktemp("snpbam")
+    fq1, fq2, bc = snp_reads
+    r1, r2 = list(read_seq_file(fq1)), list(read_seq_file(fq2))
+    codes = [r.seq for r in read_seq_file(bc)]
+    genes = sorted({r.id.split("*")[0] for r in read_seq_file(REF)})
+    coord = str(work / "coord.fa")
+    with open(coord, "w") as f:
+        for r in read_seq_file(REF):
+            g = GENE_START + GENE_STEP * genes.index(r.id.split("*")[0])
+            f.write(f">{r.id} chr6 {g} {g + GENE_SPAN} +\n{r.seq}\n")
+    rng = np.random.default_rng(8)
+    aligned, unaligned = [], []
+
+    def pair(i, name, s1, q1, s2, q2, tid, p1, tags):
+        if tid < 0:
+            unaligned.extend([
+                BamRecord(name, 0x4D, -1, -1, 0, [], -1, -1, 0, s1, q1,
+                          tags),
+                BamRecord(name, 0x8D, -1, -1, 0, [], -1, -1, 0, s2, q2,
+                          tags)])
+            return
+        p2 = p1 + 150
+        aligned.extend([
+            BamRecord(name, 0x63, tid, p1, 60, [(len(s1), 0)], tid, p2,
+                      250, s1, q1, tags),
+            BamRecord(name, 0x93, tid, p2, 60, [(len(s2), 0)], tid, p1,
+                      -250, revcomp_str(s2), q2[::-1], tags)])
+
+    for i, (a, b) in enumerate(zip(r1, r2)):
+        tags = {} if i % 5 == 4 else {"CB": codes[i], "UB": "U%09d" % i}
+        if i < 500:
+            # sim_<i>_<allele>_<start>: inside the allele's gene interval
+            gene = a.id.split("_")[2].split(".")[0]
+            tid = 1
+            pos = (GENE_START + GENE_STEP * genes.index(gene)
+                   + int(a.id.split("_")[-1]))
+        else:
+            tid, pos = (2, 1000 + 10 * i) if i < 600 else (-1, -1)
+        pair(i, a.id, a.seq, a.qual, b.seq, b.qual, tid, pos, tags)
+    for i in range(200):
+        s1, s2 = ("".join(rng.choice(list("ACGT"), 100)) for _ in range(2))
+        pair(i, f"bg{i}", s1, "I" * 100, s2, "I" * 100, 0, 5000 + 300 * i,
+             {"CB": codes[i]})
+    bam = str(work / "snp.bam")
+    w = BamWriter(bam, ["chr1", "chr6", "chr6_GL000251v2_alt"],
+                  [1_000_000, 1_000_000, 100_000],
+                  "@HD\tVN:1.6\tSO:coordinate\n")
+    for r in sorted(aligned, key=lambda r: (r.tid, r.pos)) + unaligned:
+        w.write(r)
+    w.close()
+    return bam, coord
+
+
+def test_bam_chain_matches_jax_native_on_every_output(snp_bam, tmp_path,
+                                                      monkeypatch, capfd):
+    """run -b: BAM extraction (the coordinate fasta as screen reference,
+    CB barcodes, UB UMIs) -> genotype -> analyze, the port's gpu routes
+    on the CPU against the JAX package's native routes (its BAM screen
+    pinned to the host engine by T1K_BACKEND=native).  The port's screen
+    takes --backend and --device: every screened read reaches its device
+    screen."""
+    bam, coord = snp_bam
+    host, port = str(tmp_path / "host"), str(tmp_path / "port")
+    args = ["-f", REF, "-b", bam, "-c", coord, "--barcode", "CB", "--UMI",
+            "UB", "-o", "b"]
+    monkeypatch.setenv("T1K_BACKEND", "native")
+    assert host_main([*args, "--od", host, *NATIVE]) == 0
+    monkeypatch.delenv("T1K_BACKEND")
+    capfd.readouterr()
+    assert main([*args, "--od", port, "--backend", "gpu", "--device",
+                 "cpu"]) == 0
+    line = [x for x in capfd.readouterr().err.splitlines()
+            if "stage extraction_screen finished" in x][0]
+    screen = dict(kv.split("=") for kv in line.split() if "=" in kv)
+    # chunks of 1,024 reads on this panel of near-identical alleles pass
+    # the screen's hit cap and go back to the engine: decided may be 0
+    assert int(screen["device_screened_reads"]) == 1600, line
+    _same_outputs(port, host, PAIRED_OUTPUTS + BARCODE_OUTPUTS
+                  + ("_candidate_umi.fa",), prefix="b")
+    assert len(_read(os.path.join(port, "b_allele.vcf")).splitlines()) >= 1
+    cand = _read(os.path.join(port, "b_candidate_1.fq")).splitlines()
+    assert 790 <= len(cand) // 4 <= 800
+    metrics = json.loads(_read(os.path.join(port, "b_analyzer_metrics.json")))
+    assert metrics["analyzer_read_assignment"]["deferred_item_count"] > 0
+
+
+def test_bam_prefix_is_inferred_from_the_bam(snp_bam, tmp_path):
+    """Without -o the prefix comes from -b (run-t1k:316-331)."""
+    bam, coord = snp_bam
+    out = str(tmp_path / "out")
+    assert main(["-f", REF, "-b", bam, "-c", coord, "--od", out,
+                 "--skipPostAnalysis", "--backend", "native", "--emBackend",
+                 "native"]) == 0
+    assert os.path.exists(os.path.join(out, "T1K_snp_genotype.tsv"))

@@ -49,7 +49,8 @@ def test_every_port_module_imports_without_the_jax_package():
             "t1k_tpu_torch.utils.observability", "t1k_tpu_torch.config",
             "t1k_tpu_torch.core.fragment", "t1k_tpu_torch.core.variant",
             "t1k_tpu_torch.core.analyzer", "t1k_tpu_torch.cli.analyze",
-            "t1k_tpu_torch.cli.run",
+            "t1k_tpu_torch.cli.run", "t1k_tpu_torch.io.bam",
+            "t1k_tpu_torch.cli.bamextract",
             "t1k_tpu_torch.parallel.distributed"} <= set(names)
     code = "".join(f"import {n}\n" for n in names) + _CHECK_MODULES
     proc = _run(code)
