@@ -67,8 +67,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
  11. screen_timing probe and chain kernels vs their plain versions, in
                    turns, on one full 1024-row chunk of the extract inputs
  12. run           the run-t1k chain (extract -> genotype -> analyze) on
-                   the same panel: 1,000,000 read pairs built as extract's
-                   (20,000 simulated, 80,000 near-miss, 900,000 random),
+                   the same panel: 500,000 read pairs built as extract's
+                   (20,000 simulated, 80,000 near-miss, 400,000 random),
                    the simulated pairs of two genes drawn from copies of
                    an allele with three seeded substitutions, and a cell
                    barcode per pair: t1k_tpu.cli.run --backend native
@@ -85,7 +85,7 @@ Phases, in order; any failure raises and the exit code is non-zero:
                    its log that open and close each stage) are printed
  13. bam_run       the run-t1k chain on a BAM (-b, with -c the coordinate
                    fasta: every panel allele on its gene's interval of
-                   chr6): 1,000,000 pairs of 2 x 100 bp (BAM_PAIRS:
+                   chr6): 500,000 pairs of 2 x 100 bp (BAM_PAIRS:
                    20,000 on-panel pairs in their gene's interval, 2,000
                    on an alt contig, 100,000 unaligned templates, 10,000
                    pairs within 5 kb of an interval, the rest off target
@@ -99,24 +99,49 @@ Phases, in order; any failure raises and the exit code is non-zero:
                    launched, the device deciding reads; extraction timed
                    from the child's start to the genotyper's first line;
                    then the port's extraction alone in this process, its
-                   screen on the host engine and on the card in turns,
-                   each run timed and its outputs equal to the chain's
+                   screen on the host engine, then on the card, each run
+                   timed and its outputs equal to the chain's
  14. run_profile   the port's analyzer alone on the run's genotyper
                    outputs under torch.profiler: the same VCF, and the
                    card's busy and idle share of each analyzer stage; its
                    largest batch of deferred items is kept
  15. analyzer_timing  the thread band kernels vs their plain version on
                    that batch, exact and in turns, with its shape
+ 16. smartseq      one SMART-seq2 plate of one donor: 96 cells of 4,000
+                   pairs of 2 x 100 bp (800 simulated from the donor's
+                   two alleles of 6 of 8 panel genes, drawn per cell, at
+                   a ratio drawn from [0.1, 0.9]; 800 near-miss and 2,400
+                   random pairs): t1k_tpu.tools.smartseq --workers 8
+                   with T1K_BACKEND=native (per-cell native EM), then
+                   t1k_tpu_torch.tools.smartseq --workers 8 --cohortEm
+                   on the card, each in a child process and a work
+                   directory of its own (the port's with its kernels'
+                   launch counts, its pool workers' included, set to 0
+                   before the run and printed after it); the plate
+                   files, each cell's first-pass outputs and each cell's
+                   second-pass genotyper outputs byte-compared; probe,
+                   chain, band and the batched EM must launch; each
+                   route's wall and pass walls, and a spawn pool's
+                   start-up
+ 17. cohort_em_timing  the EM kernel's cohort form alone on (a) the 96
+                   problems the port's second pass solved and (b) 384
+                   cells of benchmarks/cohort_em.py's default shape: the
+                   batched launch, one single-problem launch per cell,
+                   the per-cell native loop and the plain version, in
+                   turns, every cell bit for bit against the native loop
 Then the card line, one JSON line describing the kernels (times; launches
-over the run phase's chain, the v1 aligner's over its own phase, and
-launches_bam_run over the bam_run phase's chain; the
+over the run phase's chain, the v1 aligner's over its own phase, the
+batched EM's over the smartseq phase's port run, launches_bam_run over
+the bam_run phase's chain and launches_smartseq over the plate; the
 band kernel as two entries, band_stats timed on the genotyper's chunk
 with the genotyper's launches and band_stats_analyzer on the analyzer's
 batch with the analyzer's; the
 bound each could reach on the card and what sets it - for the EM the
 longer of its bytes/operations bound and the chain of dependent f64 adds
-em.cc's order forces, at the add latency the card measured; no single
-PyTorch call computes any of them, so library_ms is null), and
+em.cc's order forces, at the add latency the card measured, and for its
+cohort form also the cells' chains over the SMs' resident blocks; the
+batched EM timed on set (b); no single PyTorch call computes any of
+them, so library_ms is null), and
 {"ok": true, "device": {...}} as the last line.  Work files go to a
 temporary directory that is removed at exit.
 """
@@ -144,7 +169,7 @@ EM_RG, EM_EC = 5000, 900
 EM_LARGE = (54_210, 10_700)   # about 10x the HLA problem's incidences
 RANDOM_ITEMS = 100_000
 V1_PAIRS = 65_536
-EXTRACT_PAIRS = (20_000, 80_000, 900_000)   # simulated, near-miss, random
+EXTRACT_PAIRS = (20_000, 80_000, 400_000)   # simulated, near-miss, random
 # the extract phase's depth: the run phase extracts EXTRACT_PAIRS
 EXTRACT_SMOKE_PAIRS = (4_000, 16_000, 180_000)
 SNP_GENES = 2                    # genes whose reads carry seeded SNPs
@@ -611,17 +636,28 @@ def em_chain_adds(tables: dict, iterations: int) -> int:
     return iterations * (3 * update + 2 * ec)
 
 
-def em_work_bound(tables: dict, iterations: int):
-    """Bytes and f64 operations bound: per round three EM updates of
-    about 4 operations per incidence (the group sum, then a divide,
-    multiply and add per EC count) and 3 per EC, plus the extrapolation's
-    and convergence test's 14 per EC; the tables read once and the counts
+# the reference tables of an EM problem, which a cohort shares
+EM_REFERENCE_TABLES = ("allele_gene", "allele_major")
+
+
+def em_work(tables: dict, iterations: int, reference: bool = True):
+    """(bytes, f64 operations) of one EM problem: per round three EM
+    updates of about 4 operations per incidence (the group sum, then a
+    divide, multiply and add per EC count) and 3 per EC, plus the
+    extrapolation's and convergence test's 14 per EC; the tables read
+    once (the reference tables only with `reference`) and the counts
     written once."""
     nnz, n_ecs = len(tables["rg_ecs"]), len(tables["ec_len"])
     flops = iterations * (3 * (4 * nnz + 3 * n_ecs) + 14 * n_ecs)
-    n_bytes = sum(v.nbytes for v in tables.values()
-                  if isinstance(v, np.ndarray)) + 8 * n_ecs
-    return bound(n_bytes, flops, F64_PER_S)
+    n_bytes = sum(v.nbytes for k, v in tables.items()
+                  if isinstance(v, np.ndarray)
+                  and (reference or k not in EM_REFERENCE_TABLES))
+    return n_bytes + 8 * n_ecs, flops
+
+
+def em_work_bound(tables: dict, iterations: int):
+    """Bytes and f64 operations bound of one EM problem (em_work)."""
+    return bound(*em_work(tables, iterations), F64_PER_S)
 
 
 def em_case(dev, name: str, problem: dict, reps: int, probe, info: dict):
@@ -1390,7 +1426,7 @@ def off_panel_pairs(rng, panel: str, n_near: int, n_rand: int):
 def extract_inputs(work: str, panel: str, counts=EXTRACT_PAIRS,
                    tag: str = "x", snp_genes: int = 0,
                    barcodes: bool = False) -> str:
-    """Read pairs of 2 x 100 bp with qualities, fixed seeds (1,000,000 at
+    """Read pairs of 2 x 100 bp with qualities, fixed seeds (500,000 at
     EXTRACT_PAIRS): simulated on-panel pairs (two alleles from each of 8
     genes, `snp_genes` of them with seeded SNPs), near-miss pairs cut from
     panel alleles with 25-35% substitutions, and uniform random pairs (1%
@@ -1818,7 +1854,7 @@ def check_chain(dev, native: str, port: str, outputs, port_stdout: str,
 # interval on chr6, and off-target pairs on chr1
 BAM_PAIRS = dict(region=20_000, alt=2_000, unaligned_panel=8_000,
                  unaligned_near=32_000, unaligned_random=60_000,
-                 near_edge=10_000, off_target=868_000)
+                 near_edge=10_000, off_target=368_000)
 BAM_CONTIGS = (("chr1", 200_000_000), ("chr6", 171_000_000),
                ("chr6_GL000251v2_alt", 4_700_000))
 # gene g of the panel lies on chr6 at [GENE_START + GENE_STEP g,
@@ -2108,11 +2144,11 @@ def phase_bam_run(dev, work: str, info: dict, counts=BAM_PAIRS) -> dict:
 
 
 def bam_screen_routes(dev, bam: str, coord: str, work: str, info: dict):
-    """The port's extraction of the bam_run BAM in this process, in turns
-    with its screen on the host engine (backend "native", where "auto"
-    stays below its gate) and on `dev` (backend "gpu", where "auto" goes
-    once the gate opens): each run's seconds, host clock, and every
-    output equal to the port's chain's candidate files."""
+    """The port's extraction of the bam_run BAM in this process, its
+    screen on the host engine (backend "native", where "auto" stays below
+    its gate), then on `dev` (backend "gpu", where "auto" goes once the
+    gate opens): each run's seconds, host clock, and every output equal
+    to the port's chain's candidate files."""
     from t1k_tpu_torch.io.bam import extract_from_bam
     from t1k_tpu_torch.utils.observability import metrics
 
@@ -2125,7 +2161,7 @@ def bam_screen_routes(dev, bam: str, coord: str, work: str, info: dict):
 
     want = outputs(os.path.join(work, "bport", "bam_candidate"))
     secs = {"native": [], "gpu": []}
-    for i, backend in enumerate(("native", "gpu") * 2):
+    for i, backend in enumerate(("native", "gpu")):
         prefix = os.path.join(work, f"bscreen{i}")
         t0 = time.perf_counter()
         extract_from_bam(bam, coord, coord, prefix, bc_field="CB",
@@ -2227,12 +2263,438 @@ def phase_analyzer_timing(dev, check: Checker, batch, info: dict):
     return float(np.mean(thread_ms)), float(np.mean(plain_ms)), b
 
 
+# ------------------------------------------------------ SMART-seq plate
+
+# one plate of one donor: cells, and per cell its on-panel pairs (the
+# donor's alleles), near-miss and random pairs
+PLATE_CELLS = 96
+PLATE_PAIRS = (800, 800, 2_400)
+PLATE_GENES, PLATE_EXPRESSED = 8, 6   # donor genes; expressed per cell
+PLATE_WORKERS = 8
+PLATE_OUTPUTS = ("_genotype_list.out", "_merged_genotype.tsv",
+                 "_reduced_ref.fa", "_reduced_genotype_list.out",
+                 "_final_genotype.tsv")
+# each cell's first-pass outputs, then its second pass's (the port's
+# --cohortEm pass runs no analyzer, so no second-pass VCF)
+CELL_OUTPUTS = ("_candidate_1.fq", "_candidate_2.fq", "_genotype.tsv",
+                "_allele.tsv", "_aligned_1.fa", "_aligned_2.fa",
+                "_allele.vcf", "_reduced_genotype.tsv",
+                "_reduced_allele.tsv", "_reduced_aligned_1.fa",
+                "_reduced_aligned_2.fa")
+# t1k_tpu_torch.tools.smartseq as `python -m` runs it (arguments after
+# the first), with the kernels' launch counts set to 0 just before the
+# run and printed after it as the last line, its pool workers' added;
+# the batched EM's arguments are pickled to the first argument
+PORT_SMARTSEQ = (
+    "import json, pickle, sys\n"
+    "from t1k_tpu_torch.ops import align, align_band, em, phase_a\n"
+    "from t1k_tpu_torch.tools import smartseq\n"
+    "counts = (align.launch_counts, align_band.launch_counts,\n"
+    "          em.launch_counts, phase_a.launch_counts)\n"
+    "batched = em.em_quantify_batched\n"
+    "def keep(*args, **kwargs):\n"
+    "    with open(sys.argv[1], 'wb') as f:\n"
+    "        pickle.dump((args, kwargs), f)\n"
+    "    return batched(*args, **kwargs)\n"
+    "em.em_quantify_batched = keep\n"
+    "for c in counts:\n"
+    "    c.update(dict.fromkeys(c, 0))\n"
+    "smartseq.worker_launch_counts.clear()\n"
+    "rc = smartseq.main(sys.argv[2:])\n"
+    "launches = {k: v for c in counts for k, v in c.items()}\n"
+    "for k, v in smartseq.worker_launch_counts.items():\n"
+    "    launches[k] += v\n"
+    "print(json.dumps(launches))\n"
+    "sys.exit(rc)\n")
+
+
+def plate_inputs(work: str, panel: str, n_cells: int, counts) -> tuple:
+    """A SMART-seq plate of one donor (t1k-smartseq's cross-cell vote
+    assumes one individual per plate): two alleles of each of PLATE_GENES
+    genes of `panel`; each cell expresses PLATE_EXPRESSED of them, drawn
+    per cell from a fixed seed, at an allele ratio drawn from [0.1, 0.9],
+    in counts[0] simulated pairs (t1k_tpu_torch.tools.simulate), beside
+    counts[1] near-miss and counts[2] random pairs (off_panel_pairs),
+    shuffled, 2 x READ_LEN bp with qualities.  Returns the two list files
+    (absolute paths of cell<NN>.R1.fq / .R2.fq)."""
+    from t1k_tpu_torch.io.reads import SeqRecord
+    from t1k_tpu_torch.tools.simulate import SimConfig, simulate_pairs
+
+    seqs = {name: seq for name, _, seq in read_fasta(panel)}
+    rng = np.random.default_rng(21)
+    genes = sorted({n.split("*")[0] for n in seqs})[:PLATE_GENES]
+    donor = {}
+    for g in genes:
+        alleles = sorted(n for n in seqs if n.startswith(g + "*"))
+        donor[g] = [alleles[i] for i in rng.choice(len(alleles), 2,
+                                                   replace=False)]
+    n_sim, n_near, n_rand = counts
+    near1, near2, rand1, rand2 = off_panel_pairs(
+        np.random.default_rng(22), panel, n_near * n_cells,
+        n_rand * n_cells)
+    acgt = np.frombuffer(b"ACGTN", np.uint8)
+    lists = ([], [])
+    for c in range(n_cells):
+        chosen, abund = [], []
+        for g in sorted(rng.choice(genes, PLATE_EXPRESSED, replace=False)):
+            f = rng.uniform(0.1, 0.9)
+            chosen += donor[g]
+            abund += [f, 1 - f]
+        sim = simulate_pairs([SeqRecord(a, seqs[a]) for a in chosen], abund,
+                             SimConfig(n_pairs=n_sim, seed=1000 + c))
+        near, rand = slice(c * n_near, (c + 1) * n_near), \
+            slice(c * n_rand, (c + 1) * n_rand)
+        mates = [np.concatenate([np.stack([encode(r.seq) for r in s]),
+                                 n[near], r[rand]])
+                 for s, n, r in zip(sim, (near1, near2), (rand1, rand2))]
+        order = rng.permutation(len(mates[0]))
+        quals = rng.integers(35, 74, (len(order), READ_LEN)).astype(np.uint8)
+        names = [b"c%d_%d" % (c, i) for i in range(len(order))]
+        for mate, (lst, m, q) in enumerate(zip(lists, mates,
+                                               (quals, quals[::-1])), 1):
+            path = os.path.join(work, f"cell{c:02d}.R{mate}.fq")
+            write_fastq(path, names, acgt[m[order]], q)
+            lst.append(path)
+    out = []
+    for mate, lst in enumerate(lists, 1):
+        path = os.path.join(work, f"plate_list{mate}.txt")
+        with open(path, "w") as f:
+            f.write("\n".join(lst) + "\n")
+        out.append(path)
+    return tuple(out)
+
+
+def smartseq_route(cmd, workdir: str, env: dict) -> tuple:
+    """Runs a smartseq command (output prefix "plate") in a child process
+    in `workdir`.  Returns its standard output and walls (host clock):
+    the process, and from the output files' times the first pass (start
+    to the genotype list), the vote (to the reduced reference) and the
+    second pass (to the reduced genotype list)."""
+    os.makedirs(workdir)
+    t0 = time.time()
+    proc = subprocess.run(cmd, cwd=workdir, env=env, capture_output=True,
+                          text=True)
+    secs = {"process": time.time() - t0}
+    if proc.returncode != 0:
+        raise RuntimeError(f"{cmd[1:3]} exited {proc.returncode}:\n"
+                           + proc.stderr[-4000:])
+    mtime = {s: os.path.getmtime(os.path.join(workdir, "plate" + s))
+             for s in PLATE_OUTPUTS}
+    secs["pass1"] = mtime["_genotype_list.out"] - t0
+    secs["vote"] = mtime["_reduced_ref.fa"] - mtime["_genotype_list.out"]
+    secs["pass2"] = (mtime["_reduced_genotype_list.out"]
+                     - mtime["_reduced_ref.fa"])
+    return proc.stdout, secs
+
+
+def worker_ready(dev_name: str) -> float:
+    """In a spawn worker: seconds to import the port's run chain and open
+    the device (what a smartseq pool worker does before its first
+    cell)."""
+    t0 = time.perf_counter()
+    import torch
+
+    import t1k_tpu_torch.cli.run  # noqa: F401
+    torch.zeros(1, device=dev_name).sum().item()
+    return time.perf_counter() - t0
+
+
+def worker_startup(dev, workers: int) -> tuple:
+    """(seconds from a smartseq-style spawn pool's creation to all its
+    workers ready, the slowest worker's own import and device seconds)."""
+    import multiprocessing
+
+    from t1k_tpu_torch.tools import smartseq
+
+    t0 = time.perf_counter()
+    ctx = multiprocessing.get_context("spawn")
+    with ctx.Pool(workers, initializer=smartseq._share_cores,
+                  initargs=(workers,)) as pool:
+        ready = pool.map(worker_ready, [str(dev)] * workers)
+    return time.perf_counter() - t0, max(ready)
+
+
+def phase_smartseq(dev, work: str, info: dict, plate: tuple) -> tuple:
+    """The SMART-seq plate through both packages' smartseq tools, each in
+    a child process with `workers` spawn workers and its own work
+    directory: t1k_tpu.tools.smartseq with T1K_BACKEND=native (per-cell
+    native EM), then t1k_tpu_torch.tools.smartseq --cohortEm on `dev`
+    (the second pass's EM batched).  Every plate file, each cell's
+    first-pass outputs and each cell's second-pass genotyper outputs
+    byte-compared; probe, chain, band and the batched EM must launch.
+    Returns (launch counts over the port's run, its pickled batched-EM
+    arguments' path)."""
+    import pickle
+
+    n_cells, counts, workers = plate
+    panel = os.path.join(work, "panel.fa")
+    t0 = time.perf_counter()
+    list1, list2 = plate_inputs(work, panel, n_cells, counts)
+    info["inputs_s"] = f"{time.perf_counter() - t0:.1f}"
+    args = ["-1", list1, "-2", list2, "-f", panel, "-o", "plate",
+            "--workers", str(workers)]
+    secs, dirs = {}, {r: os.path.join(work, f"ss{r}")
+                      for r in ("native", "port")}
+    _, secs["native"] = smartseq_route(
+        [sys.executable, "-m", "t1k_tpu.tools.smartseq", *args],
+        dirs["native"], dict(child_env(), T1K_BACKEND="native"))
+    problems = os.path.join(work, "plate_em.pkl")
+    out, secs["port"] = smartseq_route(
+        [sys.executable, "-c", PORT_SMARTSEQ, problems, *args, "--cohortEm",
+         "--device", str(dev)], dirs["port"], child_env())
+    launches = json.loads(out.splitlines()[-1])
+    paths = ["plate" + s for s in PLATE_OUTPUTS] + [
+        os.path.join(f"plate_cell{c:02d}", f"cell{c:02d}{s}")
+        for c in range(n_cells) for s in CELL_OUTPUTS]
+    for rel in paths:
+        got = []
+        for d in dirs.values():
+            with open(os.path.join(d, rel), "rb") as f:
+                got.append(f.read())
+        if got[0] != got[1]:
+            raise AssertionError(f"smartseq {rel} differs from the native "
+                                 "route")
+    with open(os.path.join(dirs["port"], "plate_final_genotype.tsv")) as f:
+        final = [line.rstrip("\n").split("\t") for line in f]
+    with open(os.path.join(dirs["port"], "plate_merged_genotype.tsv")) as f:
+        merged = [line.rstrip("\n").split("\t") for line in f]
+    if len(final) != n_cells + 1:
+        raise AssertionError(f"the final matrix has {len(final)} rows")
+    if launches["band_stats_warp"]:
+        raise AssertionError("the plate launched the warp band kernel")
+    kernels = ("phase_a_probe", "phase_a_chain", "band_stats",
+               "em_squarem_batched")
+    if dev.type == "cuda" and min(launches[k] for k in kernels) <= 0:
+        raise AssertionError(f"a kernel of the plate never launched: "
+                             f"{launches}")
+    with open(problems, "rb") as f:
+        (cells, *_), _ = pickle.load(f)
+    shapes = [(len(c[2]), len(c[0])) for c in cells]
+    largest = max(shapes, key=lambda rc: rc[0] * rc[1])
+    info["cells"] = n_cells
+    info["pairs_per_cell"] = sum(counts)
+    info["files_compared"] = len(paths)
+    info["alleles_called"] = len(final[0]) - 2
+    info["inconsistent_cells"] = sum(1 for r in merged[1:] if r[-1])
+    info["final_inconsistent_cells"] = sum(1 for r in final[1:] if r[-1])
+    info["em_problems"] = len(cells)
+    info["largest_em_problem"] = f"{largest[0]}x{largest[1]}"
+    info["em_nnz_total"] = sum(len(c[1][1]) for c in cells)
+    info.update({f"{k}_launches": v for k, v in launches.items()})
+    ready = worker_startup(dev, workers)
+    info["pool_ready_s"] = f"{ready[0]:.2f}"
+    info["worker_ready_s"] = f"{ready[1]:.2f}"
+    print("  smartseq walls (child processes, host clock): " + json.dumps(
+        {route: {k: round(v, 3) for k, v in s.items()}
+         for route, s in secs.items()}), flush=True)
+    return launches, problems
+
+
+# benchmarks/cohort_em.py's default cell: read groups, ECs, alleles, genes
+COHORT_CELLS = 384
+COHORT_RG, COHORT_EC, COHORT_ALLELES, COHORT_GENES = 600, 48, 160, 16
+
+
+def cohort_problem(seed: int, n_alleles: int, K: int, G: int):
+    """One cell of benchmarks/cohort_em.py (make_problem, copied): K ECs
+    of 1-3 alleles, G read groups of 1-4 ECs, counts 1-19."""
+    r = np.random.default_rng(seed)
+    pool = list(range(n_alleles))
+    r.shuffle(pool)
+    ecs, used = [], 0
+    for _ in range(K):
+        sz = int(r.integers(1, 4))
+        ecs.append(sorted(pool[used:used + sz]))
+        used = (used + sz) % (n_alleles - 4)
+    rg_off, rg_ecs = [0], []
+    for _ in range(G):
+        n = int(r.integers(1, 5))
+        rg_ecs.extend(sorted(r.choice(K, n, replace=False).tolist()))
+        rg_off.append(len(rg_ecs))
+    counts = r.integers(1, 20, G).astype(np.float64)
+    return (ecs, (np.array(rg_off), np.array(rg_ecs)), counts,
+            np.ones(n_alleles))
+
+
+def cohort_plate(n_cells: int) -> tuple:
+    """benchmarks/cohort_em.py's cohort (its reference tables and cells
+    1000, 1001, ...) as em_quantify_batched's positional arguments and
+    options."""
+    n_alleles, n_genes = COHORT_ALLELES, COHORT_GENES
+    rng = np.random.default_rng(1)
+    eff_len = rng.integers(800, 1600, n_alleles).astype(np.float64)
+    problems = [cohort_problem(1000 + i, n_alleles, COHORT_EC, COHORT_RG)
+                for i in range(n_cells)]
+    return ((problems, eff_len,
+             (np.arange(n_alleles) % n_genes).astype(np.int32),
+             (np.arange(n_alleles) // 2).astype(np.int32), n_genes,
+             n_alleles // 2),
+            dict(filter_frac=0.15, min_squarem_alpha=0.0))
+
+
+def cohort_case(dev, name: str, cohort: tuple, add_ns: float, sms: int,
+                info: dict):
+    """One cohort through the batched EM: the batched launch (tables on
+    the card), one single-problem launch per cell on one stream, the
+    per-cell native loop and the plain version (on the CPU), in turns
+    (native, batched, singles, plain, native, batched, singles), each
+    held to the native loop bit for bit per cell.  The bound is the
+    largest of the longest cell's add chain (em_chain_adds at `add_ns`),
+    the cells' chains spread over `sms` SMs x 2 resident blocks, and the
+    cohort's bytes/operations (em_work; the reference tables once).
+    Returns (batched ms, plain ms, (bound ms, bound by), max |batched -
+    plain|)."""
+    import torch
+
+    from t1k_tpu_torch.native import em_quantify
+    from t1k_tpu_torch.ops import em
+
+    (problems, eff_len, gene, major, n_genes, n_majors), kw = cohort
+    opts = dict(filter_frac=kw["filter_frac"],
+                min_squarem_alpha=kw["min_squarem_alpha"],
+                max_iterations=1000)
+    cuda = dev.type == "cuda"
+    f64 = torch.float64
+    problems = [p for p in problems if len(p[0])]
+    t0 = time.perf_counter()
+    cells = [em.em_tables(p[0], p[1], p[2], eff_len, p[3], gene, major,
+                          n_genes, n_majors) for p in problems]
+    info[f"{name}_tables_ms"] = f"{(time.perf_counter() - t0) * 1e3:.1f}"
+
+    def native():
+        return [em_quantify(p[0], p[1], p[2], eff_len, np.zeros(len(gene)),
+                            p[3], gene, major, n_genes, n_majors, **opts)
+                for p in problems]
+
+    def plain():
+        return [(it, c.numpy()) for it, c in em.squarem_batched_plain(
+            cells, **opts, device="cpu", dtype=f64)]
+
+    if cuda:
+        t0 = time.perf_counter()
+        batch_dev = em.squarem_batched_device(cells, dev, f64)
+        torch.cuda.synchronize()
+        info[f"{name}_upload_ms"] = f"{(time.perf_counter() - t0) * 1e3:.1f}"
+        singles = [em.squarem_device(**t, device=dev, dtype=f64)
+                   for t in cells]
+
+        def batched():
+            em.squarem_batched_launch(batch_dev, **opts)
+
+        def single():
+            for d in singles:
+                em.squarem_launch(d, **opts)
+
+        def batched_result():
+            return [(it, c.cpu().numpy())
+                    for it, c in em.squarem_batched_results(batch_dev)]
+
+        def single_result():
+            return [(int(d["iterations"].item()), d["count"].cpu().numpy())
+                    for d in singles]
+        info[f"{name}_launches"] = len(batch_dev["launches"])
+        info[f"{name}_shared_cells"] = int(sum(
+            len(g["cells"]) for g in batch_dev["launches"] if g["shared"]))
+    else:  # CPU rehearsal: the plain version stands in for both kernels
+        out = []
+
+        def batched():
+            out[:] = plain()
+        single = batched
+
+        def batched_result():
+            return out
+        single_result = batched_result
+
+    def host_ms(fn):
+        t0 = time.perf_counter()
+        got = fn()
+        return (time.perf_counter() - t0) * 1e3, got
+
+    want = native()
+    times = {k: [] for k in ("native", "batched", "singles", "plain")}
+    plain_out = None
+    for turn in range(2):
+        ms, got = host_ms(native)
+        times["native"].append(ms)
+        routes = [("native", got)]
+        times["batched"].append(time_ms(batched, 20 if cuda else 1, dev))
+        routes.append(("batched", batched_result()))
+        times["singles"].append(time_ms(single, 3 if cuda else 1, dev))
+        routes.append(("singles", single_result()))
+        if turn == 0:
+            ms, plain_out = host_ms(plain)
+            times["plain"].append(ms)
+            routes.append(("plain", plain_out))
+        for route, res in routes:
+            for c, ((it, count), (it_w, count_w)) in enumerate(zip(res,
+                                                                   want)):
+                if it != it_w or count.tobytes() != count_w.tobytes():
+                    raise AssertionError(f"cohort {name}: {route} differs "
+                                         f"from the native loop in cell {c}")
+    err = max(float(np.abs(b[1] - p[1]).max(initial=0))
+              for b, p in zip(batched_result(), plain_out))
+    iters = np.array([it for it, _ in want])
+    chain_ms = np.array([em_chain_adds(t, it) for t, it in zip(cells, iters)]
+                        ) * add_ns / 1e6
+    work = [em_work(t, it, reference=False) for t, it in zip(cells, iters)]
+    ref_bytes = sum(cells[0][k].nbytes for k in EM_REFERENCE_TABLES)
+    work_ms, work_by = bound(sum(w[0] for w in work) + ref_bytes,
+                             sum(w[1] for w in work), F64_PER_S)
+    spread_ms = chain_ms.sum() / (2 * sms)
+    b = max((chain_ms.max(), "operations"), (spread_ms, "operations"),
+            (work_ms, work_by))
+    pre = f"{name}_"
+    info[pre + "cells"] = len(cells)
+    info[pre + "nnz"] = sum(len(t["rg_ecs"]) for t in cells)
+    largest = max(cells, key=lambda t: len(t["rg_counts"]) * len(t["ec_len"]))
+    info[pre + "largest"] = \
+        f"{len(largest['rg_counts'])}x{len(largest['ec_len'])}"
+    info[pre + "iterations"] = f"{iters.min()}-{iters.max()}"
+    for k, v in times.items():
+        info[pre + k + "_ms"] = " ".join(f"{t:.4f}" for t in v)
+    info[pre + "longest_chain_ms"] = f"{chain_ms.max():.4f}"
+    info[pre + "spread_chain_ms"] = f"{spread_ms:.4f}"
+    info[pre + "work_bound_ms"] = f"{work_ms:.6f}"
+    info[pre + "bound_share"] = f"{b[0] / np.mean(times['batched']):.4f}"
+    return (float(np.mean(times["batched"])), float(times["plain"][0]), b,
+            err)
+
+
+def phase_cohort_em_timing(dev, problems_path: str, n_cells: int,
+                           info: dict):
+    """The cohort form of the EM kernel alone on (a) the problems the
+    smartseq phase's port run solved in its second pass and (b)
+    `n_cells` cells of benchmarks/cohort_em.py's default shape; the f64
+    add latency from the clock probe.  Returns set (b)'s (batched ms,
+    plain ms, bound, max |batched - plain|)."""
+    import pickle
+
+    import torch
+
+    cuda = dev.type == "cuda"
+    add_ns, sms = 4.0, 132   # CPU rehearsals: stand-ins
+    if cuda:
+        n_add = 1 << 22
+        _, add_ms = em_clock_probe(dev, 0, n_add)
+        add_ns = add_ms * 1e6 / n_add
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    info["f64_add_ns"] = f"{add_ns:.4f}"
+    info["sms"] = sms
+    with open(problems_path, "rb") as f:
+        args, kwargs = pickle.load(f)
+    cohort_case(dev, "plate", (args, kwargs), add_ns, sms, info)
+    return cohort_case(dev, "cohort", cohort_plate(n_cells), add_ns, sms,
+                       info)
+
+
 SOURCES = ("band_stats", "em_squarem", "align_full", "phase_a_probe",
            "phase_a_chain")
 # kernel record -> its source under t1k_tpu_torch/csrc/
 KERNELS = {"band_stats": "band_stats", "band_stats_analyzer": "band_stats",
            "band_stats_warp": "band_stats",
-           "em_squarem": "em_squarem", "align_full": "align_full",
+           "em_squarem": "em_squarem", "em_squarem_batched": "em_squarem",
+           "align_full": "align_full",
            "phase_a_probe": "phase_a_probe", "phase_a_chain": "phase_a_chain"}
 
 
@@ -2298,25 +2760,36 @@ def run(dev, sizes: dict) -> list:
         with phase("analyzer_timing") as info:
             times["band_stats_analyzer"] = phase_analyzer_timing(
                 dev, checks["band_stats_analyzer"], batch, info)
+        with phase("smartseq") as info:
+            plate_launches, plate_em = phase_smartseq(dev, work, info,
+                                                      sizes["plate"])
+        with phase("cohort_em_timing") as info:
+            *times["em_squarem_batched"], batched_err = \
+                phase_cohort_em_timing(dev, plate_em, sizes["cohort"], info)
     # launches over the run-t1k chain, the path users call (the band
     # kernel's as band_stats in the genotyper, band_stats_analyzer in the
-    # analyzer); the v1 aligner (on no stage) over its own phase; and
-    # over the run-t1k -b chain (the v1 aligner's not counted there)
-    launches = dict(run_launches, align_full=v1_launches)
+    # analyzer); the v1 aligner (on no stage) over its own phase; the
+    # batched EM over the SMART-seq plate; and over the run-t1k -b chain
+    # and the plate (the v1 aligner's not counted there)
+    launches = dict(run_launches, align_full=v1_launches,
+                    em_squarem_batched=plate_launches["em_squarem_batched"])
     replaces = {"band_stats": "t1k_tpu/ops/align_pallas_band.py:55",
                 "band_stats_analyzer": "t1k_tpu/ops/align_pallas_band.py:55",
                 "band_stats_warp": "t1k_tpu/ops/align_pallas_band.py:55",
                 "em_squarem": "t1k_tpu/ops/em.py:213",
+                "em_squarem_batched": "t1k_tpu/ops/em.py:359",
                 "align_full": "t1k_tpu/ops/align_pallas.py:44",
                 "phase_a_probe": "t1k_tpu/ops/phase_a.py:343",
                 "phase_a_chain": "t1k_tpu/ops/phase_a.py:457"}
     errs = {name: checks[name].max_err for name in KERNELS}
     errs["em_squarem"] = em_err
+    errs["em_squarem_batched"] = batched_err
     # no single PyTorch call computes any of them: library_ms is null
     return [{"name": name, "route": "cuda",
              "source": f"t1k_tpu_torch/csrc/{KERNELS[name]}.cu",
              "replaces": replaces[name], "launches": launches[name],
              "launches_bam_run": bam_launches.get(name),
+             "launches_smartseq": plate_launches.get(name),
              "max_abs_err": errs[name], "ms": times[name][0],
              "plain_ms": times[name][1], "bound_ms": times[name][2][0],
              "bound_by": times[name][2][1], "library_ms": None}
@@ -2327,7 +2800,9 @@ FULL_SIZES = dict(random_items=RANDOM_ITEMS, em=(EM_RG, EM_EC),
                   em_large=EM_LARGE,
                   v1_pairs=V1_PAIRS, sim_pairs=SIM_PAIRS,
                   extract=EXTRACT_SMOKE_PAIRS, run=EXTRACT_PAIRS,
-                  bam=BAM_PAIRS)
+                  bam=BAM_PAIRS,
+                  plate=(PLATE_CELLS, PLATE_PAIRS, PLATE_WORKERS),
+                  cohort=COHORT_CELLS)
 
 
 def main() -> int:

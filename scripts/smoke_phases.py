@@ -1,0 +1,83 @@
+#!/usr/bin/env python3
+"""Some of chip_smoke.py's phases alone, on one CUDA card.
+
+  python3 scripts/smoke_phases.py [main] [em_timing] [smartseq]
+                                  [cohort_em_timing]
+
+Builds the kernels (the smoke's `build` phase), then runs the named
+phases in the smoke's order at its full sizes, each as chip_smoke.run
+runs it: em_timing takes main's EM problem and runs main first;
+cohort_em_timing takes smartseq's problems and runs smartseq first;
+without main, the HLA-scale panel is built on its own.  Prints each
+phase's line, the card line, and the smartseq plate's launches as JSON.
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+import tempfile
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+import chip_smoke as cs  # noqa: E402
+
+PHASES = ("main", "em_timing", "smartseq", "cohort_em_timing")
+
+
+def main(argv) -> int:
+    import json
+
+    import torch
+
+    from t1k_tpu_torch.ops import _build
+
+    wanted = set(argv) or set(PHASES)
+    if not wanted <= set(PHASES):
+        print(f"phases: {' '.join(PHASES)}", file=sys.stderr)
+        return 2
+    if "em_timing" in wanted:
+        wanted.add("main")
+    if "cohort_em_timing" in wanted:
+        wanted.add("smartseq")
+    if not torch.cuda.is_available():
+        print("smoke_phases: CUDA is not available", file=sys.stderr)
+        return 2
+    dev, sizes = torch.device("cuda"), cs.FULL_SIZES
+    print(cs.card_line(), flush=True)
+    with cs.phase("build") as info:
+        t0 = time.perf_counter()
+        _build.build_all(cs.SOURCES)
+        info["all_s"] = f"{time.perf_counter() - t0:.2f}"
+        with open(os.path.join(_build.BUILD_DIR, "em_squarem.log")) as f:
+            for line in f:
+                if "registers" in line or "spill" in line:
+                    print("  ptxas em_squarem:", line.strip(), flush=True)
+    with tempfile.TemporaryDirectory(prefix="t1k_phases_") as work:
+        em_problems = []
+        if "main" in wanted:
+            with cs.phase("main") as info:
+                cs.phase_main(dev, work, cs.PANEL_GENES, cs.PANEL_COPIES,
+                              sizes["sim_pairs"], info, em_problems)
+        else:
+            cs.build_panel(os.path.join(work, "panel.fa"))
+        if "em_timing" in wanted:
+            with cs.phase("em_timing") as info:
+                cs.phase_em_timing(dev, em_problems[0], sizes, info)
+        if "smartseq" in wanted:
+            with cs.phase("smartseq") as info:
+                launches, plate_em = cs.phase_smartseq(dev, work, info,
+                                                       sizes["plate"])
+            print(json.dumps({"smartseq_launches": launches}), flush=True)
+        if "cohort_em_timing" in wanted:
+            with cs.phase("cohort_em_timing") as info:
+                cs.phase_cohort_em_timing(dev, plate_em, sizes["cohort"],
+                                          info)
+    print(cs.card_line())
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -410,6 +410,22 @@ class Genotyper:
             return "native"
         return "gpu"
 
+    def set_em_result(self, iters: int, ec_read_count: np.ndarray) -> int:
+        """Adopt externally computed EM sufficient statistics (the cohort
+        driver's batched EM, ops/em.py em_quantify_batched) in place of
+        quantify()."""
+        self._last_ec_read_count = np.asarray(ec_read_count, dtype=np.float64)
+        if len(self.ec_to_alleles):
+            self._set_allele_abundance(self._last_ec_read_count)
+        return iters
+
+    def em_problem(self):
+        """This sample's EC problem in the form the ops.em quantifiers
+        consume: (ec_to_alleles, rg_ecs_csr, rg_counts, allele_weight),
+        the read-group CSR quantify() feeds the EM."""
+        rg_off, rg_ecs, rg_counts = self._read_group_csr()
+        return self.ec_to_alleles, (rg_off, rg_ecs), rg_counts, self.allele_weight
+
     def save_em_state(self, path: str, ec_read_count: np.ndarray) -> None:
         """Checkpoint the EM sufficient statistics (preemption tolerance:
         a later run can resume allele selection from this file via

@@ -1,8 +1,11 @@
 // SQUAREM-accelerated EM over the read-group x equivalence-class incidence,
 // in the native oracle's exact operation order.
 //
-// Replaces the jitted XLA program t1k_tpu/ops/em.py::_em_loop_dense
-// (with _squarem_while and _make_mask_reset).  Same contract as
+// Replaces the jitted XLA programs t1k_tpu/ops/em.py::_em_loop_dense
+// (with _squarem_while and _make_mask_reset) and, in its cohort form,
+// _em_loop_dense_batched (the SMART-seq second pass: one block per
+// cell, where the reference pads every cell to one [C, R, K] envelope
+// and freezes the cells that converge).  Same contract as
 // t1k_tpu/native/em.cc (reference Genotyper.hpp:372-437, 1142-1328): two
 // EM updates, the SQUAREM extrapolation, one stabilizing update, L1
 // convergence below 1e-5 with one forced extra round, and the
@@ -23,10 +26,14 @@
 // one random shared-memory gather per incidence in each pass (each warp
 // gather costs several bank-conflicting wavefronts) and one correctly
 // rounded f64 divide per incidence in the CSC pass.  Those are the
-// floors that only a design across SMs would lift.
+// floors that only a design across SMs would lift.  The cohort form is
+// bound by its longest cell's add chain and by the cells' chains spread
+// over the two 1,024-thread blocks an SM holds; a small cell leaves most
+// of its block idle.
 //
-// Design: the whole convergence loop is one launch of one block (a
-// batched entry can give each problem a block of its own).
+// Design: the whole convergence loop is one launch of one block
+// (squarem_kernel); the cohort form (squarem_batched_kernel) runs the
+// same block code once per cell, each block on its own cell.
 //   * The per-read-group pairs (psum, the group count: one 16-byte
 //     gather per CSC term) and the per-EC vectors (x0-x3, count,
 //     per_len, the effective lengths) live in dynamic shared memory when
@@ -289,12 +296,16 @@ __device__ __forceinline__ void mask_reset(const Problem<T>& p,
   __syncthreads();
 }
 
+// The whole convergence loop of problem p on the calling block.  `smem`
+// is the block's dynamic shared memory (the kShared form's vectors),
+// s_fold three shared scalars: normalizer / sum_r and L1 change, sum_v.
 template <typename T, bool kShared, bool kProf>
-__global__ void __launch_bounds__(kThreads)
-squarem_kernel(Problem<T> p, Scratch<T> s, int32_t* iterations,
-               long long* cycles) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ T s_fold[3];  // normalizer / sum_r and L1 change, sum_v
+__device__ __forceinline__ void squarem_block(const Problem<T>& p,
+                                              const Scratch<T>& s,
+                                              int32_t* iterations,
+                                              long long* cycles,
+                                              unsigned char* smem,
+                                              T* s_fold) {
   const int tid = threadIdx.x;
   const int ec = p.ec_cnt;
   Vecs<T> v;
@@ -381,62 +392,138 @@ squarem_kernel(Problem<T> p, Scratch<T> s, int32_t* iterations,
 }
 
 template <typename T, bool kShared, bool kProf>
+__global__ void __launch_bounds__(kThreads)
+squarem_kernel(Problem<T> p, Scratch<T> s, int32_t* iterations,
+               long long* cycles) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ T s_fold[3];
+  squarem_block<T, kShared, kProf>(p, s, iterations, cycles, smem, s_fold);
+}
+
+// Block b runs problem b of the cohort (problems[b], scratch[b],
+// iterations[b]; the options are the launch's): the replacement of the
+// reference's batched program, every cell with the native loop's bits.
+// Thread 0 copies the cell's structs into shared memory before the first
+// barrier; a converged block exits, so nothing freezes finished cells.
+template <typename T, bool kShared>
+__global__ void __launch_bounds__(kThreads)
+squarem_batched_kernel(const Problem<T>* problems, const Scratch<T>* scratch,
+                       int32_t* iterations, int max_iterations,
+                       T filter_frac, T min_alpha) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ T s_fold[3];
+  __shared__ Problem<T> p;
+  __shared__ Scratch<T> s;
+  if (threadIdx.x == 0) {
+    p = problems[blockIdx.x];
+    p.max_iterations = max_iterations;
+    p.filter_frac = filter_frac;
+    p.min_alpha = min_alpha;
+    s = scratch[blockIdx.x];
+  }
+  __syncthreads();
+  squarem_block<T, kShared, false>(p, s, iterations + blockIdx.x, nullptr,
+                                   smem, s_fold);
+}
+
+// Dynamic shared memory of the kShared form for one problem.
+template <typename T>
+size_t shared_bytes(int64_t rg_cnt, int64_t ec_cnt) {
+  return (2 * (size_t)rg_cnt + 7 * (size_t)ec_cnt) * sizeof(T);
+}
+
+// Raises the kernel's dynamic shared-memory cap to `bytes` (per
+// instantiation); returns the CUDA error code.
+template <typename Kernel>
+int allow_shared(Kernel kernel, size_t bytes) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) cudaGetLastError();  // not left for a later check
+  return (int)err;
+}
+
+template <typename T, bool kShared, bool kProf>
 int launch_as(const Problem<T>& p, const Scratch<T>& s, int32_t* iterations,
               long long* cycles, cudaStream_t stream) {
   auto kernel = squarem_kernel<T, kShared, kProf>;
   size_t bytes = 0;
   if constexpr (kShared) {
-    bytes = (2 * (size_t)p.rg_cnt + 7 * (size_t)p.ec_cnt) * sizeof(T);
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (err != cudaSuccess) {
-      cudaGetLastError();  // not left for a later launch's check
-      return (int)err;
-    }
+    bytes = shared_bytes<T>(p.rg_cnt, p.ec_cnt);
+    if (const int err = allow_shared(kernel, bytes)) return err;
   }
   kernel<<<1, kThreads, bytes, stream>>>(p, s, iterations, cycles);
   return (int)cudaGetLastError();
 }
 
-Lists lists_at(const void* const* in, int64_t slots) {
+// The device inputs in the order of t1k_em_squarem's `in`, and the
+// scratch buffers in the order of its `scratch`.
+constexpr int kIns = 17, kScratch = 11;
+// A cohort's per-cell host row: ec_cnt, rg_cnt, the rows' and the
+// columns' slot counts, then the cell's element offset into each of the
+// kIns inputs and the kScratch buffers.
+constexpr int kCellDims = 4, kCellCols = kCellDims + kIns + kScratch;
+
+// One pass's lists at element offsets off[0..3] of in[0..3].
+Lists lists_at(const void* const* in, const int64_t* off, int64_t slots) {
   Lists l;
   l.slots = (int32_t)slots;
-  l.sched = static_cast<const int32_t*>(in[0]);
-  l.len = static_cast<const int32_t*>(in[1]);
-  l.base = static_cast<const int64_t*>(in[2]);
-  l.stream = static_cast<const int32_t*>(in[3]);
+  l.sched = static_cast<const int32_t*>(in[0]) + off[0];
+  l.len = static_cast<const int32_t*>(in[1]) + off[1];
+  l.base = static_cast<const int64_t*>(in[2]) + off[2];
+  l.stream = static_cast<const int32_t*>(in[3]) + off[3];
   return l;
+}
+
+// cell: a kCellCols row; common: allele_cnt, gene_cnt, major_cnt,
+// max_iterations.
+template <typename T>
+Problem<T> problem_at(const void* const* in, const int64_t* cell,
+                      const int64_t* common, double filter_frac,
+                      double min_alpha) {
+  const int64_t* off = cell + kCellDims;
+  Problem<T> p;
+  p.ec_cnt = (int32_t)cell[0];
+  p.rg_cnt = cell[1];
+  p.allele_cnt = (int32_t)common[0];
+  p.gene_cnt = (int32_t)common[1];
+  p.major_cnt = (int32_t)common[2];
+  p.max_iterations = (int32_t)common[3];
+  p.rows = lists_at(in, off, cell[2]);
+  p.cols = lists_at(in + 4, off + 4, cell[3]);
+  p.rg_counts = static_cast<const T*>(in[8]) + off[8];
+  p.ec_off = static_cast<const int64_t*>(in[9]) + off[9];
+  p.ec_alleles = static_cast<const int32_t*>(in[10]) + off[10];
+  p.ec_len = static_cast<const T*>(in[11]) + off[11];
+  p.allele_gene = static_cast<const int32_t*>(in[12]) + off[12];
+  p.allele_major = static_cast<const int32_t*>(in[13]) + off[13];
+  p.maj_off = static_cast<const int64_t*>(in[14]) + off[14];
+  p.maj_alleles = static_cast<const int32_t*>(in[15]) + off[15];
+  p.init_x = static_cast<const T*>(in[16]) + off[16];
+  p.filter_frac = (T)filter_frac;
+  p.min_alpha = (T)min_alpha;
+  return p;
+}
+
+template <typename T>
+Scratch<T> scratch_at(void* const* scratch, const int64_t* off) {
+  Scratch<T> s;
+  T** fields[kScratch] = {&s.x0, &s.x1, &s.x2, &s.x3, &s.count, &s.grp,
+                          &s.per_len, &s.allele_abund, &s.allele_ec_abund,
+                          &s.major_abund, &s.gene_max};
+  for (int k = 0; k < kScratch; ++k)
+    *fields[k] = static_cast<T*>(scratch[k]) + off[k];
+  return s;
 }
 
 template <typename T>
 int launch(const void* const* in, void* const* scratch, const int64_t* dims,
            double filter_frac, double min_alpha, bool shared,
            void* iterations, void* cycles, void* stream) {
-  Problem<T> p;
-  p.ec_cnt = (int32_t)dims[0];
-  p.allele_cnt = (int32_t)dims[1];
-  p.gene_cnt = (int32_t)dims[2];
-  p.major_cnt = (int32_t)dims[3];
-  p.rg_cnt = dims[4];
-  p.max_iterations = (int32_t)dims[5];
-  p.rows = lists_at(in, dims[6]);
-  p.cols = lists_at(in + 4, dims[7]);
-  p.rg_counts = static_cast<const T*>(in[8]);
-  p.ec_off = static_cast<const int64_t*>(in[9]);
-  p.ec_alleles = static_cast<const int32_t*>(in[10]);
-  p.ec_len = static_cast<const T*>(in[11]);
-  p.allele_gene = static_cast<const int32_t*>(in[12]);
-  p.allele_major = static_cast<const int32_t*>(in[13]);
-  p.maj_off = static_cast<const int64_t*>(in[14]);
-  p.maj_alleles = static_cast<const int32_t*>(in[15]);
-  p.init_x = static_cast<const T*>(in[16]);
-  p.filter_frac = (T)filter_frac;
-  p.min_alpha = (T)min_alpha;
-  Scratch<T> s;
-  T** fields[] = {&s.x0, &s.x1, &s.x2, &s.x3, &s.count, &s.grp,
-                  &s.per_len, &s.allele_abund, &s.allele_ec_abund,
-                  &s.major_abund, &s.gene_max};
-  for (int k = 0; k < 11; ++k) *fields[k] = static_cast<T*>(scratch[k]);
+  int64_t cell[kCellCols] = {dims[0], dims[4], dims[6], dims[7]};
+  const int64_t common[4] = {dims[1], dims[2], dims[3], dims[5]};
+  const Problem<T> p =
+      problem_at<T>(in, cell, common, filter_frac, min_alpha);
+  const Scratch<T> s = scratch_at<T>(scratch, cell + kCellDims + kIns);
   auto* it = static_cast<int32_t*>(iterations);
   auto* cyc = static_cast<long long*>(cycles);
   auto st = static_cast<cudaStream_t>(stream);
@@ -445,6 +532,41 @@ int launch(const void* const* in, void* const* scratch, const int64_t* dims,
                : launch_as<T, true, false>(p, s, it, cyc, st);
   return cyc ? launch_as<T, false, true>(p, s, it, cyc, st)
              : launch_as<T, false, false>(p, s, it, cyc, st);
+}
+
+// The cohort's per-cell structs, Problem<T> x n_cells then Scratch<T> x
+// n_cells, into host memory at `out` (the options left for the launch).
+template <typename T>
+void cells_at(int n_cells, const void* const* in, void* const* scratch,
+              const int64_t* cells, const int64_t* common, void* out) {
+  const int64_t dims[4] = {common[0], common[1], common[2], 0};
+  auto* ps = static_cast<Problem<T>*>(out);
+  auto* ss = reinterpret_cast<Scratch<T>*>(ps + n_cells);
+  for (int b = 0; b < n_cells; ++b) {
+    const int64_t* cell = cells + (int64_t)b * kCellCols;
+    ps[b] = problem_at<T>(in, cell, dims, 0, 0);
+    ss[b] = scratch_at<T>(scratch, cell + kCellDims + kIns);
+  }
+}
+
+template <typename T>
+int launch_batched(int n_cells, const void* structs, int shared,
+                   int64_t bytes, int max_iterations, double filter_frac,
+                   double min_alpha, void* iterations, void* stream) {
+  const auto* ps = static_cast<const Problem<T>*>(structs);
+  const auto* ss = reinterpret_cast<const Scratch<T>*>(ps + n_cells);
+  auto* it = static_cast<int32_t*>(iterations);
+  auto st = static_cast<cudaStream_t>(stream);
+  if (shared) {
+    auto kernel = squarem_batched_kernel<T, true>;
+    if (const int err = allow_shared(kernel, (size_t)bytes)) return err;
+    kernel<<<n_cells, kThreads, (size_t)bytes, st>>>(
+        ps, ss, it, max_iterations, (T)filter_frac, (T)min_alpha);
+  } else {
+    squarem_batched_kernel<T, false><<<n_cells, kThreads, 0, st>>>(
+        ps, ss, it, max_iterations, (T)filter_frac, (T)min_alpha);
+  }
+  return (int)cudaGetLastError();
 }
 
 // mode 0: one thread, n dependent f64 adds.  mode 1: one block of
@@ -518,6 +640,55 @@ extern "C" int t1k_em_squarem(const void* const* in, void* const* scratch,
                               shared != 0, iterations, cycles, stream)
              : launch<float>(in, scratch, dims, filter_frac, min_alpha,
                              shared != 0, iterations, cycles, stream);
+}
+
+// The cohort form's per-cell structs, built on the host into `out`
+// (n_cells * t1k_em_squarem_cell_bytes(double_prec) bytes), for the
+// caller to upload once.  in and scratch: the bases of the cohort's
+// concatenations of t1k_em_squarem's 17 inputs (the shared tables
+// allele_gene, allele_major, maj_off and maj_alleles once) and 11
+// buffers.  cells: host int64, n_cells rows of 32: ec_cnt, rg_cnt, the
+// rows' and the columns' slot counts, then the cell's element offset
+// into each of the 17 inputs and 11 buffers (a cell's list values and
+// ec_off count from its own 0).  common: allele_cnt, gene_cnt,
+// major_cnt.
+extern "C" void t1k_em_squarem_cells(int n_cells, const void* const* in,
+                                     void* const* scratch,
+                                     const int64_t* cells,
+                                     const int64_t* common, int double_prec,
+                                     void* out) {
+  if (double_prec)
+    cells_at<double>(n_cells, in, scratch, cells, common, out);
+  else
+    cells_at<float>(n_cells, in, scratch, cells, common, out);
+}
+
+// Bytes of one cell's structs in t1k_em_squarem_cells' `out`.
+extern "C" int64_t t1k_em_squarem_cell_bytes(int double_prec) {
+  return (int64_t)(double_prec
+                       ? sizeof(Problem<double>) + sizeof(Scratch<double>)
+                       : sizeof(Problem<float>) + sizeof(Scratch<float>));
+}
+
+// One launch of the cohort form: n_cells blocks, block b on cell b of
+// `structs` (t1k_em_squarem_cells' bytes, on the device).  shared
+// selects the shared-memory form for every cell, with `bytes` of dynamic
+// shared memory (the largest cell's; the caller sends cells past the
+// limit to a launch of the device-memory form).  iterations: n_cells
+// device int32.  Returns the launch's CUDA error code.
+extern "C" int t1k_em_squarem_batched(int n_cells, const void* structs,
+                                      int shared, int64_t bytes,
+                                      int max_iterations,
+                                      double filter_frac, double min_alpha,
+                                      int double_prec, void* iterations,
+                                      void* stream) {
+  return double_prec
+             ? launch_batched<double>(n_cells, structs, shared, bytes,
+                                      max_iterations, filter_frac,
+                                      min_alpha, iterations, stream)
+             : launch_batched<float>(n_cells, structs, shared, bytes,
+                                     max_iterations, filter_frac, min_alpha,
+                                     iterations, stream);
 }
 
 // Measurement kernel for the EM's bounds (see clock_probe_kernel): in

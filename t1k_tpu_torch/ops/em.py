@@ -19,7 +19,11 @@ CUDA tensors run the kernel ``csrc/em_squarem.cu`` (the whole loop in one
 launch of one block, its vectors in shared memory when
 ``em_shared_bytes`` fits ``EM_SHARED_LIMIT``, else in device memory);
 CPU tensors run ``squarem_plain``, the same order in PyTorch ops
-(bit-exact in f64 on the CPU, whose cumsum is a sequential sum).  The
+(bit-exact in f64 on the CPU, whose cumsum is a sequential sum).  A
+cohort of cells (``em_quantify_batched``, the counterpart of
+``em_quantify_jax_batched``) runs the kernel's cohort form, one block per
+cell in at most two launches, or ``squarem_batched_plain`` on the CPU;
+every cell gets the native loop's bits.  The
 host deals the kernel's read-group and EC lists to its threads
 (``list_schedule``) in a warp-interleaved layout (``warp_lists``) and
 lists each major allele's alleles (``major_lists``).
@@ -46,8 +50,12 @@ EM_SHARED_LIMIT = 232_448 - 1_024
 # The profiled kernel's clock counts: these phases, then the total.
 EM_PHASES = ("csr", "csc", "norm", "alpha", "diff", "mask")
 
-# Kernel launches, counted by the CUDA wrapper where it launches.
-launch_counts = {"em_squarem": 0}
+# Kernel launches, counted by the CUDA wrappers where they launch.
+launch_counts = {"em_squarem": 0, "em_squarem_batched": 0}
+# The cohort form's per-cell row (t1k_em_squarem_cells): ec_cnt, rg_cnt,
+# the rows' and the columns' slot counts, then the cell's offsets into
+# the kernel's 17 inputs and 11 scratch buffers.
+_CELL_DIMS, _INS, _SCRATCH = 4, 17, 11
 
 
 def em_shared_bytes(rg_cnt: int, ec_cnt: int, itemsize: int) -> int:
@@ -292,6 +300,17 @@ def _kernel_lib() -> ctypes.CDLL:
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_double,
         ctypes.c_double, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p]
+    lib.t1k_em_squarem_cells.restype = None
+    lib.t1k_em_squarem_cells.argtypes = [
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    lib.t1k_em_squarem_cell_bytes.restype = ctypes.c_int64
+    lib.t1k_em_squarem_cell_bytes.argtypes = [ctypes.c_int]
+    lib.t1k_em_squarem_batched.restype = ctypes.c_int
+    lib.t1k_em_squarem_batched.argtypes = [
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
+        ctypes.c_int, ctypes.c_double, ctypes.c_double, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p]
     lib.t1k_em_clock_probe.restype = ctypes.c_int
     lib.t1k_em_clock_probe.argtypes = [
         ctypes.c_int, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
@@ -395,6 +414,172 @@ def squarem_cuda(rg_off, rg_ecs, rg_counts, col_off, col_rgs, ec_off,
     return int(em_dev["iterations"].item()), em_dev["count"]
 
 
+def squarem_batched_plain(cells: List[dict], filter_frac: float,
+                          min_squarem_alpha: float, max_iterations: int,
+                          device, dtype) -> List[Tuple[int, torch.Tensor]]:
+    """Plain PyTorch version of the kernel's cohort form: squarem_plain on
+    each cell's em_tables in turn."""
+    return [squarem_plain(**t, filter_frac=filter_frac,
+                          min_squarem_alpha=min_squarem_alpha,
+                          max_iterations=max_iterations, device=device,
+                          dtype=dtype) for t in cells]
+
+
+def batched_tables(cells: List[dict], itemsize: int) -> dict:
+    """Host half of the kernel's cohort form, for a cohort of EM problems
+    (each cell's em_tables; one reference).  Each of the kernel's 17
+    inputs concatenated over the cells (`ins`; the reference tables
+    allele_gene, allele_major and the major -> alleles lists once),
+    `rows`: per cell its ec_cnt, rg_cnt, the rows' and the columns' slot
+    counts and its offsets into the 17 inputs and the 11 scratch buffers
+    (t1k_em_squarem_cells' layout), `scratch`: each buffer's length, and
+    `shared`: per cell, whether it takes the shared-memory form (its
+    em_shared_bytes fits EM_SHARED_LIMIT)."""
+    ref = cells[0]
+    for t in cells[1:]:
+        if not (np.array_equal(t["allele_gene"], ref["allele_gene"])
+                and np.array_equal(t["allele_major"], ref["allele_major"])
+                and (t["gene_cnt"], t["major_cnt"])
+                == (ref["gene_cnt"], ref["major_cnt"])):
+            raise ValueError("the cells of a cohort share one reference")
+    allele_cnt = len(ref["allele_gene"])
+    gene_cnt, major_cnt = ref["gene_cnt"], ref["major_cnt"]
+    maj_off, maj_alleles = major_lists(ref["allele_major"], major_cnt)
+    common = {12: ref["allele_gene"], 13: ref["allele_major"], 14: maj_off,
+              15: maj_alleles}
+    parts = [[] for _ in range(_INS)]
+    filled = np.zeros(_INS, np.int64)
+    sizes = np.zeros((len(cells), _SCRATCH), np.int64)
+    rows = np.zeros((len(cells), _CELL_DIMS + _INS + _SCRATCH), np.int64)
+    forms = np.zeros(len(cells), bool)
+    for b, t in enumerate(cells):
+        ec_cnt, rg_cnt = len(t["ec_len"]), len(t["rg_counts"])
+        forms[b] = em_shared_bytes(rg_cnt, ec_cnt,
+                                   itemsize) <= EM_SHARED_LIMIT
+        csr = warp_lists(t["rg_off"], t["rg_ecs"], EM_THREADS)
+        csc = warp_lists(t["col_off"], t["col_rgs"], EM_THREADS)
+        own = [lists[k] for lists in (csr, csc)
+               for k in ("sched", "len", "base", "stream")]
+        own += [t["rg_counts"], t["ec_off"], t["ec_alleles"], t["ec_len"],
+                None, None, None, None, t["init_x"]]
+        rows[b, :_CELL_DIMS] = (ec_cnt, rg_cnt, len(csr["sched"]),
+                                len(csc["sched"]))
+        for k, a in enumerate(own):
+            if a is not None:
+                rows[b, _CELL_DIMS + k] = filled[k]
+                filled[k] += len(a)
+                parts[k].append(a)
+        # the shared form keeps x0-x3, the (psum, count) pairs and per_len
+        # on the chip
+        vec = 0 if forms[b] else 1
+        sizes[b] = [vec * ec_cnt] * 4 + [ec_cnt, vec * 2 * rg_cnt,
+                                         vec * ec_cnt, allele_cnt,
+                                         allele_cnt, major_cnt, gene_cnt]
+    np.cumsum(sizes[:-1], axis=0, out=rows[1:, _CELL_DIMS + _INS:])
+    return dict(
+        ins=[common[k] if k in common else np.concatenate(parts[k])
+             for k in range(_INS)],
+        rows=rows, scratch=sizes.sum(axis=0), shared=forms,
+        common=np.array([allele_cnt, gene_cnt, major_cnt], np.int64))
+
+
+def squarem_batched_device(cells: List[dict], device, dtype) -> dict:
+    """A cohort of EM problems on a CUDA device for the cohort form of
+    csrc/em_squarem.cu: batched_tables' concatenations uploaded once per
+    kind of array, the scratch allocated once per kind, and per launch
+    (at most two: the shared-memory form's cells, then the device-memory
+    form's) the per-cell structs t1k_em_squarem_cells builds from the
+    cells' offsets, uploaded at once."""
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"unsupported EM dtype {dtype}")
+    itemsize = torch.finfo(dtype).bits // 8
+    host = batched_tables(cells, itemsize)
+    i32, i64 = torch.int32, torch.int64
+    in_types = [i32, i32, i64, i32] * 2 + [dtype, i64, i32, dtype, i32, i32,
+                                           i64, i32, dtype]
+
+    def put(x, dt):
+        return torch.as_tensor(np.ascontiguousarray(x)).to(
+            device=device, dtype=dt).contiguous()
+
+    ins = [put(a, dt) for a, dt in zip(host["ins"], in_types)]
+    scratch = [torch.empty(max(int(n), 1), dtype=dtype, device=device)
+               for n in host["scratch"]]
+    lib = _kernel_lib()
+    double = int(dtype == torch.float64)
+    cell_bytes = lib.t1k_em_squarem_cell_bytes(double)
+    in_ptrs = (ctypes.c_void_p * _INS)(*[t.data_ptr() for t in ins])
+    scratch_ptrs = (ctypes.c_void_p * _SCRATCH)(
+        *[t.data_ptr() for t in scratch])
+    launches = []
+    for form in (True, False):
+        idx = np.nonzero(host["shared"] == form)[0]
+        if not len(idx):
+            continue
+        rows = np.ascontiguousarray(host["rows"][idx])
+        structs = np.empty(len(idx) * cell_bytes, np.uint8)
+        lib.t1k_em_squarem_cells(
+            len(idx), in_ptrs, scratch_ptrs, rows.ctypes.data,
+            host["common"].ctypes.data, double, structs.ctypes.data)
+        launches.append(dict(
+            cells=idx, shared=form,
+            bytes=max(em_shared_bytes(int(r[1]), int(r[0]), itemsize)
+                      for r in rows) if form else 0,
+            structs=torch.from_numpy(structs).to(device),
+            iterations=torch.zeros(len(idx), dtype=i32, device=device)))
+    # the structs point into ins and scratch, which stay referenced here
+    return dict(ins=ins, scratch=scratch, launches=launches, dtype=dtype,
+                device=torch.device(device), ec_cnt=host["rows"][:, 0],
+                count_off=host["rows"][:, _CELL_DIMS + _INS + 4])
+
+
+def squarem_batched_launch(batch_dev: dict, filter_frac: float,
+                           min_squarem_alpha: float,
+                           max_iterations: int) -> None:
+    """Launch the cohort form of csrc/em_squarem.cu on a cohort from
+    squarem_batched_device (one launch per form it holds), on the current
+    stream, without waiting; squarem_batched_results reads the result."""
+    lib = _kernel_lib()
+    dev = batch_dev["device"]
+    double = int(batch_dev["dtype"] == torch.float64)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for g in batch_dev["launches"]:
+            rc = lib.t1k_em_squarem_batched(
+                len(g["cells"]), g["structs"].data_ptr(), int(g["shared"]),
+                g["bytes"], int(max_iterations), float(filter_frac),
+                float(min_squarem_alpha), double, g["iterations"].data_ptr(),
+                stream)
+            if rc != 0:
+                raise RuntimeError("em_squarem batched kernel launch "
+                                   f"failed: CUDA error {rc}")
+            launch_counts["em_squarem_batched"] += 1
+
+
+def squarem_batched_results(batch_dev: dict) -> List[Tuple[int, torch.Tensor]]:
+    """Per cell of a launched cohort, in its order: (iterations, per-EC
+    counts as a view of the count buffer)."""
+    n = len(batch_dev["ec_cnt"])
+    iters = np.zeros(n, np.int64)
+    for g in batch_dev["launches"]:
+        iters[g["cells"]] = g["iterations"].cpu().numpy()
+    count = batch_dev["scratch"][4]
+    return [(int(iters[b]), count[int(o):int(o) + int(e)])
+            for b, (o, e) in enumerate(zip(batch_dev["count_off"],
+                                           batch_dev["ec_cnt"]))]
+
+
+def squarem_batched_cuda(cells: List[dict], filter_frac: float,
+                         min_squarem_alpha: float, max_iterations: int,
+                         device, dtype) -> List[Tuple[int, torch.Tensor]]:
+    """Upload a cohort and launch the cohort form of csrc/em_squarem.cu;
+    the same results as squarem_batched_plain on the CPU, bit for bit."""
+    batch_dev = squarem_batched_device(cells, device, dtype)
+    squarem_batched_launch(batch_dev, filter_frac, min_squarem_alpha,
+                           max_iterations)
+    return squarem_batched_results(batch_dev)
+
+
 def em_quantify_gpu(
     ec_to_alleles: List[List[int]],
     rg_ecs_csr: Tuple[np.ndarray, np.ndarray],
@@ -428,3 +613,46 @@ def em_quantify_gpu(
                        max_iterations=max_iterations, device=dev,
                        dtype=dtype)
     return iters, count.cpu().numpy().astype(np.float64)
+
+
+def em_quantify_batched(
+    problems: List[Tuple[List[List[int]], Tuple[np.ndarray, np.ndarray],
+                         np.ndarray, np.ndarray]],
+    allele_eff_len: np.ndarray,
+    allele_gene: np.ndarray,
+    allele_major: np.ndarray,
+    n_genes: int,
+    n_majors: int,
+    filter_frac: float = 0.15,
+    min_squarem_alpha: float = 0.0,
+    max_iterations: int = 1000,
+    device="cuda",
+    dtype=torch.float64,
+) -> List[Tuple[int, np.ndarray]]:
+    """Quantify many cells' EC problems against one reference: the
+    counterpart of ops/em.py::em_quantify_jax_batched, with its `problems`
+    (per cell: ec_to_alleles, rg_ecs_csr, rg_counts, allele_weight),
+    return value and order.  Returns per cell (iterations, per-EC read
+    counts as f64 numpy), each cell's the native loop's bits in f64; an
+    empty cell gives (0, zeros(0)) and no block.  Nothing is padded, so
+    nothing is chunked."""
+    dev = resolve_device(device)
+    results = [(0, np.zeros(0)) for _ in problems]
+    cells, where = [], []
+    for ci, (ec_to_alleles, rg_ecs_csr, rg_counts, allele_weight) in \
+            enumerate(problems):
+        if len(ec_to_alleles) == 0:
+            continue
+        cells.append(em_tables(ec_to_alleles, rg_ecs_csr, rg_counts,
+                               allele_eff_len, allele_weight, allele_gene,
+                               allele_major, n_genes, n_majors))
+        where.append(ci)
+    if not cells:
+        return results
+    run = squarem_batched_cuda if dev.type == "cuda" else squarem_batched_plain
+    for ci, (it, count) in zip(where, run(
+            cells, filter_frac=filter_frac,
+            min_squarem_alpha=min_squarem_alpha,
+            max_iterations=max_iterations, device=dev, dtype=dtype)):
+        results[ci] = (it, count.cpu().numpy().astype(np.float64))
+    return results

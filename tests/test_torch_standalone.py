@@ -51,7 +51,12 @@ def test_every_port_module_imports_without_the_jax_package():
             "t1k_tpu_torch.core.analyzer", "t1k_tpu_torch.cli.analyze",
             "t1k_tpu_torch.cli.run", "t1k_tpu_torch.io.bam",
             "t1k_tpu_torch.cli.bamextract",
-            "t1k_tpu_torch.parallel.distributed"} <= set(names)
+            "t1k_tpu_torch.parallel.distributed",
+            "t1k_tpu_torch.tools.smartseq", "t1k_tpu_torch.tools.merge",
+            "t1k_tpu_torch.tools.copynumber",
+            "t1k_tpu_torch.tools.group_samples",
+            "t1k_tpu_torch.tools.extract_sam_hits",
+            "t1k_tpu_torch.tools.simulate"} <= set(names)
     code = "".join(f"import {n}\n" for n in names) + _CHECK_MODULES
     proc = _run(code)
     assert proc.returncode == 0, proc.stderr[-3000:]
