@@ -20,11 +20,18 @@ Phases, in order; any failure raises and the exit code is non-zero:
                    900 EC problem (the microcell): the native f64 loop's
                    iteration count and counts, bit for bit, and equal to
                    the plain version on the CPU
-  5. v1            the v1 full-row aligner (align_full.cu) through
-                   banded_scores_full: the 400 golden cases and 65,536
-                   seeded read/window pairs, exact against its plain
-                   version and, where the band fits, the band kernel;
-                   kernel vs plain version timed in turns
+  5. v1            the v1 full-row aligner (align_full.cu: thread, tile
+                   and ring paths behind a counting sort) through
+                   banded_scores_full: the 400 golden cases, 65,536
+                   seeded read/window pairs and 512 seeded pairs with
+                   ring-path pairs among them (launch counts per path set
+                   to 0 before these two batches, each path must
+                   launch), exact against its plain version and, where
+                   the band fits, the band kernel; the first port's ring
+                   kernel alone on every pair checked too; the launch,
+                   that ring kernel, the narrow (thread-path) and wide
+                   (tile-path) pairs alone and the plain version timed in
+                   turns
   6. screen        the phase-A DeviceScreen on the card against its plain
                    version on the CPU (verdict and decided) and the native
                    engine (every decided read) on seeded panels: random
@@ -130,7 +137,10 @@ Phases, in order; any failure raises and the exit code is non-zero:
                    the per-cell native loop and the plain version, in
                    turns, every cell bit for bit against the native loop
 Then the card line, one JSON line describing the kernels (times; launches
-over the run phase's chain, the v1 aligner's over its own phase, the
+over the run phase's chain, the v1 aligner's over its own phase's seeded
+and ring batches (its three paths summed, and per path in
+launches_by_path, beside the ring kernel's, the narrow and the wide
+pairs' times and bounds), the
 batched EM's over the smartseq phase's port run, launches_bam_run over
 the bam_run phase's chain and launches_smartseq over the plate; the
 band kernel as two entries, band_stats timed on the genotyper's chunk
@@ -385,20 +395,24 @@ def time_ms(fn, reps: int, dev) -> float:
 # INT32 lanes x the SM clock (read from the card, 1980 MHz on the CPU).
 HBM_BYTES_PER_S = 3.35e12
 F64_PER_S = 34e12
-# int32 operations per DP cell counted for the aligners' bounds: the
-# affine recurrences (two adds and a max for each of E and F, an add and
-# two maxes for H) and the substitution compare-select
-DP_OPS_PER_CELL = 12
-# With the traceback counts (band_stats.cu, band_item's STATS block), 16
-# more per band cell away from column 0 (the adds the open and diagonal
-# tests compare are E's, F's and H's, counted above; the column-0 and
-# j >= 1 tests touch at most two cells a row): the insert-run open test
-# (compare) and its count (select, add) = 3; the diagonal test (compare)
-# and its count (select MU/XU, add) and the count without the horizontal
-# move (select) = 4; the delete-run open test (compare) and the copy
-# scan's two selects = 3; the run length (subtract, shift, add) = 3; the
-# choice (compare, two selects) = 3
-DP_STATS_OPS_PER_CELL = DP_OPS_PER_CELL + 16
+# int32 operations per DP cell counted for the aligners' bounds, in the
+# instructions this card needs.  Scores alone: E an add and a DPX add-max
+# (__viaddmax_s32, one instruction on Hopper), H a DPX add-max of the
+# diagonal and the substitution, the substitution one, F a DPX add-max of
+# the running max of H, and that running max one
+DP_OPS_PER_CELL = 6
+# With the traceback counts (band_stats.cu, band_item's STATS block) the
+# tests compare the terms E, F and H take the max of, so the DP keeps its
+# adds apart: two adds and a max for each of E and F, an add and two
+# maxes for H, the substitution compare-select = 12.  Then 16 more per
+# band cell away from column 0 (the column-0 and j >= 1 tests touch at
+# most two cells a row): the insert-run open test (compare) and its count
+# (select, add) = 3; the diagonal test (compare) and its count (select
+# MU/XU, add) and the count without the horizontal move (select) = 4; the
+# delete-run open test (compare) and the copy scan's two selects = 3; the
+# run length (subtract, shift, add) = 3; the choice (compare, two
+# selects) = 3
+DP_STATS_OPS_PER_CELL = 12 + 16
 
 
 def int32_per_s() -> float:
@@ -1062,58 +1076,175 @@ def seeded_v1_pairs(n: int, rng):
     return tc, t_len, pc, p_len
 
 
+def ring_v1_pairs(n: int, rng):
+    """A small mixed batch that puts pairs on every path of the v1 launch:
+    reads of 100-150 bp against windows of read length +-10 (thread),
+    +20-499 (tile) and +500-2,000 (ring), a quarter, a quarter and a half,
+    shuffled, cut from one random reference with 0.2% N."""
+    lp = 150
+    lt = lp + 2000
+    ref = rng.integers(0, 4, 400_000).astype(np.int8)
+    ref[rng.random(ref.size) < 0.002] = 4
+    p_len = rng.integers(100, lp + 1, n).astype(np.int32)
+    kind = rng.permutation(np.arange(n) % 4)
+    diff = np.where(kind == 0, rng.integers(-10, 11, n),
+                    np.where(kind == 1, rng.integers(20, 500, n),
+                             rng.integers(500, 2001, n)))
+    t_len = (p_len + diff).astype(np.int32)
+    t_off = rng.integers(8, ref.size - lt - 8, n)
+    tc = ref[t_off[:, None] + np.arange(lt)[None, :]]
+    pc = ref[(t_off + rng.integers(-3, 4, n))[:, None]
+             + np.arange(lp)[None, :]].copy()
+    mut = rng.random(pc.shape) < 0.05
+    pc[mut] = rng.integers(0, 5, int(mut.sum()))
+    return tc, t_len, pc, p_len
+
+
+V1_RING_PAIRS = 512
+
+
+def v1_bound(tc, tl, pc, pl):
+    """The v1 aligner's bound over pairs: the padded windows it is given
+    read once, lens in and scores out, DP_OPS_PER_CELL per band cell."""
+    return bound(tc.nbytes + pc.nbytes + 12 * len(tl),
+                 DP_OPS_PER_CELL * int((pl.astype(np.int64) * (
+                     11 + np.abs(tl.astype(np.int64) - pl))).sum()),
+                 int32_per_s())
+
+
+def v1_rows(tl, pl):
+    """Band cells and register slot-rows of the thread-path and tile-path
+    pairs: each pair's rows times the slots of the smallest class that
+    holds its v1_slots (a thread-path warp runs its largest pair's)."""
+    from t1k_tpu_torch.ops import align as v1
+
+    slots = v1.v1_slots(tl, pl)
+    rows = np.where(np.asarray(tl) == 0, 0, np.asarray(pl, np.int64))
+    cells = rows * (slots - 2)
+    ns = np.asarray(v1.THREAD_NS)
+    tile = 32 * np.asarray(v1.TILE_CPL)
+    narrow = slots <= v1.THREAD_SLOTS
+    wide = ~narrow & (slots <= v1.TILE_SLOTS)
+    return (int(cells[narrow].sum()), int(cells[wide].sum()),
+            int((rows * ns[np.searchsorted(ns, np.minimum(
+                slots, ns[-1]))])[narrow].sum()),
+            int((rows * tile[np.searchsorted(tile, np.minimum(
+                slots, tile[-1]))])[wide].sum()))
+
+
 def phase_v1(dev, check: Checker, n_pairs: int, info: dict):
-    """Returns (main-path launches, kernel ms, plain ms, bound)."""
+    """The v1 launch (thread, tile and ring paths) on the goldens, the
+    seeded pairs and a small batch with ring pairs, exact against the
+    plain version; the first port's ring kernel on every pair, the narrow
+    (thread-path) and wide (tile-path) subsets and the plain version
+    timed in turns.  Returns (launches per path over the seeded and ring
+    batches, (launch ms, plain ms, bound), extras for the kernels
+    line)."""
+    import torch
+
     from t1k_tpu_torch.ops import align as v1
     from t1k_tpu_torch.ops import align_band as ab
 
+    cuda = dev.type == "cuda"
+
+    def launch(args):
+        if cuda:
+            return v1.banded_scores_cuda(*args)
+        return v1.banded_scores_plain(*args)  # CPU rehearsal
+
+    def ring_launch(args, max_diff):
+        if cuda:
+            return v1.banded_scores_ring_cuda(*args, max_diff)
+        return v1.banded_scores_plain(*args)
+
+    def batch(tc, tl, pc, pl):
+        args = v1._as_tensors(tc, tl, pc, pl, dev)
+        return (args, v1.v1_plan(tl, pl), int(np.abs(tl - pl).max()),
+                v1.banded_scores_plain(*args))
+
     tc, tl, pc, pl, want = golden_windows()
-    got = v1.banded_scores_full(tc, tl, pc, pl, device=dev)
-    if not (got == want).all():
-        raise AssertionError("v1 kernel differs from the golden table")
-    import torch
-    check(torch.from_numpy(got), torch.from_numpy(
-        v1.banded_scores(tc, tl, pc, pl, device=dev)), "v1 golden")
+    args, plan, max_diff, plain = batch(tc, tl, pc, pl)
+    for what, got in (("v1 golden", launch(args)),
+                      ("v1 golden ring kernel", ring_launch(args, max_diff))):
+        if not (got.cpu().numpy() == want).all():
+            raise AssertionError(f"{what} differs from the golden table")
+        check(got.cpu(), plain.cpu(), what)
 
     tc, tl, pc, pl = seeded_v1_pairs(n_pairs, np.random.default_rng(2026))
-    v1.launch_counts["align_full"] = 0
+    args, plan, max_diff, plain = batch(tc, tl, pc, pl)
+    rtc, rtl, rpc, rpl = ring_v1_pairs(V1_RING_PAIRS,
+                                       np.random.default_rng(2027))
+    rargs, rplan, rmax_diff, rplain = batch(rtc, rtl, rpc, rpl)
+    if plan.n_ring or min(rplan) == 0:
+        raise AssertionError(f"v1 batches miss their paths: {plan} {rplan}")
+    v1.launch_counts.update(dict.fromkeys(v1.PATHS, 0))
+    v1.path_pairs.update(dict.fromkeys(v1.PATHS, 0))
     scores = v1.banded_scores_full(tc, tl, pc, pl, device=dev)
-    launches = v1.launch_counts["align_full"]
-    plain = v1.banded_scores(tc, tl, pc, pl, device=dev)
-    check(torch.from_numpy(scores), torch.from_numpy(plain), "v1 seeded")
+    ring_scores = v1.banded_scores_full(rtc, rtl, rpc, rpl, device=dev)
+    launches, pairs = dict(v1.launch_counts), dict(v1.path_pairs)
+    # the card's sort against the slot rule's mirror (v1_plan): the same
+    # pairs on each path; both register paths launch with each batch, the
+    # ring path with the one that has ring pairs
+    want_pairs = {path: plan[k] + rplan[k] for k, path in enumerate(v1.PATHS)}
+    want_launches = {"align_full_thread": 2, "align_full_tile": 2,
+                     "align_full_ring": 1}
+    if cuda and (pairs, launches) != (want_pairs, want_launches):
+        raise AssertionError(f"v1 pairs {pairs} and launches {launches} "
+                             f"per path, the slot rule's {want_pairs} and "
+                             f"{want_launches}")
+    check(torch.from_numpy(scores), plain.cpu(), "v1 seeded")
+    check(torch.from_numpy(ring_scores), rplain.cpu(), "v1 ring batch")
+    check(ring_launch(rargs, rmax_diff).cpu(), rplain.cpu(),
+          "v1 ring batch, ring kernel")
+    check(ring_launch(args, max_diff).cpu(), plain.cpu(),
+          "v1 seeded, ring kernel")
     fit = np.abs(tl - pl) <= ab.DEFER_MAX_DIFF
     band = ab.banded_scores_band(tc[fit], tl[fit], pc[fit], pl[fit],
                                  device=dev)
     if not (band == scores[fit]).all():
         raise AssertionError("v1 and band kernels disagree")
 
-    args = v1._as_tensors(tc, tl, pc, pl, dev)
-    max_diff = int(np.abs(tl - pl).max())
-    if dev.type == "cuda":
-        def kernel():
-            return v1.banded_scores_cuda(*args, max_diff)
-    else:  # CPU rehearsal: both sides are the plain version
-        def kernel():
-            return v1.banded_scores_plain(*args)
+    # the narrow (thread-path) and wide (tile-path) pairs alone
+    narrow = v1.v1_slots(tl, pl) <= v1.THREAD_SLOTS
+    subsets = {}
+    for name, sel in (("narrow", narrow), ("wide", ~narrow)):
+        sub = batch(tc[sel], tl[sel], pc[sel], pl[sel])
+        check(launch(sub[0]).cpu(), sub[3].cpu(), f"v1 {name}")
+        subsets[name] = (sub, v1_bound(tc[sel], tl[sel], pc[sel], pl[sel]))
 
-    def plain_fn():
-        return v1.banded_scores_plain(*args)
-
-    plain_ms = [time_ms(plain_fn, 1, dev)]
-    kernel_ms = [time_ms(kernel, 20, dev), time_ms(kernel, 20, dev)]
-    plain_ms.append(time_ms(plain_fn, 1, dev))
+    fns = {"launch": lambda: launch(args),
+           "ring_kernel": lambda: ring_launch(args, max_diff),
+           "narrow": lambda: launch(subsets["narrow"][0][0]),
+           "wide": lambda: launch(subsets["wide"][0][0])}
+    times = {k: [] for k in fns}
+    plain_ms = [time_ms(lambda: v1.banded_scores_plain(*args), 1, dev)]
+    for _ in range(2):
+        for k, fn in fns.items():
+            times[k].append(time_ms(fn, 20, dev))
+    plain_ms.append(time_ms(lambda: v1.banded_scores_plain(*args), 1, dev))
+    b = v1_bound(tc, tl, pc, pl)
     info["golden"] = len(want)
     info["pairs"] = n_pairs
+    info["paths"] = "/".join(map(str, plan))
+    info["ring_batch_paths"] = "/".join(map(str, rplan))
     info["band_checked"] = int(fit.sum())
-    info["launches"] = launches
-    info["kernel_ms"] = " ".join(f"{t:.4f}" for t in kernel_ms)
+    info["cells_thread_tile"], info["slot_rows_thread_tile"] = (
+        f"{x}/{y}" for x, y in np.reshape(v1_rows(tl, pl), (2, 2)))
+    info["launches"] = " ".join(f"{k}={v}" for k, v in launches.items())
+    for k, v in times.items():
+        info[f"{k}_ms"] = " ".join(f"{t:.4f}" for t in v)
     info["plain_ms"] = " ".join(f"{t:.2f}" for t in plain_ms)
-    # the padded windows are what the kernel is given; lens in, scores out
-    return (launches, float(np.mean(kernel_ms)), float(np.mean(plain_ms)),
-            bound(tc.nbytes + pc.nbytes + 12 * len(tl),
-                  DP_OPS_PER_CELL * int((pl.astype(np.int64) * (
-                      11 + np.abs(tl.astype(np.int64) - pl))).sum()),
-                  int32_per_s()))
+    info["bound_ms"] = f"{b[0]:.4f}"
+    for name, (_, sb) in subsets.items():
+        info[f"{name}_bound_ms"] = f"{sb[0]:.4f}"
+    mean = {k: float(np.mean(v)) for k, v in times.items()}
+    info["bound_share"] = f"{b[0] / mean['launch']:.4f}"
+    extras = {"launches_by_path": launches, "pairs_by_path": pairs,
+              "ring_kernel_ms": mean["ring_kernel"],
+              "narrow_ms": mean["narrow"], "wide_ms": mean["wide"],
+              "narrow_bound_ms": subsets["narrow"][1][0],
+              "wide_bound_ms": subsets["wide"][1][0]}
+    return launches, (mean["launch"], float(np.mean(plain_ms)), b), extras
 
 
 # --------------------------------------------------------- phase-A screen
@@ -2726,7 +2857,7 @@ def run(dev, sizes: dict) -> list:
     with phase("em") as info:
         phase_em(dev, *sizes["em"], info)
     with phase("v1") as info:
-        v1_launches, *times["align_full"] = phase_v1(
+        v1_launches, times["align_full"], v1_extras = phase_v1(
             dev, checks["align_full"], sizes["v1_pairs"], info)
     with phase("screen") as info:
         phase_screen(dev, info)
@@ -2771,7 +2902,7 @@ def run(dev, sizes: dict) -> list:
     # analyzer); the v1 aligner (on no stage) over its own phase; the
     # batched EM over the SMART-seq plate; and over the run-t1k -b chain
     # and the plate (the v1 aligner's not counted there)
-    launches = dict(run_launches, align_full=v1_launches,
+    launches = dict(run_launches, align_full=sum(v1_launches.values()),
                     em_squarem_batched=plate_launches["em_squarem_batched"])
     replaces = {"band_stats": "t1k_tpu/ops/align_pallas_band.py:55",
                 "band_stats_analyzer": "t1k_tpu/ops/align_pallas_band.py:55",
@@ -2785,15 +2916,20 @@ def run(dev, sizes: dict) -> list:
     errs["em_squarem"] = em_err
     errs["em_squarem_batched"] = batched_err
     # no single PyTorch call computes any of them: library_ms is null
-    return [{"name": name, "route": "cuda",
-             "source": f"t1k_tpu_torch/csrc/{KERNELS[name]}.cu",
-             "replaces": replaces[name], "launches": launches[name],
-             "launches_bam_run": bam_launches.get(name),
-             "launches_smartseq": plate_launches.get(name),
-             "max_abs_err": errs[name], "ms": times[name][0],
-             "plain_ms": times[name][1], "bound_ms": times[name][2][0],
-             "bound_by": times[name][2][1], "library_ms": None}
-            for name in KERNELS]
+    # the v1 aligner's paths as one kernel, align_full
+    plate_launches["align_full"] = sum(
+        v for k, v in plate_launches.items() if k.startswith("align_full_"))
+    records = [{"name": name, "route": "cuda",
+                "source": f"t1k_tpu_torch/csrc/{KERNELS[name]}.cu",
+                "replaces": replaces[name], "launches": launches[name],
+                "launches_bam_run": bam_launches.get(name),
+                "launches_smartseq": plate_launches.get(name),
+                "max_abs_err": errs[name], "ms": times[name][0],
+                "plain_ms": times[name][1], "bound_ms": times[name][2][0],
+                "bound_by": times[name][2][1], "library_ms": None}
+               for name in KERNELS]
+    records[list(KERNELS).index("align_full")].update(v1_extras)
+    return records
 
 
 FULL_SIZES = dict(random_items=RANDOM_ITEMS, em=(EM_RG, EM_EC),

@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
 """Some of chip_smoke.py's phases alone, on one CUDA card.
 
-  python3 scripts/smoke_phases.py [main] [em_timing] [smartseq]
+  python3 scripts/smoke_phases.py [v1] [main] [em_timing] [smartseq]
                                   [cohort_em_timing]
 
-Builds the kernels (the smoke's `build` phase), then runs the named
-phases in the smoke's order at its full sizes, each as chip_smoke.run
-runs it: em_timing takes main's EM problem and runs main first;
-cohort_em_timing takes smartseq's problems and runs smartseq first;
-without main, the HLA-scale panel is built on its own.  Prints each
-phase's line, the card line, and the smartseq plate's launches as JSON.
+Builds the kernels (the smoke's `build` phase, with the compiler's
+register and spill lines), then runs the named phases in the smoke's
+order at its full sizes, each as chip_smoke.run runs it: em_timing takes
+main's EM problem and runs main first; cohort_em_timing takes smartseq's
+problems and runs smartseq first; without main, the HLA-scale panel is
+built on its own (v1 needs none).  Prints each phase's line, the card
+line, and as JSON the v1 aligner's per-path launches and times and the
+smartseq plate's launches.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ sys.path.insert(0, ROOT)
 
 import chip_smoke as cs  # noqa: E402
 
-PHASES = ("main", "em_timing", "smartseq", "cohort_em_timing")
+PHASES = ("v1", "main", "em_timing", "smartseq", "cohort_em_timing")
 
 
 def main(argv) -> int:
@@ -51,10 +53,19 @@ def main(argv) -> int:
         t0 = time.perf_counter()
         _build.build_all(cs.SOURCES)
         info["all_s"] = f"{time.perf_counter() - t0:.2f}"
-        with open(os.path.join(_build.BUILD_DIR, "em_squarem.log")) as f:
-            for line in f:
-                if "registers" in line or "spill" in line:
-                    print("  ptxas em_squarem:", line.strip(), flush=True)
+        for name in ("em_squarem", "align_full"):
+            with open(os.path.join(_build.BUILD_DIR, f"{name}.log")) as f:
+                for line in f:
+                    if "registers" in line or "spill" in line:
+                        print(f"  ptxas {name}:", line.strip(), flush=True)
+    if "v1" in wanted:
+        with cs.phase("v1") as info:
+            *_, extras = cs.phase_v1(dev, cs.Checker(), sizes["v1_pairs"],
+                                     info)
+        print(json.dumps({"v1": extras}), flush=True)
+    if not wanted - {"v1"}:
+        print(cs.card_line())
+        return 0
     with tempfile.TemporaryDirectory(prefix="t1k_phases_") as work:
         em_problems = []
         if "main" in wanted:

@@ -12,25 +12,48 @@ boundary quirks kept.
 over read positions, and ``torch.cummax`` for the deletion chain, the
 JAX formulation line for line.  ``banded_scores_full`` dispatches on the
 device: CPU takes the plain version, a CUDA device launches the
-hand-written kernel ``csrc/align_full.cu`` and never falls back.
+hand-written kernels of ``csrc/align_full.cu`` and never falls back.
+Each pair takes one of three paths by its register slots, decided on the
+card (``v1_slots`` mirrors the rule):
+one thread per pair (at most THREAD_SLOTS), one warp per pair with the
+band in registers (at most TILE_SLOTS), or one warp per pair with the
+band in a shared-memory ring.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from .align_band import GE, GO, NEG_INF, SCORE_MATCH, SCORE_MISMATCH
 
-# Kernel launches, counted by the CUDA wrapper where it launches.
-launch_counts = {"align_full": 0}
+# Kernel launches per path, counted by `banded_scores_cuda` where it
+# launches them: one thread per pair, one warp per pair with the band in
+# registers (both on every launch), one warp per pair with the band in a
+# shared-memory ring (where the card's sort finds it pairs); and the pairs
+# the sort put on each path.
+PATHS = ("align_full_thread", "align_full_tile", "align_full_ring")
+launch_counts = {path: 0 for path in PATHS}
+path_pairs = {path: 0 for path in PATHS}
+# Launches of the ring kernel alone on every pair (`banded_scores_ring_cuda`,
+# the first port's launch, for A/B timing), kept apart from the paths'.
+ring_alone_launches = {"align_full_ring_alone": 0}
 
-# The kernel keeps two rows of the band, m and e, in a ring of `ring`
-# cells per warp in shared memory; the band of a pair spans
-# 11 + |t_len - p_len| columns.
+# Register slots of the thread path (one thread per pair, NS slots each)
+# and the tile path (32 lanes x CPL slots), a mirror of
+# csrc/align_full.cu's thread_ns and tile_cpl, which decide on the card;
+# a pair takes the smallest that holds its `v1_slots`.  Pairs past
+# TILE_SLOTS take the ring path, two rows of m and e in a ring of `ring`
+# cells per warp in shared memory (the band of a pair spans
+# 11 + |t_len - p_len| columns).
+THREAD_NS = (16, 20, 24, 28, 32)
+TILE_CPL = (2, 3, 4, 5, 6, 8, 10, 12, 14, 16)
+THREAD_SLOTS = THREAD_NS[-1]
+TILE_SLOTS = 32 * TILE_CPL[-1]
 MAX_RING = 8192
 
 
@@ -130,12 +153,44 @@ def _kernel_lib() -> ctypes.CDLL:
     from ._build import load
 
     lib = load("align_full")
-    lib.t1k_align_full.restype = ctypes.c_int
-    lib.t1k_align_full.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_void_p]
+    ptr, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    lib.t1k_align_order_ints.restype = i32
+    lib.t1k_align_order_ints.argtypes = []
+    lib.t1k_align_full.restype = i32
+    lib.t1k_align_full.argtypes = [ptr, ptr, ptr, ptr, i64, i32, i32, ptr,
+                                   ptr, ptr, ptr]
+    lib.t1k_align_full_ring.restype = i32
+    lib.t1k_align_full_ring.argtypes = [ptr, ptr, ptr, ptr, i64, i32, i32,
+                                        i32, ptr, ptr]
     return lib
+
+
+def v1_slots(t_lens, p_lens) -> np.ndarray:
+    """Register slots each pair needs (mirrors csrc/align_full.cu
+    pair_slots, for splitting and checking batches by path): the
+    band's 11 + |t_len - p_len| cells, the column-0 cell left of it and
+    the row-0 cell right of it; an empty pair runs no rows and takes the
+    smallest class."""
+    tl = np.asarray(t_lens, np.int64)
+    pl = np.asarray(p_lens, np.int64)
+    return np.where((tl == 0) | (pl == 0), 13, 13 + np.abs(tl - pl))
+
+
+class V1Plan(NamedTuple):
+    """Pairs per path of one launch, as the launch's counting sort finds
+    them on the card."""
+    n_thread: int
+    n_tile: int
+    n_ring: int
+
+
+def v1_plan(t_lens, p_lens) -> V1Plan:
+    """Pairs per path by `v1_slots` (thread <= THREAD_SLOTS, tile <=
+    TILE_SLOTS, ring above)."""
+    slots = v1_slots(t_lens, p_lens)
+    n_thread = int((slots <= THREAD_SLOTS).sum())
+    n_ring = int((slots > TILE_SLOTS).sum())
+    return V1Plan(n_thread, int(slots.size) - n_thread - n_ring, n_ring)
 
 
 def ring_cells(max_diff: int) -> int:
@@ -149,11 +204,7 @@ def ring_cells(max_diff: int) -> int:
     return ring
 
 
-def banded_scores_cuda(tc: torch.Tensor, tl: torch.Tensor, pc: torch.Tensor,
-                       pl: torch.Tensor, max_diff: int) -> torch.Tensor:
-    """Launch csrc/align_full.cu on the current stream of the inputs'
-    device (no synchronisation); same result as banded_scores_plain.
-    `max_diff` bounds |t_len - p_len| over the batch."""
+def _check_inputs(tc, tl, pc, pl) -> None:
     dev = tc.device
     for name, x, dt in (("t_codes", tc, torch.int8), ("p_codes", pc, torch.int8),
                         ("t_lens", tl, torch.int32),
@@ -161,21 +212,62 @@ def banded_scores_cuda(tc: torch.Tensor, tl: torch.Tensor, pc: torch.Tensor,
         if x.device != dev or x.dtype != dt or not x.is_contiguous():
             raise ValueError(f"{name} must be a contiguous {dt} tensor on "
                              f"{dev}")
+
+
+def banded_scores_cuda(tc: torch.Tensor, tl: torch.Tensor, pc: torch.Tensor,
+                       pl: torch.Tensor) -> torch.Tensor:
+    """Launch csrc/align_full.cu on the current stream of the inputs'
+    device: the counting sort, both register paths, and the ring path
+    where the sort finds it pairs (the host waits for the sort's counts,
+    not for the kernels); same result as banded_scores_plain."""
+    _check_inputs(tc, tl, pc, pl)
+    dev = tc.device
+    n = int(tc.shape[0])
+    out = torch.empty(n, dtype=torch.int32, device=dev)
+    if n == 0:
+        return out
+    lib = _kernel_lib()
+    scratch = torch.empty(lib.t1k_align_order_ints() + n, dtype=torch.int32,
+                          device=dev)
+    paths = (ctypes.c_int64 * 3)()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.t1k_align_full(tc.data_ptr(), tl.data_ptr(), pc.data_ptr(),
+                                pl.data_ptr(), n, int(tc.shape[1]),
+                                int(pc.shape[1]), scratch.data_ptr(),
+                                out.data_ptr(), paths, stream)
+    if rc != 0:
+        raise RuntimeError(f"align_full kernel launch failed: CUDA error {rc}")
+    launch_counts["align_full_thread"] += 1
+    launch_counts["align_full_tile"] += 1
+    launch_counts["align_full_ring"] += int(paths[2] > 0)
+    for path, count in zip(PATHS, paths):
+        path_pairs[path] += count
+    return out
+
+
+def banded_scores_ring_cuda(tc: torch.Tensor, tl: torch.Tensor,
+                            pc: torch.Tensor, pl: torch.Tensor,
+                            max_diff: int) -> torch.Tensor:
+    """The ring kernel alone on every pair, in their own order (the first
+    port's launch, kept for A/B timing and the card tests; counted in
+    `ring_alone_launches`); `max_diff` bounds |t_len - p_len| over the
+    batch."""
+    _check_inputs(tc, tl, pc, pl)
+    dev = tc.device
     n = int(tc.shape[0])
     out = torch.empty(n, dtype=torch.int32, device=dev)
     if n == 0:
         return out
     ring = ring_cells(max_diff)
-    lib = _kernel_lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.t1k_align_full(tc.data_ptr(), tl.data_ptr(), pc.data_ptr(),
-                                pl.data_ptr(), n, int(tc.shape[1]),
-                                int(pc.shape[1]), ring, out.data_ptr(),
-                                stream)
+        rc = _kernel_lib().t1k_align_full_ring(
+            tc.data_ptr(), tl.data_ptr(), pc.data_ptr(), pl.data_ptr(), n,
+            int(tc.shape[1]), int(pc.shape[1]), ring, out.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"align_full kernel launch failed: CUDA error {rc}")
-    launch_counts["align_full"] += 1
+    ring_alone_launches["align_full_ring_alone"] += 1
     return out
 
 
@@ -183,12 +275,13 @@ def banded_scores_full(t_codes, t_lens, p_codes, p_lens,
                        device="cuda") -> np.ndarray:
     """Counterpart of `banded_scores_pallas`: int32 scores [B] of byte
     windows t_codes [B, Lt], p_codes [B, Lp].  On a CUDA device the
-    align_full kernel runs; on the CPU the plain version."""
+    align_full kernels run; on the CPU the plain version."""
     tc, tl, pc, pl = _as_tensors(t_codes, t_lens, p_codes, p_lens, device)
     if tc.device.type == "cuda":
-        max_diff = int(np.abs(np.asarray(t_lens, np.int64)
-                              - np.asarray(p_lens, np.int64)).max(initial=0))
-        return banded_scores_cuda(tc, tl, pc, pl, max_diff).cpu().numpy()
+        if tc.shape[0]:  # the ring holds the band: |diff| <= 8,180
+            ring_cells(int(np.abs(np.asarray(t_lens, np.int64)
+                                  - np.asarray(p_lens, np.int64)).max()))
+        return banded_scores_cuda(tc, tl, pc, pl).cpu().numpy()
     if tc.device.type == "cpu":
         return banded_scores_plain(tc, tl, pc, pl).numpy()
     raise ValueError(f"no v1 aligner for device {tc.device}")
