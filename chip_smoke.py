@@ -74,8 +74,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
  11. screen_timing probe and chain kernels vs their plain versions, in
                    turns, on one full 1024-row chunk of the extract inputs
  12. run           the run-t1k chain (extract -> genotype -> analyze) on
-                   the same panel: 500,000 read pairs built as extract's
-                   (20,000 simulated, 80,000 near-miss, 400,000 random),
+                   the same panel: 250,000 read pairs built as extract's
+                   (10,000 simulated, 40,000 near-miss, 200,000 random),
                    the simulated pairs of two genes drawn from copies of
                    an allele with three seeded substitutions, and a cell
                    barcode per pair: t1k_tpu.cli.run --backend native
@@ -92,9 +92,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
                    its log that open and close each stage) are printed
  13. bam_run       the run-t1k chain on a BAM (-b, with -c the coordinate
                    fasta: every panel allele on its gene's interval of
-                   chr6): 500,000 pairs of 2 x 100 bp (BAM_PAIRS:
-                   20,000 on-panel pairs in their gene's interval, 2,000
-                   on an alt contig, 100,000 unaligned templates, 10,000
+                   chr6): 250,000 pairs of 2 x 100 bp (BAM_PAIRS:
+                   10,000 on-panel pairs in their gene's interval, 1,000
+                   on an alt contig, 50,000 unaligned templates, 5,000
                    pairs within 5 kb of an interval, the rest off target
                    on chr1), CB and UB tags on every record, written by a
                    packer that writes BamWriter's bytes (held against it
@@ -136,6 +136,26 @@ Phases, in order; any failure raises and the exit code is non-zero:
                    batched launch, one single-problem launch per cell,
                    the per-cell native loop and the plain version, in
                    turns, every cell bit for bit against the native loop
+ 18. sharded_em    the sharded EM (t1k_tpu_torch/parallel/mesh.py and
+                   multihost.py; the sharded form of em_squarem.cu) on
+                   one card: em_quantify_sharded_squarem over [card] x n,
+                   n = 1, 2, 4, on the main phase's HLA problem and the
+                   ~2M-incidence problem (launch counts set to 0 before
+                   and read after these six solves), each the native
+                   loop's iterations and bits, the one-launch dispatch at
+                   n = 1 equal, and on the HLA problem the CPU's plain
+                   version equal at n = 2 and 4; the plate's and the 384
+                   cohort cells' batched EM with their cells dealt over
+                   [card] x 2 and x 4, each cell the native bits;
+                   em_quantify_sharded on parallel/scaling_bench.py's
+                   problem (200,000 x 4,096, 1.6M entries) at n = 1, 2, 4,
+                   equal; em_quantify_multihost's ranks in child
+                   processes (two under Gloo sharing the card, one alone
+                   under NCCL), equal to the in-process runs; then the
+                   solves in turns with the single-problem kernel (alone
+                   and through em_quantify_gpu) and the native loop, one
+                   update's row passes, column chain and tail alone, the
+                   E-step against its plain version and torch.sparse
 Then the card line, one JSON line describing the kernels (times; launches
 over the run phase's chain, the v1 aligner's over its own phase's seeded
 and ring batches (its three paths summed, and per path in
@@ -150,8 +170,11 @@ bound each could reach on the card and what sets it - for the EM the
 longer of its bytes/operations bound and the chain of dependent f64 adds
 em.cc's order forces, at the add latency the card measured, and for its
 cohort form also the cells' chains over the SMs' resident blocks; the
-batched EM timed on set (b); no single PyTorch call computes any of
-them, so library_ms is null), and
+batched EM timed on set (b); em_sharded, the sharded form's E-step on the
+HLA problem at one shard, with its launches over the sharded_em phase's
+six solves, the tail's beside them, and its library_ms two torch.sparse
+CSR products; no single PyTorch call computes the others, so their
+library_ms is null), and
 {"ok": true, "device": {...}} as the last line.  Work files go to a
 temporary directory that is removed at exit.
 """
@@ -179,7 +202,9 @@ EM_RG, EM_EC = 5000, 900
 EM_LARGE = (54_210, 10_700)   # about 10x the HLA problem's incidences
 RANDOM_ITEMS = 100_000
 V1_PAIRS = 65_536
-EXTRACT_PAIRS = (20_000, 80_000, 400_000)   # simulated, near-miss, random
+# the run phase's depth (cut from 500,000 pairs to keep the smoke well
+# inside its time limit as phases are added)
+EXTRACT_PAIRS = (10_000, 40_000, 200_000)   # simulated, near-miss, random
 # the extract phase's depth: the run phase extracts EXTRACT_PAIRS
 EXTRACT_SMOKE_PAIRS = (4_000, 16_000, 180_000)
 SNP_GENES = 2                    # genes whose reads carry seeded SNPs
@@ -1557,7 +1582,7 @@ def off_panel_pairs(rng, panel: str, n_near: int, n_rand: int):
 def extract_inputs(work: str, panel: str, counts=EXTRACT_PAIRS,
                    tag: str = "x", snp_genes: int = 0,
                    barcodes: bool = False) -> str:
-    """Read pairs of 2 x 100 bp with qualities, fixed seeds (500,000 at
+    """Read pairs of 2 x 100 bp with qualities, fixed seeds (250,000 at
     EXTRACT_PAIRS): simulated on-panel pairs (two alleles from each of 8
     genes, `snp_genes` of them with seeded SNPs), near-miss pairs cut from
     panel alleles with 25-35% substitutions, and uniform random pairs (1%
@@ -1983,9 +2008,10 @@ def check_chain(dev, native: str, port: str, outputs, port_stdout: str,
 # aligned inside their gene's interval and on the alt contig, unaligned
 # templates (on-panel, near-miss, random), pairs within 5 kb of an
 # interval on chr6, and off-target pairs on chr1
-BAM_PAIRS = dict(region=20_000, alt=2_000, unaligned_panel=8_000,
-                 unaligned_near=32_000, unaligned_random=60_000,
-                 near_edge=10_000, off_target=368_000)
+# 250,000 pairs, cut from 500,000 as the run phase's
+BAM_PAIRS = dict(region=10_000, alt=1_000, unaligned_panel=4_000,
+                 unaligned_near=16_000, unaligned_random=30_000,
+                 near_edge=5_000, off_target=184_000)
 BAM_CONTIGS = (("chr1", 200_000_000), ("chr6", 171_000_000),
                ("chr6_GL000251v2_alt", 4_700_000))
 # gene g of the panel lies on chr6 at [GENE_START + GENE_STEP g,
@@ -2819,12 +2845,387 @@ def phase_cohort_em_timing(dev, problems_path: str, n_cells: int,
                        info)
 
 
+# t1k_tpu/parallel/scaling_bench.py's problem: read groups, ECs (8 entries
+# a group on average), and its iterations
+SCALING_RG, SCALING_EC, SCALING_ITERATIONS = 200_000, 4_096, 20
+SHARDS = (1, 2, 4)
+COHORT_SPLITS = (2, 4)
+
+# one rank of em_quantify_multihost on the scaling problem: argv backend,
+# device, output directory and the problem's size; saves
+# x_<backend>_<rank>.npy and prints its launch counts and the
+# milliseconds of one update's hand-offs (the column chain's receive and
+# send, and the broadcast) as the last line
+MULTIHOST_CHILD = (
+    "import json, os, sys, time\n"
+    "import numpy as np, torch\n"
+    "import torch.distributed as dist\n"
+    "import chip_smoke as cs\n"
+    "from t1k_tpu_torch.ops import em\n"
+    "from t1k_tpu_torch.parallel import multihost\n"
+    "backend, device, out, rg, ec = sys.argv[1:6]\n"
+    "rank = multihost.initialize_from_env(device, backend)\n"
+    "em.launch_counts.update(dict.fromkeys(em.launch_counts, 0))\n"
+    "x = multihost.em_quantify_multihost(\n"
+    "    *cs.scaling_problem(int(rg), int(ec)),\n"
+    "    iterations=cs.SCALING_ITERATIONS, device=device)\n"
+    "np.save(os.path.join(out, f'x_{backend}_{rank}.npy'), x)\n"
+    "launches = dict(em.launch_counts)\n"
+    "count = torch.ones(len(x), device=multihost.rank_device(device))\n"
+    "mesh = multihost.global_data_mesh()\n"
+    "sync = torch.cuda.synchronize if count.is_cuda else (lambda: None)\n"
+    "def hand_offs():\n"
+    "    multihost.receive_partial(count, mesh, rank)\n"
+    "    multihost.pass_on(count, mesh, rank)\n"
+    "hand_offs()\n"
+    "sync()\n"
+    "t0 = time.perf_counter()\n"
+    "for _ in range(20):\n"
+    "    hand_offs()\n"
+    "sync()\n"
+    "launches['hand_off_ms'] = (time.perf_counter() - t0) * 1e3 / 20\n"
+    "dist.destroy_process_group()\n"
+    "print(json.dumps(launches))\n")
+
+
+def scaling_problem(rg_cnt: int = SCALING_RG, ec_cnt: int = SCALING_EC):
+    """parallel/scaling_bench.py's problem (seed 11, copied): 8 entries of
+    count 1 a read group on average, repeats among them, as
+    em_quantify_sharded's (seg_rg, seg_ec, counts, rg_cnt, ec_len,
+    init_x)."""
+    rng = np.random.default_rng(11)
+    nnz = rg_cnt * 8
+    seg_rg = np.sort(rng.integers(0, rg_cnt, nnz)).astype(np.int32)
+    seg_ec = rng.integers(0, ec_cnt, nnz).astype(np.int32)
+    counts = np.ones(nnz, np.float64)
+    ec_len = rng.integers(800, 20000, ec_cnt).astype(np.float64)
+    init = np.ones(ec_cnt, np.float64)
+    return seg_rg, seg_ec, counts, rg_cnt, ec_len, init
+
+
+def sharded_args(problem: dict) -> tuple:
+    """An em_quantify_gpu problem as em_quantify_sharded_squarem's
+    arguments after the mesh (counts per read group), and its options."""
+    rg_off, rg_ecs = problem["rg_ecs_csr"]
+    rg_cnt = len(problem["rg_counts"])
+    args = (np.repeat(np.arange(rg_cnt), np.diff(rg_off)), np.asarray(rg_ecs),
+            np.asarray(problem["rg_counts"], np.float64), rg_cnt,
+            problem["ec_to_alleles"], problem["allele_eff_len"],
+            problem["allele_weight"], problem["allele_gene"],
+            problem["allele_major"], problem["n_genes"], problem["n_majors"])
+    return args, {k: problem[k] for k in ("filter_frac", "min_squarem_alpha",
+                                          "max_iterations")}
+
+
+def sharded_state(mesh, args, opts):
+    """em_quantify_sharded_squarem's host loop state on `mesh` (f64),
+    built (tables and uploads) but not run."""
+    import torch
+
+    from t1k_tpu_torch.ops import em
+    from t1k_tpu_torch.parallel import mesh as pm
+
+    seg_rg, seg_ec, counts, rg_cnt, ec_to_alleles, *ref = args
+    ec = em.ec_tables(ec_to_alleles, *ref)
+    return pm.ShardedEM(mesh, seg_rg, seg_ec, counts[seg_rg], rg_cnt,
+                        len(ec_to_alleles), torch.float64, ec["ec_len"],
+                        ec["init_x"], **opts,
+                        mask={k: ec[k] for k in pm.MASK_TABLES})
+
+
+def multihost_children(work: str, dev, rg: int, ec: int) -> list:
+    """Starts em_quantify_multihost's ranks on the scaling problem: two
+    Gloo ranks on `dev`'s card (or the CPU) and, on a card, one NCCL rank
+    alone; returns the processes."""
+    import socket
+
+    def free_port() -> int:
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            return s.getsockname()[1]
+
+    device = "cuda" if dev.type == "cuda" else "cpu"
+    groups = [("gloo", 2)] + ([("nccl", 1)] if dev.type == "cuda" else [])
+    procs = []
+    for backend, world in groups:
+        port = free_port()
+        for rank in range(world):
+            env = dict(child_env(), T1K_COORDINATOR=f"127.0.0.1:{port}",
+                       T1K_NUM_PROCESSES=str(world),
+                       T1K_PROCESS_ID=str(rank))
+            procs.append((backend, rank, subprocess.Popen(
+                [sys.executable, "-c", MULTIHOST_CHILD, backend, device,
+                 work, str(rg), str(ec)], cwd=ROOT, env=env,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    return procs
+
+
+def sparse_estep(dev, est_tables: dict, x):
+    """The E-step as two torch.sparse CSR products (not em.cc's order; the
+    counts per read group):
+    psum = A x (0 -> 1), local = x * (A^T (counts / psum)), A the shard's
+    read group x EC incidence of ones."""
+    import warnings
+
+    import torch
+
+    row_off = est_tables["row_off"]
+    n_rows, ec_cnt = len(row_off) - 1, est_tables["ec_cnt"]
+    # CSR wants each row's columns ascending
+    row = np.repeat(np.arange(n_rows), np.diff(row_off))
+    ecs = torch.as_tensor(np.asarray(est_tables["row_ecs"], np.int64)[
+        np.lexsort((est_tables["row_ecs"], row))])
+    row_off = torch.as_tensor(row_off)
+    ones = torch.ones(len(ecs), dtype=x.dtype)
+    with warnings.catch_warnings():  # torch.sparse's "beta state" note
+        warnings.simplefilter("ignore")
+        a = torch.sparse_csr_tensor(row_off, ecs, ones, (n_rows, ec_cnt),
+                                    check_invariants=True).to(dev)
+        at = torch.sparse_csr_tensor(
+            torch.as_tensor(est_tables["col_off"]),
+            torch.as_tensor(est_tables["col_rows"], dtype=torch.int64), ones,
+            (ec_cnt, n_rows), check_invariants=True).to(dev)
+    row_cts = torch.zeros(n_rows, dtype=x.dtype)
+    row_cts[torch.as_tensor(est_tables["col_rows"], dtype=torch.int64)] = \
+        torch.as_tensor(est_tables["col_cts"], dtype=x.dtype)
+    row_cts = row_cts.to(dev)
+
+    def run():
+        psum = a @ x
+        w = row_cts / torch.where(psum == 0, 1.0, psum)
+        return x * (at @ w)
+    return run
+
+
+def estep_bound(tables: dict, add_ns: float, itemsize: int = 8):
+    """(bound ms, bound by) of one E-step of a shard: its list bytes and
+    gathers (per entry: the rows' index and x gather, the columns' index,
+    count and psum gather; per row its psum; per EC x and the local
+    count) at the memory rate, against its longest dependent chain (the
+    longest row plus the longest column) at `add_ns`."""
+    nnz, ec = len(tables["row_ecs"]), tables["ec_cnt"]
+    rows = len(tables["row_off"]) - 1
+    n_bytes = nnz * (4 + itemsize + 4 + 2 * itemsize) + itemsize * (
+        rows + 2 * ec)
+    chain = (int(np.diff(tables["row_off"]).max(initial=0))
+             + int(np.diff(tables["col_off"]).max(initial=0)))
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_chain = chain * add_ns / 1e6
+    return (t_chain, "operations") if t_chain > t_bytes else (t_bytes,
+                                                              "bytes")
+
+
+def phase_sharded_em(dev, hla: dict, plate_em: str, sizes: dict, work: str,
+                     info: dict):
+    """The sharded EM (parallel/mesh.py, multihost.py; the sharded form of
+    em_squarem.cu) on one card; see the module docstring.  Returns ((E-step
+    ms, plain ms, bound), its launches on the main path, the kernel
+    record's other fields)."""
+    import pickle
+
+    import torch
+
+    from t1k_tpu_torch.native import em_quantify
+    from t1k_tpu_torch.ops import em
+    from t1k_tpu_torch.parallel import mesh as pm
+
+    cuda = dev.type == "cuda"
+    cpu, f64 = torch.device("cpu"), torch.float64
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    scaling = scaling_problem(*sizes["scaling"])
+    children = multihost_children(work, dev, *sizes["scaling"])
+    problems = {"hla": hla, "large": em_large(*sizes["em_large"])}
+    cases = {name: (*sharded_args(p), em_quantify(**p))
+             for name, p in problems.items()}
+    # the main path: the sharded SQUAREM at each mesh size, its launch
+    # counts set to 0 just before and read just after
+    em.launch_counts.update(dict.fromkeys(em.launch_counts, 0))
+    solved = {(name, n): pm.em_quantify_sharded_squarem(
+        [dev] * n, *args, **opts, single_dispatch=False)
+        for name, (args, opts, _) in cases.items() for n in SHARDS}
+    launches = dict(em.launch_counts)
+    if cuda and not (launches["em_sharded"] and launches["em_sharded_tail"]):
+        raise AssertionError(f"sharded EM kernels not launched: {launches}")
+    for (name, n), (it, count) in solved.items():
+        it_n, count_n = cases[name][2]
+        if it != it_n or count.tobytes() != count_n.tobytes():
+            raise AssertionError(f"sharded EM {name} n={n}: {it} iterations "
+                                 f"(native {it_n}), counts "
+                                 f"{np.abs(count - count_n).max()} from the "
+                                 "native loop's")
+    for name, (args, opts, _) in cases.items():
+        it, count = pm.em_quantify_sharded_squarem([dev], *args, **opts)
+        if (it, count.tobytes()) != (solved[name, 1][0],
+                                     solved[name, 1][1].tobytes()):
+            raise AssertionError(f"sharded EM {name}: the single dispatch "
+                                 "differs from the host loop")
+    args, opts, _ = cases["hla"]
+    for n in SHARDS[1:]:
+        it, count = pm.em_quantify_sharded_squarem([cpu] * n, *args, **opts)
+        if (it, count.tobytes()) != (solved["hla", n][0],
+                                     solved["hla", n][1].tobytes()):
+            raise AssertionError(f"sharded EM hla n={n}: card differs from "
+                                 "the CPU's plain version")
+    info["iterations"] = ",".join(f"{k}:{cases[k][2][0]}" for k in cases)
+
+    # the cohort's cell axis over [dev] * k: every cell the native bits
+    with open(plate_em, "rb") as f:
+        plate = pickle.load(f)
+    for name, (cargs, ckw) in (("plate", plate),
+                               ("cohort", cohort_plate(sizes["cohort"]))):
+        problems_c, eff_len, gene, major, n_genes, n_majors = cargs
+        copts = {k: ckw[k] for k in ("filter_frac", "min_squarem_alpha")}
+        want = [em_quantify(p[0], p[1], p[2], eff_len, np.zeros(len(gene)),
+                            p[3], gene, major, n_genes, n_majors, **copts)
+                if len(p[0]) else (0, np.zeros(0)) for p in problems_c]
+        for k in (1, *COHORT_SPLITS):
+            t0 = time.perf_counter()
+            got = em.em_quantify_batched(
+                *cargs, **copts, device=dev,
+                devices=None if k == 1 else [dev] * k)
+            info[f"{name}_cells_x{k}_ms"] = \
+                f"{(time.perf_counter() - t0) * 1e3:.1f}"
+            for c, ((it, cnt), (it_w, cnt_w)) in enumerate(zip(got, want)):
+                if it != it_w or cnt.tobytes() != cnt_w.tobytes():
+                    raise AssertionError(f"cohort {name} over {k} devices: "
+                                         f"cell {c} differs from native")
+
+    # the plain EM on the scaling problem at each mesh size, then its ranks
+    xs = {n: pm.em_quantify_sharded([dev] * n, *scaling,
+                                    iterations=SCALING_ITERATIONS)
+          for n in SHARDS}
+    for n in SHARDS[1:]:
+        if xs[n].tobytes() != xs[1].tobytes():
+            raise AssertionError(f"sharded plain EM n={n} differs from n=1")
+    ranks = {}
+    for backend, rank, proc in children:
+        out, err = proc.communicate(timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"{backend} rank {rank} failed:\n"
+                                 f"{err[-3000:]}")
+        ranks[backend, rank] = json.loads(out.strip().splitlines()[-1])
+        x = np.load(os.path.join(work, f"x_{backend}_{rank}.npy"))
+        want = xs[2 if backend == "gloo" else 1]
+        if x.tobytes() != want.tobytes():
+            raise AssertionError(f"{backend} rank {rank} differs from the "
+                                 "in-process run")
+        info[f"{backend}{rank}_hand_off_ms"] = \
+            f"{ranks[backend, rank]['hand_off_ms']:.4f}"
+    info["multihost_ranks"] = len(ranks)
+    info["multihost_estep_launches"] = sum(r["em_sharded"]
+                                           for r in ranks.values())
+
+    # timings: the solves in turns with K5 and the native loop; then one
+    # update's pieces on a built problem
+    add_ns = 4.0
+    if cuda:
+        _, add_ms = em_clock_probe(dev, 0, 1 << 22)
+        add_ns = add_ms * 1e6 / (1 << 22)
+    info["f64_add_ns"] = f"{add_ns:.4f}"
+    extras = {}
+    for name, (args, opts, _) in cases.items():
+        problem = problems[name]
+        tables = em.em_tables(**{k: v for k, v in problem.items() if k not in
+                                 ("allele_missing", *opts)})
+        k5 = em.squarem_device(**tables, device=dev, dtype=f64) if cuda \
+            else None
+        ms = {k: [] for k in ("native", "k5_kernel", "k5_wrapper",
+                              *(f"solve_n{n}" for n in SHARDS),
+                              *(f"loop_n{n}" for n in SHARDS))}
+
+        def host(fn):
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            return (time.perf_counter() - t0) * 1e3
+        for _ in range(2):
+            ms["native"].append(host(lambda: em_quantify(**problem)))
+            if cuda:
+                ms["k5_kernel"].append(time_ms(
+                    lambda: em.squarem_launch(k5, **opts), 2, dev))
+            ms["k5_wrapper"].append(host(
+                lambda: em.em_quantify_gpu(**problem, device=dev)))
+            for n in SHARDS:
+                ms[f"solve_n{n}"].append(host(
+                    lambda: pm.em_quantify_sharded_squarem(
+                        [dev] * n, *args, **opts, single_dispatch=False)))
+                sh = sharded_state([dev] * n, args, opts)
+                ms[f"loop_n{n}"].append(host(sh.squarem))
+        for k, v in ms.items():
+            info[f"{name}_{k}_ms"] = " ".join(f"{t:.3f}" for t in v)
+        it = cases[name][2][0]
+        chain_ms = em_chain_adds(tables, it) * add_ns / 1e6
+        info[f"{name}_solve_chain_bound_ms"] = f"{chain_ms:.4f}"
+        for n in SHARDS:
+            sh = sharded_state([dev] * n, args, opts)
+            x, count = sh.td["x"][0], sh.td["count"]
+
+            def rows(sh=sh, x=x):
+                for est in sh.shards:
+                    em.estep_rows(est, x)
+
+            def cols(sh=sh, x=x, count=count):
+                for s, est in enumerate(sh.shards):
+                    em.estep_cols(est, x, count, s > 0)
+            reps = 20 if cuda else 1
+            for key, fn in (("rows", rows), ("cols", cols),
+                            ("tail", lambda sh=sh: em.tail(sh.td, 0))):
+                info[f"{name}_n{n}_{key}_ms"] = \
+                    f"{time_ms(fn, reps, dev):.4f}"
+        if name != "hla":
+            continue
+        # the kernel record: one update's E-step on the HLA problem, one
+        # shard, against its plain version on the card and torch.sparse
+        sh = sharded_state([dev], args, opts)
+        x = sh.td["x"][0]
+        est = sh.shards[0]
+        seg_rg, seg_ec, counts, rg_cnt = args[:4]
+        t = em.shard_tables(seg_rg, seg_ec, counts[seg_rg], rg_cnt,
+                            len(args[4]))
+        plain_est = em.plain_estep_tables(t, dev, f64)
+        local = torch.empty_like(x)
+        plain = torch.empty_like(x)
+
+        def kernel():
+            em.estep_rows(est, x)
+            em.estep_cols(est, x, local, False)
+
+        def plain_estep():
+            em.estep_rows_plain(plain_est, x)
+            em.estep_cols_plain(plain_est, x, plain, False)
+        kernel_ms = time_ms(kernel, 20, dev)
+        plain_ms = time_ms(plain_estep, 2, dev)
+        kernel()
+        plain_estep()
+        err = float((local - plain).abs().max())
+        if err != 0:
+            raise AssertionError(f"sharded E-step differs from plain by {err}")
+        lib = sparse_estep(dev, t, x)
+        lib_ms = time_ms(lib, 20, dev)
+        lib_err = float(((lib() - local).abs() / local.abs().clamp_min(
+            1e-300)).max())
+        info["hla_estep_library_rel_err"] = f"{lib_err:.3e}"
+        timed = (kernel_ms, plain_ms, estep_bound(t, add_ns))
+        extras = dict(library_ms=lib_ms, max_abs_err=err)
+    extras.update(
+        solve_bound_ms=float(info["hla_solve_chain_bound_ms"]),
+        launches_tail=launches["em_sharded_tail"],
+        launches_multihost=info["multihost_estep_launches"],
+        tail_ms=float(info["hla_n1_tail_ms"]),
+        solve_ms={f"{k}_n{n}": float(np.mean([float(v) for v in info[
+            f"{k}_solve_n{n}_ms"].split()])) for k in cases for n in SHARDS},
+        loop_ms={f"{k}_n{n}": float(np.mean([float(v) for v in info[
+            f"{k}_loop_n{n}_ms"].split()])) for k in cases for n in SHARDS})
+    return timed, launches["em_sharded"], extras
+
+
 SOURCES = ("band_stats", "em_squarem", "align_full", "phase_a_probe",
            "phase_a_chain")
 # kernel record -> its source under t1k_tpu_torch/csrc/
 KERNELS = {"band_stats": "band_stats", "band_stats_analyzer": "band_stats",
            "band_stats_warp": "band_stats",
            "em_squarem": "em_squarem", "em_squarem_batched": "em_squarem",
+           "em_sharded": "em_squarem",
            "align_full": "align_full",
            "phase_a_probe": "phase_a_probe", "phase_a_chain": "phase_a_chain"}
 
@@ -2897,25 +3298,32 @@ def run(dev, sizes: dict) -> list:
         with phase("cohort_em_timing") as info:
             *times["em_squarem_batched"], batched_err = \
                 phase_cohort_em_timing(dev, plate_em, sizes["cohort"], info)
+        with phase("sharded_em") as info:
+            times["em_sharded"], sharded_launches, sharded_extras = \
+                phase_sharded_em(dev, em_problems[0], plate_em, sizes, work,
+                                 info)
     # launches over the run-t1k chain, the path users call (the band
     # kernel's as band_stats in the genotyper, band_stats_analyzer in the
     # analyzer); the v1 aligner (on no stage) over its own phase; the
     # batched EM over the SMART-seq plate; and over the run-t1k -b chain
     # and the plate (the v1 aligner's not counted there)
     launches = dict(run_launches, align_full=sum(v1_launches.values()),
-                    em_squarem_batched=plate_launches["em_squarem_batched"])
+                    em_squarem_batched=plate_launches["em_squarem_batched"],
+                    em_sharded=sharded_launches)
     replaces = {"band_stats": "t1k_tpu/ops/align_pallas_band.py:55",
                 "band_stats_analyzer": "t1k_tpu/ops/align_pallas_band.py:55",
                 "band_stats_warp": "t1k_tpu/ops/align_pallas_band.py:55",
                 "em_squarem": "t1k_tpu/ops/em.py:213",
                 "em_squarem_batched": "t1k_tpu/ops/em.py:359",
+                "em_sharded": "t1k_tpu/parallel/mesh.py:125",
                 "align_full": "t1k_tpu/ops/align_pallas.py:44",
                 "phase_a_probe": "t1k_tpu/ops/phase_a.py:343",
                 "phase_a_chain": "t1k_tpu/ops/phase_a.py:457"}
     errs = {name: checks[name].max_err for name in KERNELS}
     errs["em_squarem"] = em_err
     errs["em_squarem_batched"] = batched_err
-    # no single PyTorch call computes any of them: library_ms is null
+    errs["em_sharded"] = sharded_extras.pop("max_abs_err")
+    # no single PyTorch call computes the others: their library_ms is null
     # the v1 aligner's paths as one kernel, align_full
     plate_launches["align_full"] = sum(
         v for k, v in plate_launches.items() if k.startswith("align_full_"))
@@ -2929,6 +3337,7 @@ def run(dev, sizes: dict) -> list:
                 "bound_by": times[name][2][1], "library_ms": None}
                for name in KERNELS]
     records[list(KERNELS).index("align_full")].update(v1_extras)
+    records[list(KERNELS).index("em_sharded")].update(sharded_extras)
     return records
 
 
@@ -2938,7 +3347,7 @@ FULL_SIZES = dict(random_items=RANDOM_ITEMS, em=(EM_RG, EM_EC),
                   extract=EXTRACT_SMOKE_PAIRS, run=EXTRACT_PAIRS,
                   bam=BAM_PAIRS,
                   plate=(PLATE_CELLS, PLATE_PAIRS, PLATE_WORKERS),
-                  cohort=COHORT_CELLS)
+                  cohort=COHORT_CELLS, scaling=(SCALING_RG, SCALING_EC))
 
 
 def main() -> int:

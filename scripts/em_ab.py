@@ -7,10 +7,13 @@ turns, on one CUDA card.
 
 Each variant is this checkout's kernel with its block size and unroll
 (kThreads x kUnroll) rewritten before nvcc; the first is the committed
-setting.  --parent names a directory holding an earlier one-block kernel
-(t1k_tpu_torch/csrc/em_squarem.cu with the C interface it had before the
-warp-interleaved lists: 10 inputs, 11 scratch buffers, 6 dims), an
-earlier commit unpacked with `git archive`, say.  All are built with this
+setting.  --parent names a directory holding an earlier kernel
+(t1k_tpu_torch/csrc/em_squarem.cu), an earlier commit unpacked with `git
+archive`, say: one with this checkout's C interface (it exports
+t1k_em_squarem_cells) runs through this checkout's wrapper at 1,024
+threads, an older one-block kernel through the interface it had before
+the warp-interleaved lists (10 inputs, 11 scratch buffers, 6 dims).  All
+are built with this
 checkout's nvcc flags.  The problems are chip_smoke.py's microcell, a
 seeded problem of the HLA problem's shape (5,421 read groups x 1,070 ECs,
 rows geometric with mean 40, at most 115 ECs) and its large problem
@@ -208,8 +211,11 @@ def main() -> int:
             want = em_quantify(**problem)
             runners = {}
             for name, lib in libs.items():
-                if name == "parent":
+                if name == "parent" and not hasattr(
+                        lib, "t1k_em_squarem_cells"):
                     runners[name] = parent_runner(lib, tables, opts, dev)
+                elif name == "parent":
+                    runners[name] = this_runner(lib, 1024, tables, opts, dev)
                 else:
                     runners[name] = this_runner(
                         lib, int(name.split("x")[0]), tables, opts, dev)

@@ -2,13 +2,15 @@
 """Some of chip_smoke.py's phases alone, on one CUDA card.
 
   python3 scripts/smoke_phases.py [v1] [main] [em_timing] [smartseq]
-                                  [cohort_em_timing]
+                                  [cohort_em_timing] [sharded_em]
 
 Builds the kernels (the smoke's `build` phase, with the compiler's
 register and spill lines), then runs the named phases in the smoke's
 order at its full sizes, each as chip_smoke.run runs it: em_timing takes
 main's EM problem and runs main first; cohort_em_timing takes smartseq's
-problems and runs smartseq first; without main, the HLA-scale panel is
+problems and runs smartseq first; sharded_em takes both and runs both
+(its multi-process ranks in child processes); without main, the
+HLA-scale panel is
 built on its own (v1 needs none).  Prints each phase's line, the card
 line, and as JSON the v1 aligner's per-path launches and times and the
 smartseq plate's launches.
@@ -26,7 +28,8 @@ sys.path.insert(0, ROOT)
 
 import chip_smoke as cs  # noqa: E402
 
-PHASES = ("v1", "main", "em_timing", "smartseq", "cohort_em_timing")
+PHASES = ("v1", "main", "em_timing", "smartseq", "cohort_em_timing",
+          "sharded_em")
 
 
 def main(argv) -> int:
@@ -44,6 +47,8 @@ def main(argv) -> int:
         wanted.add("main")
     if "cohort_em_timing" in wanted:
         wanted.add("smartseq")
+    if "sharded_em" in wanted:
+        wanted |= {"main", "smartseq"}
     if not torch.cuda.is_available():
         print("smoke_phases: CUDA is not available", file=sys.stderr)
         return 2
@@ -86,6 +91,13 @@ def main(argv) -> int:
             with cs.phase("cohort_em_timing") as info:
                 cs.phase_cohort_em_timing(dev, plate_em, sizes["cohort"],
                                           info)
+        if "sharded_em" in wanted:
+            with cs.phase("sharded_em") as info:
+                timed, launches, extras = cs.phase_sharded_em(
+                    dev, em_problems[0], plate_em, sizes, work, info)
+            print(json.dumps({"em_sharded": dict(
+                extras, ms=timed[0], plain_ms=timed[1], bound_ms=timed[2][0],
+                bound_by=timed[2][1], launches=launches)}), flush=True)
     print(cs.card_line())
     return 0
 

@@ -192,7 +192,8 @@ def main(argv: Optional[List[str]] = None) -> int:
                       or args.alleleWhitelist):
         print("Distributed mode covers the standard paired/single flow; "
               "barcode, whitelist and per-read-assignment outputs run "
-              "single-process.", file=sys.stderr)
+              "single-process (or per-cell, tools/smartseq.py).",
+              file=sys.stderr)
         return 1
 
     # serialize the resolved configuration next to the outputs

@@ -2,10 +2,12 @@
 // in the native oracle's exact operation order.
 //
 // Replaces the jitted XLA programs t1k_tpu/ops/em.py::_em_loop_dense
-// (with _squarem_while and _make_mask_reset) and, in its cohort form,
+// (with _squarem_while and _make_mask_reset); in its cohort form,
 // _em_loop_dense_batched (the SMART-seq second pass: one block per
 // cell, where the reference pads every cell to one [C, R, K] envelope
-// and freezes the cells that converge).  Same contract as
+// and freezes the cells that converge); and in its sharded form the
+// per-shard step of t1k_tpu/parallel/mesh.py::em_quantify_sharded_squarem
+// and em_quantify_sharded (K13, see below).  Same contract as
 // t1k_tpu/native/em.cc (reference Genotyper.hpp:372-437, 1142-1328): two
 // EM updates, the SQUAREM extrapolation, one stabilizing update, L1
 // convergence below 1e-5 with one forced extra round, and the
@@ -59,6 +61,22 @@
 //     the gene maximum is exact in any order (an integer atomicMax on the
 //     bits of a positive float).
 // kProf adds per-phase clock64() counts taken by thread 0 at the barriers.
+//
+// The sharded form (parallel/mesh.py, multihost.py) cuts the read groups
+// into contiguous shards, one per device or rank, and the host drives the
+// rounds.  Per EM update each shard runs estep_rows_kernel (a thread per
+// read group) and estep_cols_kernel (a thread per EC), on grids that span
+// the SMs, with the lists of list_fold's layout in device memory; the
+// column passes run in shard order, each going on from the previous
+// shard's partial counts, so every EC's count is em.cc's one chain and
+// any shard count gives the native loop's bits (summing independent
+// partials, as the reference's psum does, regroups that chain and moves
+// SQUAREM's trajectory).  sharded_tail_kernel, one block, then runs the
+// round's serial folds with the single-problem form's device functions.
+// What bounds it: each column's chain of terms, a dependent index load,
+// a psum gather and a divide per term with kUnroll terms in flight, on
+// the few SMs that an EC count of one to ten thousand threads fills; and
+// the tail's ec_cnt-long folds.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -205,6 +223,57 @@ __device__ __forceinline__ T list_fold(const int32_t* base, int n,
   return sum;
 }
 
+// out = per_len / (per_len[0] + ... + per_len[n-1]), em.cc's normalizer;
+// s_norm: a shared scalar.
+template <typename T>
+__device__ __forceinline__ void normalize(const T* per_len, int n, T* out,
+                                          T* s_norm) {
+  const int tid = threadIdx.x;
+  if (tid == 0) *s_norm = fold_seq(per_len, n);
+  __syncthreads();
+  const T norm = *s_norm;
+  for (int e = tid; e < n; e += kThreads) out[e] = per_len[e] / norm;
+  __syncthreads();
+}
+
+// x3 = the SQUAREM extrapolation of x0, x1, x2 (em.cc): alpha from the
+// sums of r^2 (through x3) and v^2 (through per_len), folded on two warps
+// at once into s_fold[1] and s_fold[2], then clamped at min_alpha.
+template <typename T>
+__device__ __forceinline__ void extrapolate(const Vecs<T>& v, int ec,
+                                            T min_alpha, T* s_fold) {
+  const int tid = threadIdx.x;
+  for (int i = tid; i < ec; i += kThreads) {
+    const T r = v.x1[i] - v.x0[i];
+    const T w = v.x2[i] - 2 * v.x1[i] + v.x0[i];
+    v.x3[i] = r * r;
+    v.per_len[i] = w * w;
+  }
+  __syncthreads();
+  if (tid == 0) s_fold[1] = fold_seq(v.x3, ec);
+  if (tid == 32) s_fold[2] = fold_seq(v.per_len, ec);
+  __syncthreads();
+  const T sum_r = s_fold[1], sum_v = s_fold[2];
+  T alpha = sum_v == 0 ? (T)-1 : -sqrt_of(sum_r) / sqrt_of(sum_v);
+  if (min_alpha < 0 && alpha < min_alpha) alpha = min_alpha;
+  for (int i = tid; i < ec; i += kThreads)
+    v.x3[i] = v.x0[i] - 2 * alpha * (v.x1[i] - v.x0[i]) +
+              alpha * alpha * (v.x2[i] - 2 * v.x1[i] + v.x0[i]);
+  __syncthreads();
+}
+
+// |x1 - x0| summed in order (em.cc's L1 change), its terms through x2.
+template <typename T>
+__device__ __forceinline__ T l1_change(const Vecs<T>& v, int ec, T* s_fold) {
+  const int tid = threadIdx.x;
+  for (int i = tid; i < ec; i += kThreads)
+    v.x2[i] = abs_of(v.x1[i] - v.x0[i]);
+  __syncthreads();
+  if (tid == 0) s_fold[1] = fold_seq(v.x2, ec);
+  __syncthreads();
+  return s_fold[1];
+}
+
 // out = normalized EM update of `in`; leaves the expected read counts in
 // v.count (em.cc emUpdate).
 template <typename T, bool kProf>
@@ -243,11 +312,7 @@ __device__ __forceinline__ void em_update(const Problem<T>& p,
   }
   __syncthreads();
   mark<kProf>(cyc, kCsc, last);
-  if (tid == 0) *s_norm = fold_seq(v.per_len, p.ec_cnt);
-  __syncthreads();
-  const T norm = *s_norm;
-  for (int e = tid; e < p.ec_cnt; e += kThreads) out[e] = v.per_len[e] / norm;
-  __syncthreads();
+  normalize(v.per_len, p.ec_cnt, out, s_norm);
   mark<kProf>(cyc, kNorm, last);
 }
 
@@ -344,32 +409,10 @@ __device__ __forceinline__ void squarem_block(const Problem<T>& p,
     ++ret;
     em_update<T, kProf>(p, v, v.x0, v.x1, &s_fold[0], cyc, last);
     em_update<T, kProf>(p, v, v.x1, v.x2, &s_fold[0], cyc, last);
-    // alpha's terms: r^2 into x3, v^2 into per_len (both free here)
-    for (int i = tid; i < ec; i += kThreads) {
-      const T r = v.x1[i] - v.x0[i];
-      const T w = v.x2[i] - 2 * v.x1[i] + v.x0[i];
-      v.x3[i] = r * r;
-      v.per_len[i] = w * w;
-    }
-    __syncthreads();
-    if (tid == 0) s_fold[1] = fold_seq(v.x3, ec);
-    if (tid == 32) s_fold[2] = fold_seq(v.per_len, ec);
-    __syncthreads();
-    const T sum_r = s_fold[1], sum_v = s_fold[2];
-    T alpha = sum_v == 0 ? (T)-1 : -sqrt_of(sum_r) / sqrt_of(sum_v);
-    if (p.min_alpha < 0 && alpha < p.min_alpha) alpha = p.min_alpha;
-    for (int i = tid; i < ec; i += kThreads)
-      v.x3[i] = v.x0[i] - 2 * alpha * (v.x1[i] - v.x0[i]) +
-                alpha * alpha * (v.x2[i] - 2 * v.x1[i] + v.x0[i]);
-    __syncthreads();
+    extrapolate(v, ec, p.min_alpha, s_fold);  // x3, from r^2 and v^2
     mark<kProf>(cyc, kAlpha, last);
     em_update<T, kProf>(p, v, v.x3, v.x1, &s_fold[0], cyc, last);
-    for (int i = tid; i < ec; i += kThreads)
-      v.x2[i] = abs_of(v.x1[i] - v.x0[i]);
-    __syncthreads();
-    if (tid == 0) s_fold[1] = fold_seq(v.x2, ec);
-    __syncthreads();
-    const T diff = s_fold[1];
+    const T diff = l1_change(v, ec, s_fold);
     T* const old_x0 = v.x0;  // x0 = x1
     v.x0 = v.x1;
     v.x1 = old_x0;
@@ -424,6 +467,109 @@ squarem_batched_kernel(const Problem<T>* problems, const Scratch<T>* scratch,
   __syncthreads();
   squarem_block<T, kShared, false>(p, s, iterations + blockIdx.x, nullptr,
                                    smem, s_fold);
+}
+
+// ---- The sharded form (K13): one EM update over read-group shards.
+// Each shard's E-step runs on grids that span the SMs.  The shards hold
+// contiguous read groups, and each EC's count is em.cc's one chain over
+// them in ascending order: shard s's column pass continues the chain
+// from shard s-1's partial (carry), so any shard count gives the native
+// loop's bits.  The round's tail (the normalizer, the extrapolation, the
+// L1 change, the mask) runs on one block.
+
+constexpr int kEstepThreads = 256;
+
+// start + cts[j] * (xe / psum[rows[j]]) summed over a thread's CSC list
+// in list order (element j of the lane's list at 32 j, as list_fold):
+// each entry has its own count.  kUnroll terms are computed before their
+// adds; past the list's end a term (of element 0) is computed but not
+// added.
+template <typename T>
+__device__ __forceinline__ T entry_fold(const int32_t* rows, const T* cts,
+                                        int n, T xe, const T* psum,
+                                        T start) {
+  T sum = start;
+  for (int j = 0; j < n; j += kUnroll) {
+    T t[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int i = j + u < n ? j + u : 0;
+      t[u] = cts[32 * i] * (xe / psum[__ldg(rows + 32 * i)]);
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u)
+      if (j + u < n) sum += t[u];
+  }
+  return sum;
+}
+
+// CSR pass of a shard: thread k folds the ECs of the read group in slot k
+// (x in the group's order); psum[i] = that sum, or 1 where it is 0.
+template <typename T>
+__global__ void __launch_bounds__(kEstepThreads)
+estep_rows_kernel(Lists rows, const T* x, T* psum) {
+  const int64_t k = (int64_t)blockIdx.x * kEstepThreads + threadIdx.x;
+  if (k >= rows.slots) return;
+  const int i = rows.sched[k];
+  if (i < 0) return;
+  const T sum = list_fold<T>(rows.stream + rows.base[k >> 5] +
+                                 (threadIdx.x & 31),
+                             rows.len[k], [&](int32_t e) { return x[e]; });
+  psum[i] = sum == 0 ? (T)1 : sum;
+}
+
+// CSC pass of a shard: thread k folds the entries of the EC in slot k,
+// read groups ascending (em.cc's scatter order), onto count[e]: from 0,
+// or with `carry` from the previous shard's partial there.  An EC whose
+// x is 0 adds only zeros, so its count stays as it is, without the
+// divides (as in em_update).
+template <typename T>
+__global__ void __launch_bounds__(kEstepThreads)
+estep_cols_kernel(Lists cols, const T* cts, const T* x, const T* psum,
+                  T* count, bool carry) {
+  const int64_t k = (int64_t)blockIdx.x * kEstepThreads + threadIdx.x;
+  if (k >= cols.slots) return;
+  const int e = cols.sched[k];
+  if (e < 0) return;
+  const T xe = x[e];
+  const T start = carry ? count[e] : (T)0;
+  const int64_t at = cols.base[k >> 5] + (threadIdx.x & 31);
+  count[e] = xe == 0 ? start
+                     : entry_fold(cols.stream + at, cts + at, cols.len[k],
+                                  xe, psum, start);
+}
+
+// The round's tail on the first shard's device (or on each rank, from the
+// same counts): v.count holds the update's counts; state is (t,
+// iterations).  Stage 0: x1 = update; 1: x2 = update, then x3 = the
+// extrapolation; 2: x1 = update, the L1 change against x0, em.cc's t
+// rule, and the mask into x1 (the caller then swaps x0 and x1).
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+sharded_tail_kernel(int stage, int32_t* state, Vecs<T> v, Problem<T> p,
+                    Scratch<T> s) {
+  __shared__ T s_fold[3];
+  __shared__ int s_mask;
+  const int tid = threadIdx.x, ec = p.ec_cnt;
+  for (int e = tid; e < ec; e += kThreads)
+    v.per_len[e] = v.count[e] / v.ec_len[e];
+  __syncthreads();
+  normalize(v.per_len, ec, stage == 1 ? v.x2 : v.x1, &s_fold[0]);
+  if (stage == 1) extrapolate(v, ec, p.min_alpha, s_fold);
+  if (stage != 2) return;
+  const T diff = l1_change(v, ec, s_fold);
+  if (tid == 0) {
+    int t = state[0];
+    if (diff < (T)1e-5 && t < p.max_iterations - 2) t = p.max_iterations - 2;
+    s_mask = t > 0 && t % kMaskRound == 0;
+    state[0] = t + 1;
+    state[1] += 1;
+  }
+  __syncthreads();
+  if (s_mask) {
+    v.x0 = v.x1;  // the next round's x0
+    mask_reset(p, s, v);
+  }
 }
 
 // Dynamic shared memory of the kShared form for one problem.
@@ -569,6 +715,60 @@ int launch_batched(int n_cells, const void* structs, int shared,
   return (int)cudaGetLastError();
 }
 
+template <typename T>
+int launch_estep(int pass, const void* const* in, const int64_t* dims,
+                 int carry, void* psum, void* count, void* stream) {
+  const int64_t zero[4] = {0, 0, 0, 0};
+  const int64_t slots = dims[pass];
+  const int blocks = (int)(slots / kEstepThreads);
+  auto st = static_cast<cudaStream_t>(stream);
+  const auto* x = static_cast<const T*>(in[9]);
+  if (pass == 0)
+    estep_rows_kernel<T><<<blocks, kEstepThreads, 0, st>>>(
+        lists_at(in, zero, slots), x, static_cast<T*>(psum));
+  else
+    estep_cols_kernel<T><<<blocks, kEstepThreads, 0, st>>>(
+        lists_at(in + 4, zero, slots), static_cast<const T*>(in[8]), x,
+        static_cast<const T*>(psum), static_cast<T*>(count), carry != 0);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_tail(int stage, void* const* vecs, const void* const* tables,
+                void* const* scratch, const int64_t* dims,
+                double filter_frac, double min_alpha, void* state,
+                void* stream) {
+  Vecs<T> v;
+  T** fields[6] = {&v.x0, &v.x1, &v.x2, &v.x3, &v.count, &v.per_len};
+  for (int k = 0; k < 6; ++k) *fields[k] = static_cast<T*>(vecs[k]);
+  v.grp = nullptr;
+  v.ec_len = static_cast<const T*>(vecs[6]);
+  Problem<T> p = {};
+  p.ec_cnt = (int32_t)dims[0];
+  p.allele_cnt = (int32_t)dims[1];
+  p.gene_cnt = (int32_t)dims[2];
+  p.major_cnt = (int32_t)dims[3];
+  p.max_iterations = (int32_t)dims[4];
+  p.ec_off = static_cast<const int64_t*>(tables[0]);
+  p.ec_alleles = static_cast<const int32_t*>(tables[1]);
+  p.ec_len = v.ec_len;
+  p.allele_gene = static_cast<const int32_t*>(tables[2]);
+  p.allele_major = static_cast<const int32_t*>(tables[3]);
+  p.maj_off = static_cast<const int64_t*>(tables[4]);
+  p.maj_alleles = static_cast<const int32_t*>(tables[5]);
+  p.filter_frac = (T)filter_frac;
+  p.min_alpha = (T)min_alpha;
+  Scratch<T> s = {};
+  s.allele_abund = static_cast<T*>(scratch[0]);
+  s.allele_ec_abund = static_cast<T*>(scratch[1]);
+  s.major_abund = static_cast<T*>(scratch[2]);
+  s.gene_max = static_cast<T*>(scratch[3]);
+  sharded_tail_kernel<T><<<1, kThreads, 0, static_cast<cudaStream_t>(
+                                                  stream)>>>(
+      stage, static_cast<int32_t*>(state), v, p, s);
+  return (int)cudaGetLastError();
+}
+
 // mode 0: one thread, n dependent f64 adds.  mode 1: one block of
 // kThreads threads, n terms each of the CSC pass's form,
 // g[k] * (v / q[k]) summed kUnroll at a time, from shared memory.
@@ -689,6 +889,45 @@ extern "C" int t1k_em_squarem_batched(int n_cells, const void* structs,
              : launch_batched<float>(n_cells, structs, shared, bytes,
                                      max_iterations, filter_frac, min_alpha,
                                      iterations, stream);
+}
+
+// One pass of a shard's E-step (the sharded form).  in: the rows' sched,
+// len, base and stream (read group -> ECs), the columns' four (EC -> the
+// shard's read-group rows, ascending), the columns' count stream (double
+// or float, laid out as their index stream), then x.  dims: the rows'
+// and the columns' slot counts (multiples of 256, from
+// ops/em.py::warp_lists at that many threads).  pass 0: the rows, into
+// psum (one element per row); pass 1: the columns, onto count (ec_cnt
+// elements: from 0, or with carry from what count holds).  Returns the
+// CUDA error code.
+extern "C" int t1k_em_sharded_estep(int pass, const void* const* in,
+                                    const int64_t* dims, int double_prec,
+                                    int carry, void* psum, void* count,
+                                    void* stream) {
+  return double_prec ? launch_estep<double>(pass, in, dims, carry, psum,
+                                            count, stream)
+                     : launch_estep<float>(pass, in, dims, carry, psum,
+                                           count, stream);
+}
+
+// The sharded form's round tail (sharded_tail_kernel) on one block.
+// vecs: x0, x1, x2, x3, count, per_len, ec_len.  tables: ec_off,
+// ec_alleles, allele_gene, allele_major, maj_off, maj_alleles (the mask's;
+// read at stage 2 only).  scratch: allele_abund, allele_ec_abund,
+// major_abund, gene_max.  dims: ec_cnt, allele_cnt, gene_cnt, major_cnt,
+// max_iterations.  state: two device int32 (t, iterations).  Returns the
+// CUDA error code.
+extern "C" int t1k_em_sharded_tail(int stage, void* const* vecs,
+                                   const void* const* tables,
+                                   void* const* scratch, const int64_t* dims,
+                                   double filter_frac, double min_alpha,
+                                   int double_prec, void* state,
+                                   void* stream) {
+  return double_prec
+             ? launch_tail<double>(stage, vecs, tables, scratch, dims,
+                                   filter_frac, min_alpha, state, stream)
+             : launch_tail<float>(stage, vecs, tables, scratch, dims,
+                                  filter_frac, min_alpha, state, stream);
 }
 
 // Measurement kernel for the EM's bounds (see clock_probe_kernel): in

@@ -23,10 +23,19 @@ CPU tensors run ``squarem_plain``, the same order in PyTorch ops
 cohort of cells (``em_quantify_batched``, the counterpart of
 ``em_quantify_jax_batched``) runs the kernel's cohort form, one block per
 cell in at most two launches, or ``squarem_batched_plain`` on the CPU;
-every cell gets the native loop's bits.  The
-host deals the kernel's read-group and EC lists to its threads
+every cell gets the native loop's bits; with a device list
+(``devices``) the cells are dealt to the devices in contiguous blocks.
+The host deals the kernel's read-group and EC lists to its threads
 (``list_schedule``) in a warp-interleaved layout (``warp_lists``) and
 lists each major allele's alleles (``major_lists``).
+
+The sharded form (K13, driven by ``parallel/mesh.py`` and
+``parallel/multihost.py``): ``shard_tables`` builds one read-group
+shard's lists with a count per entry, ``estep_device`` puts them on a
+device, ``estep_rows`` and ``estep_cols`` run its E-step passes (the
+columns going on from the previous shard's partial counts), and
+``tail_device`` / ``tail`` hold and run the round's tail; each wrapper
+runs its plain version on CPU tensors.
 """
 
 from __future__ import annotations
@@ -50,8 +59,13 @@ EM_SHARED_LIMIT = 232_448 - 1_024
 # The profiled kernel's clock counts: these phases, then the total.
 EM_PHASES = ("csr", "csc", "norm", "alpha", "diff", "mask")
 
+# The sharded form's E-step block (em_squarem.cu kEstepThreads): its
+# lists are dealt in one turn of this many threads, rounded up.
+ESTEP_THREADS = 256
+
 # Kernel launches, counted by the CUDA wrappers where they launch.
-launch_counts = {"em_squarem": 0, "em_squarem_batched": 0}
+launch_counts = {"em_squarem": 0, "em_squarem_batched": 0, "em_sharded": 0,
+                 "em_sharded_tail": 0}
 # The cohort form's per-cell row (t1k_em_squarem_cells): ec_cnt, rg_cnt,
 # the rows' and the columns' slot counts, then the cell's offsets into
 # the kernel's 17 inputs and 11 scratch buffers.
@@ -120,12 +134,24 @@ def em_tables(ec_to_alleles, rg_ecs_csr, rg_counts, allele_eff_len,
               allele_weight, allele_gene, allele_major, n_genes: int,
               n_majors: int) -> dict:
     """Host tables of one EM problem, as squarem_cuda and squarem_plain
-    take them: the incidence both ways, the EC -> alleles CSR, each EC's
-    shortest effective length and the allele-weight initial abundance."""
-    ec_cnt = len(ec_to_alleles)
+    take them: the incidence both ways, then ec_tables' EC tables."""
+    ec = ec_tables(ec_to_alleles, allele_eff_len, allele_weight, allele_gene,
+                   allele_major, n_genes, n_majors)
     rg_off = np.asarray(rg_ecs_csr[0], np.int64)
     rg_ecs = np.asarray(rg_ecs_csr[1], np.int32)
-    col_off, col_rgs = incidence_lists(rg_off, rg_ecs, ec_cnt)
+    col_off, col_rgs = incidence_lists(rg_off, rg_ecs, len(ec_to_alleles))
+    if len(rg_off) != len(rg_counts) + 1:
+        raise ValueError("read-group offsets and counts disagree")
+    return dict(rg_off=rg_off, rg_ecs=rg_ecs,
+                rg_counts=np.asarray(rg_counts, np.float64),
+                col_off=col_off, col_rgs=col_rgs, **ec)
+
+
+def ec_tables(ec_to_alleles, allele_eff_len, allele_weight, allele_gene,
+              allele_major, n_genes: int, n_majors: int) -> dict:
+    """The EC -> alleles CSR, each EC's shortest effective length, the
+    allele-weight initial abundance and the mask's allele tables."""
+    ec_cnt = len(ec_to_alleles)
     ec_off = np.zeros(ec_cnt + 1, dtype=np.int64)
     ec_off[1:] = np.cumsum([len(a) for a in ec_to_alleles])
     if (np.diff(ec_off) == 0).any():
@@ -135,8 +161,6 @@ def em_tables(ec_to_alleles, rg_ecs_csr, rg_counts, allele_eff_len,
     allele_gene = np.asarray(allele_gene, np.int64)
     allele_major = np.asarray(allele_major, np.int64)
     allele_cnt = len(allele_gene)
-    if len(rg_off) != len(rg_counts) + 1:
-        raise ValueError("read-group offsets and counts disagree")
     if not (len(allele_eff_len) == len(allele_weight) == len(allele_major)
             == allele_cnt):
         raise ValueError("per-allele arrays differ in length")
@@ -146,10 +170,7 @@ def em_tables(ec_to_alleles, rg_ecs_csr, rg_counts, allele_eff_len,
         if len(v) and (v.min() < 0 or v.max() >= n):
             raise ValueError(f"{name} index out of range")
     return dict(
-        rg_off=rg_off, rg_ecs=rg_ecs,
-        rg_counts=np.asarray(rg_counts, np.float64),
-        col_off=col_off, col_rgs=col_rgs, ec_off=ec_off,
-        ec_alleles=ec_alleles,
+        ec_off=ec_off, ec_alleles=ec_alleles,
         ec_len=np.minimum.reduceat(
             np.asarray(allele_eff_len, np.int64)[ec_alleles],
             ec_off[:-1]).astype(np.float64),
@@ -201,46 +222,24 @@ def _seq_sum(v: torch.Tensor) -> torch.Tensor:
     return torch.cumsum(v, 0)[-1]
 
 
-def squarem_plain(rg_off, rg_ecs, rg_counts, col_off, col_rgs, ec_off,
-                  ec_alleles, ec_len, allele_gene, allele_major, init_x,
-                  gene_cnt: int, major_cnt: int, filter_frac: float,
-                  min_squarem_alpha: float, max_iterations: int,
-                  device, dtype) -> Tuple[int, torch.Tensor]:
-    """Plain PyTorch version of csrc/em_squarem.cu: em.cc's loop with each
-    order-sensitive sum written as a left-to-right chain of tensor adds."""
-    ec_cnt, rg_cnt = len(ec_len), len(rg_counts)
-    allele_cnt = len(allele_gene)
+def plain_mask(ec_len, ec_off, ec_alleles, allele_gene, allele_major,
+               gene_cnt: int, major_cnt: int, filter_frac: float, device,
+               dtype):
+    """em.cc's maskAndReset in PyTorch ops: count -> the next x0 (the
+    major-allele sums a left-to-right chain of tensor adds)."""
+    ec_cnt, allele_cnt = len(ec_len), len(allele_gene)
 
     def put(x, dt):
         return torch.as_tensor(np.asarray(x)).to(device=device, dtype=dt)
 
     i64 = torch.int64
-    row_ecs = put(_padded(rg_off, rg_ecs, ec_cnt), i64)       # [R, K]
-    col_rg = put(_padded(col_off, col_rgs, rg_cnt), i64)      # [E, L]
     maj_off, order = major_lists(allele_major, major_cnt)
     maj_alleles = put(_padded(maj_off, order, allele_cnt), i64)  # [M, Lm]
-    cts_z = put(np.append(rg_counts, 0.0), dtype)
     ec_len_t, ec_size_t = put(ec_len, dtype), put(np.diff(ec_off), dtype)
     ec_first = put(ec_alleles[ec_off[:-1]], i64)
     ec_of_allele = put(np.repeat(np.arange(ec_cnt), np.diff(ec_off)), i64)
     ec_alleles_t = put(ec_alleles, i64)
     gene_t, major_t = put(allele_gene, i64), put(allele_major, i64)
-    zero1 = torch.zeros(1, dtype=dtype, device=device)
-    one1 = torch.ones(1, dtype=dtype, device=device)
-
-    def em_update(x):
-        g = torch.cat([x, zero1])[row_ecs]
-        psum = torch.zeros(rg_cnt, dtype=dtype, device=device)
-        for k in range(g.shape[1]):
-            psum = psum + g[:, k]
-        psum = torch.where(psum == 0, 1.0, psum)
-        psum_z = torch.cat([psum, one1])
-        count = torch.zeros(ec_cnt, dtype=dtype, device=device)
-        for k in range(col_rg.shape[1]):
-            r = col_rg[:, k]
-            count = count + cts_z[r] * (x / psum_z[r])
-        per_len = count / ec_len_t
-        return per_len / _seq_sum(per_len), count
 
     def mask_reset(count):
         ec_abund = count / ec_len_t * 1000.0
@@ -258,6 +257,56 @@ def squarem_plain(rg_off, rg_ecs, rg_counts, col_off, col_rgs, ec_off,
         masked = per_allele < filter_frac * 0.5 * gene_max[gene_t]
         return torch.where(masked, 0.0, allele_ec_abund)[ec_first]
 
+    return mask_reset
+
+
+def plain_extrapolate(x0, x1, x2, min_squarem_alpha: float):
+    """em.cc's SQUAREM extrapolation x3 of x0, x1, x2 in PyTorch ops."""
+    dtype = x0.dtype
+    r = x1 - x0
+    v = x2 - 2 * x1 + x0
+    # alpha's square roots on the host: torch's CPU sqrt of a 0-dim
+    # tensor is not always correctly rounded; em.cc's std::sqrt and the
+    # kernel's sqrt are
+    ft = np.float64 if dtype == torch.float64 else np.float32
+    sum_r = ft(_seq_sum(r * r).item())
+    sum_v = ft(_seq_sum(v * v).item())
+    a = ft(-1.0) if sum_v == 0 else -np.sqrt(sum_r) / np.sqrt(sum_v)
+    if min_squarem_alpha < 0 and float(a) < min_squarem_alpha:
+        a = ft(min_squarem_alpha)
+    alpha = torch.tensor(a, dtype=dtype, device=x0.device)
+    return x0 - 2 * alpha * (x1 - x0) + alpha * alpha * (x2 - 2 * x1 + x0)
+
+
+def squarem_plain(rg_off, rg_ecs, rg_counts, col_off, col_rgs, ec_off,
+                  ec_alleles, ec_len, allele_gene, allele_major, init_x,
+                  gene_cnt: int, major_cnt: int, filter_frac: float,
+                  min_squarem_alpha: float, max_iterations: int,
+                  device, dtype) -> Tuple[int, torch.Tensor]:
+    """Plain PyTorch version of csrc/em_squarem.cu: em.cc's loop with each
+    order-sensitive sum written as a left-to-right chain of tensor adds."""
+    ec_cnt = len(ec_len)
+
+    def put(x, dt):
+        return torch.as_tensor(np.asarray(x)).to(device=device, dtype=dt)
+
+    # the sharded form's plain passes, one shard of every read group
+    est = plain_estep_tables(dict(
+        row_off=rg_off, row_ecs=rg_ecs, col_off=col_off, col_rows=col_rgs,
+        col_cts=np.asarray(rg_counts, np.float64)[col_rgs], ec_cnt=ec_cnt),
+        device, dtype)
+    ec_len_t = put(ec_len, dtype)
+    mask_reset = plain_mask(ec_len, ec_off, ec_alleles, allele_gene,
+                            allele_major, gene_cnt, major_cnt, filter_frac,
+                            device, dtype)
+
+    def em_update(x):
+        count = torch.empty(ec_cnt, dtype=dtype, device=device)
+        estep_rows_plain(est, x)
+        estep_cols_plain(est, x, count, carry=False)
+        per_len = count / ec_len_t
+        return per_len / _seq_sum(per_len), count
+
     x0 = put(init_x, dtype)
     count = torch.zeros(ec_cnt, dtype=dtype, device=device)
     iters = 0
@@ -266,19 +315,7 @@ def squarem_plain(rg_off, rg_ecs, rg_counts, col_off, col_rgs, ec_off,
         iters += 1
         x1, _ = em_update(x0)
         x2, _ = em_update(x1)
-        r = x1 - x0
-        v = x2 - 2 * x1 + x0
-        # alpha's square roots on the host: torch's CPU sqrt of a 0-dim
-        # tensor is not always correctly rounded; em.cc's std::sqrt and the
-        # kernel's sqrt are
-        ft = np.float64 if dtype == torch.float64 else np.float32
-        sum_r = ft(_seq_sum(r * r).item())
-        sum_v = ft(_seq_sum(v * v).item())
-        a = ft(-1.0) if sum_v == 0 else -np.sqrt(sum_r) / np.sqrt(sum_v)
-        if min_squarem_alpha < 0 and float(a) < min_squarem_alpha:
-            a = ft(min_squarem_alpha)
-        alpha = torch.tensor(a, dtype=dtype, device=device)
-        x3 = x0 - 2 * alpha * (x1 - x0) + alpha * alpha * (x2 - 2 * x1 + x0)
+        x3 = plain_extrapolate(x0, x1, x2, min_squarem_alpha)
         x1b, count = em_update(x3)
         diff = float(_seq_sum(torch.abs(x1b - x0)))  # the round's host sync
         x0 = x1b
@@ -310,6 +347,15 @@ def _kernel_lib() -> ctypes.CDLL:
     lib.t1k_em_squarem_batched.argtypes = [
         ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
         ctypes.c_int, ctypes.c_double, ctypes.c_double, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p]
+    lib.t1k_em_sharded_estep.restype = ctypes.c_int
+    lib.t1k_em_sharded_estep.argtypes = [
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+    lib.t1k_em_sharded_tail.restype = ctypes.c_int
+    lib.t1k_em_sharded_tail.argtypes = [
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_double, ctypes.c_double, ctypes.c_int,
         ctypes.c_void_p, ctypes.c_void_p]
     lib.t1k_em_clock_probe.restype = ctypes.c_int
     lib.t1k_em_clock_probe.argtypes = [
@@ -580,6 +626,278 @@ def squarem_batched_cuda(cells: List[dict], filter_frac: float,
     return squarem_batched_results(batch_dev)
 
 
+def shard_tables(seg_rg, seg_ec, counts, rg_cnt: int, ec_cnt: int,
+                 unique: bool = False) -> dict:
+    """One read-group shard's E-step lists (the sharded form), from its
+    entries in read-group order as parallel/mesh.py's
+    partition_read_groups cuts them; padding entries (read group rg_cnt,
+    count 0, whose term is an exact +0) are dropped.  `rows`: per read
+    group of the shard with entries, its ECs in the group's order (CSR
+    `row_off`, `row_ecs`); `cols`: per EC its entries, read groups
+    ascending (em.cc's scatter order), each entry with its own count (CSC
+    `col_off`, `col_rows` as the shard's row numbers, `col_cts`).  With
+    `unique`, a repeated (read group, EC) pair raises, as in
+    incidence_lists."""
+    seg_rg = np.asarray(seg_rg, np.int64)
+    real = seg_rg < rg_cnt
+    rg = seg_rg[real]
+    ec = np.asarray(seg_ec, np.int64)[real]
+    ct = np.asarray(counts, np.float64)[real]
+    if len(ec) and (ec.min() < 0 or ec.max() >= ec_cnt):
+        raise ValueError("EC index out of range in the incidence")
+    if (np.diff(rg) < 0).any():
+        raise ValueError("a shard's entries must be in read-group order")
+    row = np.cumsum(np.diff(rg, prepend=rg[:1]) != 0)   # 0, 0, 1, ...
+    row_off = np.zeros(int(row[-1]) + 2 if len(row) else 1, np.int64)
+    np.cumsum(np.bincount(row, minlength=len(row_off) - 1), out=row_off[1:])
+    # stable, so rows stay ascending within an EC (16-bit keys take
+    # numpy's radix sort)
+    perm = np.argsort(ec.astype(np.uint16) if ec_cnt <= 1 << 16 else ec,
+                      kind="stable")
+    col_off = np.zeros(ec_cnt + 1, np.int64)
+    np.cumsum(np.bincount(ec, minlength=ec_cnt), out=col_off[1:])
+    col_rows, col_ecs = row[perm], ec[perm]
+    if unique and ((col_rows[1:] == col_rows[:-1])
+                   & (col_ecs[1:] == col_ecs[:-1])).any():
+        raise ValueError("duplicate (read group, EC) pair in the incidence")
+    return dict(row_off=row_off, row_ecs=ec.astype(np.int32),
+                col_off=col_off, col_rows=col_rows.astype(np.int32),
+                col_cts=ct[perm], ec_cnt=ec_cnt)
+
+
+def estep_device(tables: dict, device, dtype) -> dict:
+    """A shard's shard_tables on `device` for its E-step: on a CUDA device
+    the kernel's warp_lists of both passes, dealt in one turn over a grid
+    of ESTEP_THREADS-thread blocks, with the columns' counts laid out as
+    their read-group stream; on the CPU the plain version's padded index
+    matrices."""
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"unsupported EM dtype {dtype}")
+    dev = torch.device(device)
+    if dev.type == "cpu":
+        return plain_estep_tables(tables, dev, dtype)
+    ec_cnt, n_rows = tables["ec_cnt"], len(tables["row_off"]) - 1
+
+    def put(x, dt):
+        return torch.as_tensor(np.ascontiguousarray(x)).to(
+            device=dev, dtype=dt).contiguous()
+
+    i32, i64 = torch.int32, torch.int64
+    est = dict(device=dev, dtype=dtype, ec_cnt=ec_cnt, n_rows=n_rows)
+    turn = ESTEP_THREADS
+    rows = warp_lists(tables["row_off"], tables["row_ecs"],
+                      max(turn, -(-n_rows // turn) * turn))
+    nnz = len(tables["col_rows"])
+    cols = warp_lists(tables["col_off"], np.arange(nnz, dtype=np.int32),
+                      max(turn, -(-ec_cnt // turn) * turn))
+    # the columns' stream holds entry numbers: each takes its entry's row,
+    # and a stream of counts beside it (unread positions, entry 0 or past
+    # an empty shard's end, take a valid 0)
+    at = cols["stream"]
+    cols["stream"] = np.append(tables["col_rows"], 0)[at]
+    est["ins"] = [put(lists[k], dt) for lists in (rows, cols) for k, dt in (
+        ("sched", i32), ("len", i32), ("base", i64), ("stream", i32))]
+    est["ins"].append(put(np.append(tables["col_cts"], 0.0)[at], dtype))
+    est["dims"] = (ctypes.c_int64 * 2)(len(rows["sched"]), len(cols["sched"]))
+    est["psum"] = torch.empty(max(n_rows, 1), dtype=dtype, device=dev)
+    return est
+
+
+def plain_estep_tables(tables: dict, device, dtype) -> dict:
+    """shard_tables' lists as the plain passes take them, on `device`:
+    [rows, longest row] EC indices padded with ec_cnt (x's appended 0),
+    and [ECs, longest column] row indices padded with n_rows (psum's
+    appended 1) beside their counts padded with 0."""
+    ec_cnt, n_rows = tables["ec_cnt"], len(tables["row_off"]) - 1
+    nnz = len(tables["col_rows"])
+    at = _padded(tables["col_off"], np.arange(nnz), nnz)        # [E, L]
+
+    def put(x, dt):
+        return torch.as_tensor(np.asarray(x)).to(device=device, dtype=dt)
+
+    i64 = torch.int64
+    return dict(device=torch.device(device), dtype=dtype, ec_cnt=ec_cnt,
+                n_rows=n_rows,
+                row_ecs=put(_padded(tables["row_off"], tables["row_ecs"],
+                                    ec_cnt), i64),              # [R, K]
+                col_rows=put(np.append(tables["col_rows"], n_rows)[at], i64),
+                col_cts=put(np.append(tables["col_cts"], 0.0)[at], dtype))
+
+
+def estep_rows_plain(est: dict, x: torch.Tensor) -> None:
+    """Plain PyTorch version of the sharded E-step's row pass: per read
+    group psum = its x summed in the group's order (0 -> 1), into
+    est["psum"]."""
+    dtype, dev = est["dtype"], est["device"]
+    g = torch.cat([x, torch.zeros(1, dtype=dtype, device=dev)])[est["row_ecs"]]
+    psum = torch.zeros(est["n_rows"], dtype=dtype, device=dev)
+    for k in range(g.shape[1]):
+        psum = psum + g[:, k]
+    est["psum"] = torch.where(psum == 0, 1.0, psum)
+
+
+def estep_cols_plain(est: dict, x: torch.Tensor, count: torch.Tensor,
+                     carry: bool) -> None:
+    """Plain PyTorch version of the sharded E-step's column pass: per EC
+    the running sum over its entries of count * (x / psum), onto `count`
+    (from 0, or with `carry` from what it holds), the form of
+    squarem_plain's em_update with a count per entry."""
+    dtype, dev = est["dtype"], est["device"]
+    psum_z = torch.cat([est["psum"], torch.ones(1, dtype=dtype, device=dev)])
+    total = count.clone() if carry else torch.zeros_like(count)
+    for k in range(est["col_rows"].shape[1]):
+        total = total + est["col_cts"][:, k] * (
+            x / psum_z[est["col_rows"][:, k]])
+    count.copy_(total)
+
+
+def _estep_launch(est: dict, pass_: int, x: torch.Tensor, count,
+                  carry: bool) -> None:
+    if not (x.is_contiguous() and x.dtype == est["dtype"]
+            and x.device == est["device"] and x.numel() == est["ec_cnt"]):
+        raise ValueError("x must be a contiguous ec_cnt vector of the "
+                         "shard's type on its device")
+    if count is not None and not (
+            count.is_contiguous() and count.dtype == est["dtype"]
+            and count.device == est["device"]
+            and count.numel() == est["ec_cnt"]):
+        raise ValueError("count must be a contiguous ec_cnt vector of the "
+                         "shard's type on its device")
+    ins = [*est["ins"], x]
+    with torch.cuda.device(est["device"]):
+        rc = _kernel_lib().t1k_em_sharded_estep(
+            pass_, (ctypes.c_void_p * len(ins))(*[t.data_ptr() for t in ins]),
+            est["dims"], int(est["dtype"] == torch.float64), int(carry),
+            est["psum"].data_ptr(),
+            None if count is None else count.data_ptr(),
+            torch.cuda.current_stream(est["device"]).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"sharded E-step launch failed: CUDA error {rc}")
+    launch_counts["em_sharded"] += 1
+
+
+def estep_rows(est: dict, x: torch.Tensor) -> None:
+    """A shard's row pass of x (on its device): its kernel on a CUDA
+    device, on the current stream without waiting; estep_rows_plain on
+    the CPU."""
+    if x.device.type == "cpu":
+        estep_rows_plain(est, x)
+    else:
+        _estep_launch(est, 0, x, None, False)
+
+
+def estep_cols(est: dict, x: torch.Tensor, count: torch.Tensor,
+               carry: bool) -> None:
+    """A shard's column pass of x onto `count` (ec_cnt elements on its
+    device; with `carry` the chain goes on from the partial count holds),
+    after its row pass: its kernel on a CUDA device, on the current stream
+    without waiting; estep_cols_plain on the CPU."""
+    if x.device.type == "cpu":
+        estep_cols_plain(est, x, count, carry)
+    else:
+        _estep_launch(est, 1, x, count, carry)
+
+
+def tail_device(ec_len, init_x, device, dtype, filter_frac: float = 0.15,
+                min_squarem_alpha: float = 0.0, max_iterations: int = 1000,
+                mask=None) -> dict:
+    """The sharded form's round state on `device`: x0-x3 (x0 = init_x; the
+    roles of x0 and x1 swap after each round), count, per_len, ec_len, the
+    state (t, iterations), and with `mask` (ec_off, ec_alleles,
+    allele_gene, allele_major, gene_cnt, major_cnt, as ec_tables gives
+    them) the low-abundance mask's tables; without it the tail runs no
+    stage 2."""
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"unsupported EM dtype {dtype}")
+    dev = torch.device(device)
+    ec_cnt = len(ec_len)
+
+    def put(x, dt):
+        return torch.as_tensor(np.ascontiguousarray(x)).to(
+            device=dev, dtype=dt).contiguous()
+
+    td = dict(device=dev, dtype=dtype, ec_cnt=ec_cnt,
+              filter_frac=float(filter_frac),
+              min_alpha=float(min_squarem_alpha),
+              max_iterations=int(max_iterations),
+              x=[put(init_x, dtype)] + [
+                  torch.zeros(ec_cnt, dtype=dtype, device=dev)
+                  for _ in range(3)],
+              count=torch.zeros(ec_cnt, dtype=dtype, device=dev),
+              per_len=torch.zeros(ec_cnt, dtype=dtype, device=dev),
+              ec_len=put(ec_len, dtype),
+              state=torch.zeros(2, dtype=torch.int32, device=dev))
+    if mask is None:
+        return td
+    i32, i64 = torch.int32, torch.int64
+    if dev.type == "cpu":
+        td["mask"] = plain_mask(ec_len, **mask, filter_frac=filter_frac,
+                                device=dev, dtype=dtype)
+        return td
+    maj_off, maj_alleles = major_lists(mask["allele_major"],
+                                       mask["major_cnt"])
+    allele_cnt = len(mask["allele_gene"])
+    td["tables"] = [put(mask["ec_off"], i64), put(mask["ec_alleles"], i32),
+                    put(mask["allele_gene"], i32),
+                    put(mask["allele_major"], i32), put(maj_off, i64),
+                    put(maj_alleles, i32)]
+    td["scratch"] = [torch.empty(max(n, 1), dtype=dtype, device=dev)
+                     for n in (allele_cnt, allele_cnt, mask["major_cnt"],
+                               mask["gene_cnt"])]
+    td["mask_dims"] = (allele_cnt, mask["gene_cnt"], mask["major_cnt"])
+    return td
+
+
+def tail_plain(td: dict, stage: int) -> None:
+    """Plain PyTorch version of the sharded form's round tail: from
+    td["count"], the normalized update into x1 (stage 0, 2) or x2 (stage
+    1), then at stage 1 the extrapolation into x3, at stage 2 the L1
+    change against x0, em.cc's t rule (state) and the mask into x1."""
+    x = td["x"]
+    per_len = td["count"] / td["ec_len"]
+    x[2 if stage == 1 else 1].copy_(per_len / _seq_sum(per_len))
+    if stage == 1:
+        x[3].copy_(plain_extrapolate(x[0], x[1], x[2], td["min_alpha"]))
+    if stage != 2:
+        return
+    diff = float(_seq_sum(torch.abs(x[1] - x[0])))
+    t, last = int(td["state"][0]), td["max_iterations"]
+    if diff < 1e-5 and t < last - 2:
+        t = last - 2
+    if t > 0 and t % MASK_ROUND == 0:
+        x[1].copy_(td["mask"](td["count"]))
+    td["state"][0] = t + 1
+    td["state"][1] += 1
+
+
+def tail(td: dict, stage: int) -> None:
+    """The sharded form's round tail on td's device from td["count"] (the
+    update's counts there): its kernel, one block, on the current stream
+    without waiting, or tail_plain on the CPU."""
+    if stage == 2 and "tables" not in td and "mask" not in td:
+        raise ValueError("stage 2 needs the mask's tables (tail_device mask)")
+    if td["device"].type == "cpu":
+        tail_plain(td, stage)
+        return
+    vecs = [*td["x"], td["count"], td["per_len"], td["ec_len"]]
+    # without the mask (no stage 2) the kernel reads neither: null
+    tables = [t.data_ptr() for t in td.get("tables", [])] or [None] * 6
+    scratch = [t.data_ptr() for t in td.get("scratch", [])] or [None] * 4
+    dims = (ctypes.c_int64 * 5)(td["ec_cnt"],
+                                *td.get("mask_dims", (0, 0, 0)),
+                                td["max_iterations"])
+    with torch.cuda.device(td["device"]):
+        rc = _kernel_lib().t1k_em_sharded_tail(
+            stage, (ctypes.c_void_p * 7)(*[t.data_ptr() for t in vecs]),
+            (ctypes.c_void_p * 6)(*tables), (ctypes.c_void_p * 4)(*scratch),
+            dims, td["filter_frac"], td["min_alpha"],
+            int(td["dtype"] == torch.float64), td["state"].data_ptr(),
+            torch.cuda.current_stream(td["device"]).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"sharded tail launch failed: CUDA error {rc}")
+    launch_counts["em_sharded_tail"] += 1
+
+
 def em_quantify_gpu(
     ec_to_alleles: List[List[int]],
     rg_ecs_csr: Tuple[np.ndarray, np.ndarray],
@@ -628,6 +946,7 @@ def em_quantify_batched(
     max_iterations: int = 1000,
     device="cuda",
     dtype=torch.float64,
+    devices=None,
 ) -> List[Tuple[int, np.ndarray]]:
     """Quantify many cells' EC problems against one reference: the
     counterpart of ops/em.py::em_quantify_jax_batched, with its `problems`
@@ -635,8 +954,10 @@ def em_quantify_batched(
     return value and order.  Returns per cell (iterations, per-EC read
     counts as f64 numpy), each cell's the native loop's bits in f64; an
     empty cell gives (0, zeros(0)) and no block.  Nothing is padded, so
-    nothing is chunked."""
-    dev = resolve_device(device)
+    nothing is chunked.  `devices` (a mesh, parallel/mesh.py) deals the
+    non-empty cells to its devices in contiguous blocks of ceil(C / n), as
+    the reference shards the cell axis: one cohort launch per device, each
+    on a stream of its own; without it every cell runs on `device`."""
     results = [(0, np.zeros(0)) for _ in problems]
     cells, where = [], []
     for ci, (ec_to_alleles, rg_ecs_csr, rg_counts, allele_weight) in \
@@ -647,12 +968,32 @@ def em_quantify_batched(
                                allele_eff_len, allele_weight, allele_gene,
                                allele_major, n_genes, n_majors))
         where.append(ci)
+    devs = [resolve_device(d) for d in (devices or [device])]
     if not cells:
         return results
-    run = squarem_batched_cuda if dev.type == "cuda" else squarem_batched_plain
-    for ci, (it, count) in zip(where, run(
-            cells, filter_frac=filter_frac,
-            min_squarem_alpha=min_squarem_alpha,
-            max_iterations=max_iterations, device=dev, dtype=dtype)):
-        results[ci] = (it, count.cpu().numpy().astype(np.float64))
+    opts = dict(filter_frac=filter_frac, min_squarem_alpha=min_squarem_alpha,
+                max_iterations=max_iterations)
+    size = -(-len(cells) // len(devs))
+    runs = []   # (first cell, stream or None, launched cohort or results)
+    for k, dev in enumerate(devs):
+        block = cells[k * size:(k + 1) * size]
+        if not block:
+            continue
+        if dev.type == "cpu":
+            runs.append((k * size, None, squarem_batched_plain(
+                block, **opts, device=dev, dtype=dtype)))
+            continue
+        stream = (torch.cuda.Stream(dev) if devices is not None
+                  else torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream):
+            batch_dev = squarem_batched_device(block, dev, dtype)
+            squarem_batched_launch(batch_dev, **opts)
+        runs.append((k * size, stream, batch_dev))
+    for lo, stream, run in runs:
+        if stream is not None:
+            with torch.cuda.stream(stream):
+                run = [(it, count.cpu()) for it, count in
+                       squarem_batched_results(run)]
+        for i, (it, count) in enumerate(run):
+            results[where[lo + i]] = (it, count.numpy().astype(np.float64))
     return results

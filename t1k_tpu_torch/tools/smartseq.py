@@ -19,7 +19,9 @@ one band-kernel service, then one EM for the whole plate
 (ops/em.py em_quantify_batched: the cohort form of csrc/em_squarem.cu,
 one block per cell, on --device), then selection and outputs per cell.
 Each cell's EM has the native loop's bits, so the outputs are
-byte-identical to the per-cell path.  The cell axis stays on one device.
+byte-identical to the per-cell path.  On a machine with more than one
+card the cell axis is dealt over all of them (parallel/mesh.py
+data_mesh), as the reference shards it over its device mesh.
 
 Kernel launches made in pool workers are summed per kernel into
 `worker_launch_counts`; each wrapper's own count covers its process.
@@ -99,14 +101,15 @@ def _run_cells(jobs: list, workers: int) -> List[str]:
     return [path for path, _ in done]
 
 
-def _run_cells_cohort(jobs: list, device="cuda") -> List[str]:
+def _run_cells_cohort(jobs: list, device="cuda", mesh=None) -> List[str]:
     """Second-pass cells with one batched EM (the reference's analog is an
     independent genotyper process per cell, t1k-smartseq.pl:160-184).
     Per-cell alignment and EC construction run in this process against a
     shared parsed reference and one DeferredDescService; every cell's EC
-    problem then goes to em_quantify_batched on `device`; selection and
-    outputs finish per cell.  Each cell's options carry the run's
-    --backend, --emBackend and `device`, as cli.run's do."""
+    problem then goes to em_quantify_batched on `device`, or dealt over
+    the devices of `mesh`; selection and outputs finish per cell.  Each
+    cell's options carry the run's --backend, --emBackend and `device`,
+    as cli.run's do."""
     from ..cli.run import resolve_preset
     from ..core.pipeline import (GenotypeOptions, finish_genotyper,
                                  prepare_genotyper)
@@ -143,7 +146,8 @@ def _run_cells_cohort(jobs: list, device="cuda") -> List[str]:
         g0.allele_eff_len, g0.allele_gene, g0.allele_major,
         g0.gene_cnt, g0.major_cnt,
         filter_frac=g0.cfg.filter_frac,
-        min_squarem_alpha=g0.cfg.min_squarem_alpha, device=device)
+        min_squarem_alpha=g0.cfg.min_squarem_alpha, device=device,
+        devices=mesh)
 
     out = []
     for prep, res, prefix in zip(preps, results, prefixes):
@@ -161,10 +165,12 @@ def run_smartseq(
     workers: int = 1,
     cohort_em: bool = False,
     device="cuda",
+    mesh=None,
 ) -> str:
     """Returns the path of the final merged genotype matrix.  `t1k_args`
     are cli.run options for every cell (-t, --preset, -s, --backend,
-    --emBackend); `device` is each cell's --device and the cohort EM's."""
+    --emBackend); `device` is each cell's --device and the cohort EM's;
+    `mesh`, a device list, shards the cohort EM's cells instead."""
     t1k_args = dict(t1k_args or {})
     # Resolve backend "auto" HERE, once, and ship the concrete choice to
     # the cell workers; an "auto" route on a CUDA device without a card
@@ -223,7 +229,7 @@ def run_smartseq(
             c2 = None
         jobs.append((t1k_args, reduced_ref, c1, c2, outdir,
                      f"{cell}_reduced", True))
-    reduced_files = (_run_cells_cohort(jobs, device) if cohort_em
+    reduced_files = (_run_cells_cohort(jobs, device, mesh) if cohort_em
                      else _run_cells(jobs, workers))
     with open(f"{output_prefix}_reduced_genotype_list.out", "w") as f:
         f.write("".join(p + "\n" for p in reduced_files))
@@ -235,6 +241,8 @@ def run_smartseq(
 
 
 def main(argv: Optional[List[str]] = None) -> int:
+    import torch
+
     from ..device import NoCardError
 
     ap = argparse.ArgumentParser(description="T1K SMART-seq pipeline")
@@ -249,7 +257,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--preset", default=None)
     ap.add_argument("--cohortEm", action="store_true",
                     help="second pass: every cell's EM in one batched "
-                         "EM on --device (one kernel block per cell)")
+                         "EM on --device (one kernel block per cell), its "
+                         "cells dealt over every card when there are more")
     ap.add_argument("--backend", default="auto",
                     choices=["auto", "native", "gpu"],
                     help="each cell's alignment and screen backend, as "
@@ -267,10 +276,15 @@ def main(argv: Optional[List[str]] = None) -> int:
         extra["--preset"] = args.preset
     if args.threads != 1:
         extra["-t"] = args.threads
+    mesh = None
+    if (args.cohortEm and torch.device(args.device).type == "cuda"
+            and torch.cuda.device_count() > 1):
+        from ..parallel.mesh import data_mesh
+        mesh = data_mesh()
     try:
         run_smartseq(args.list1, args.list2, args.ref, args.prefix, extra,
                      workers=args.workers, cohort_em=args.cohortEm,
-                     device=args.device)
+                     device=args.device, mesh=mesh)
     except NoCardError as err:
         ap.error(str(err))
     return 0

@@ -271,6 +271,24 @@ def test_unported_inputs_are_refused(tmp_path, capsys, flags):
     assert not os.path.exists(str(tmp_path / "h"))
 
 
+def test_multi_process_refusal_is_the_reference_text(tmp_path, capsys,
+                                                     monkeypatch):
+    """Barcodes under T1K_NUM_PROCESSES=2 exit 1 with the reference's
+    message, byte for byte."""
+    monkeypatch.setenv("T1K_NUM_PROCESSES", "2")
+    monkeypatch.setenv("T1K_PROCESS_ID", "0")
+    argv = ["-f", REF, "-1", MULTIGENE[0], "-2", MULTIGENE[1],
+            "--barcode", MULTIGENE[0]]
+    assert host_main([*argv, "--od", str(tmp_path / "h")]) == 1
+    want = capsys.readouterr().err
+    assert main([*argv, "--od", str(tmp_path / "o"), "--device",
+                 "cpu"]) == 1
+    assert capsys.readouterr().err == want == (
+        "Distributed mode covers the standard paired/single flow; barcode, "
+        "whitelist and per-read-assignment outputs run single-process (or "
+        "per-cell, tools/smartseq.py).\n")
+
+
 @pytest.fixture(scope="module")
 def snp_bam(snp_reads, tmp_path_factory):
     """The snp_reads pairs as a coordinate-sorted BAM with CB/UB tags

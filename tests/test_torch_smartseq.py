@@ -142,6 +142,21 @@ def test_cohort_em_is_byte_identical_to_per_cell(port_plate, port_cohort):
             assert _read(got) == _read(want), got
 
 
+def test_cohort_em_over_a_device_list(plate, port_cohort, tmp_path):
+    """--cohortEm with its cells dealt over a mesh of three devices (the
+    CPU thrice here; every card of a machine with more than one) writes
+    the one-device bytes."""
+    dealt = _run(smartseq.run_smartseq, plate, tmp_path / "mesh",
+                 cohort_em=True, device="cpu",
+                 mesh=[torch.device("cpu")] * 3)
+    for suffix in PLATE_OUTPUTS:
+        assert _read(_plate_file(dealt, suffix)) == \
+            _read(_plate_file(port_cohort, suffix)), suffix
+    for got, want in zip(_cell_files(dealt, "_reduced_genotype.tsv"),
+                         _cell_files(port_cohort, "_reduced_genotype.tsv")):
+        assert _read(got) == _read(want)
+
+
 def test_cohort_em_matches_jax_cohort_contract(plate, port_cohort,
                                                tmp_path):
     """The JAX package's --cohortEm (its batched EM in f32 on the CPU)
