@@ -48,7 +48,30 @@ Phases, in order; any failure raises and the exit code is non-zero:
                    gpu, byte-compared with the native route of t1k_tpu;
                    both kernels' launch counts over the run must be > 0;
                    the EM problem its genotyper solves is kept
-  8. em_timing     the EM kernel on that HLA problem, the microcell and a
+  8. candidates    DeviceCandidates (K10: probe, census, tiles of the chain
+                   kernel) on the card against its plain version on the
+                   CPU, array for array, and every decided read's keep set
+                   against the native engine's overlap buckets: seeded
+                   panels (random panels, 40 alleles 1% apart at k = 11,
+                   the same in chunks of 7 reads and tiles of 50 buckets,
+                   a tiny hit cap and a tiny bucket cap), then main's
+                   unique reads with the pipeline's caps (the plain version
+                   on the first 16), each chunk's hit total, buckets,
+                   chained buckets, tiles, decided reads and kept buckets
+                   printed, 95% of the reads decided or it fails; generate
+                   and set_candidates timed; t1k_tpu_torch.cli.genotype
+                   --backend gpu --emBackend gpu --outputReadAssignment in
+                   child processes without, with, with and without
+                   --deviceCandidates (launch counts set to 0 before each
+                   and printed after it): the pruned run's outputs equal
+                   main's native route's and its _assign.tsv the unpruned
+                   run's, probe, chain, band and EM kernels launched, the
+                   card deciding reads; each run's read_assignment
+                   seconds; on main's chunk with the most hits, the
+                   census, the tiles, the chain kernel alone, the keep set
+                   and the whole chunk timed, and the chunk with the
+                   chain's plain version (on the card's tensors)
+  9. em_timing     the EM kernel on that HLA problem, the microcell and a
                    seeded problem with ~10x its incidences (the
                    device-memory instantiation): kernel alone (tables on
                    the card), the em_quantify_gpu wrapper and the native
@@ -57,12 +80,12 @@ Phases, in order; any failure raises and the exit code is non-zero:
                    add-chain bound, and the profiled instantiation's
                    per-phase cycle shares; the plain version on the HLA
                    problem
-  9. timing        thread kernel, warp kernel and plain version, in turns,
+ 10. timing        thread kernel, warp kernel and plain version, in turns,
                    on the largest deferred-item batch one engine chunk of
                    the main path sends, with the chunk's shape (p_len and
                    |t_len - p_len| quantiles, row use of the sorted launch,
                    slot counts of its warps)
- 10. extract       the FASTQ extraction stage on the same panel (k = 13,
+ 11. extract       the FASTQ extraction stage on the same panel (k = 13,
                    hashed table): 200,000 read pairs of 2 x 100 bp
                    (4,000 simulated on-panel pairs, 16,000 near-miss
                    pairs, 180,000 random pairs, shuffled) through
@@ -71,9 +94,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
                    t1k_tpu.cli.extract --backend native run in a child
                    process; both phase-A kernels must launch and the
                    device must decide a share of the screened reads
- 11. screen_timing probe and chain kernels vs their plain versions, in
+ 12. screen_timing probe and chain kernels vs their plain versions, in
                    turns, on one full 1024-row chunk of the extract inputs
- 12. run           the run-t1k chain (extract -> genotype -> analyze) on
+ 13. run           the run-t1k chain (extract -> genotype -> analyze) on
                    the same panel: 250,000 read pairs built as extract's
                    (10,000 simulated, 40,000 near-miss, 200,000 random),
                    the simulated pairs of two genes drawn from copies of
@@ -90,7 +113,7 @@ Phases, in order; any failure raises and the exit code is non-zero:
                    analyzer's read assignment must launch; each route's
                    process wall and stage seconds (between the lines of
                    its log that open and close each stage) are printed
- 13. bam_run       the run-t1k chain on a BAM (-b, with -c the coordinate
+ 14. bam_run       the run-t1k chain on a BAM (-b, with -c the coordinate
                    fasta: every panel allele on its gene's interval of
                    chr6): 250,000 pairs of 2 x 100 bp (BAM_PAIRS:
                    10,000 on-panel pairs in their gene's interval, 1,000
@@ -108,13 +131,13 @@ Phases, in order; any failure raises and the exit code is non-zero:
                    then the port's extraction alone in this process, its
                    screen on the host engine, then on the card, each run
                    timed and its outputs equal to the chain's
- 14. run_profile   the port's analyzer alone on the run's genotyper
+ 15. run_profile   the port's analyzer alone on the run's genotyper
                    outputs under torch.profiler: the same VCF, and the
                    card's busy and idle share of each analyzer stage; its
                    largest batch of deferred items is kept
- 15. analyzer_timing  the thread band kernels vs their plain version on
+ 16. analyzer_timing  the thread band kernels vs their plain version on
                    that batch, exact and in turns, with its shape
- 16. smartseq      one SMART-seq2 plate of one donor: 96 cells of 4,000
+ 17. smartseq      one SMART-seq2 plate of one donor: 96 cells of 4,000
                    pairs of 2 x 100 bp (800 simulated from the donor's
                    two alleles of 6 of 8 panel genes, drawn per cell, at
                    a ratio drawn from [0.1, 0.9]; 800 near-miss and 2,400
@@ -130,13 +153,13 @@ Phases, in order; any failure raises and the exit code is non-zero:
                    chain, band and the batched EM must launch; each
                    route's wall and pass walls, and a spawn pool's
                    start-up
- 17. cohort_em_timing  the EM kernel's cohort form alone on (a) the 96
+ 18. cohort_em_timing  the EM kernel's cohort form alone on (a) the 96
                    problems the port's second pass solved and (b) 384
                    cells of benchmarks/cohort_em.py's default shape: the
                    batched launch, one single-problem launch per cell,
                    the per-cell native loop and the plain version, in
                    turns, every cell bit for bit against the native loop
- 18. sharded_em    the sharded EM (t1k_tpu_torch/parallel/mesh.py and
+ 19. sharded_em    the sharded EM (t1k_tpu_torch/parallel/mesh.py and
                    multihost.py; the sharded form of em_squarem.cu) on
                    one card: em_quantify_sharded_squarem over [card] x n,
                    n = 1, 2, 4, on the main phase's HLA problem and the
@@ -155,7 +178,14 @@ Phases, in order; any failure raises and the exit code is non-zero:
                    solves in turns with the single-problem kernel (alone
                    and through em_quantify_gpu) and the native loop, one
                    update's row passes, column chain and tail alone, the
-                   E-step against its plain version and torch.sparse
+                   E-step against its plain version and torch.sparse;
+                   then parallel/dryrun.py's dryrun_multichip (the band
+                   kernel and FragWeight on a 1,024-pair batch, the sharded
+                   SQUAREM in f32 and f64 against the native loop) and
+                   parallel/scaling_bench.py's two loops (the sharded plain
+                   EM on its 200,000 x 4,096 problem, the dry run four
+                   times) over [card] x 1, 2, 4, their launch counts set
+                   to 0 before and read after, their times printed
 Then the card line, one JSON line describing the kernels (times; launches
 over the run phase's chain, the v1 aligner's over its own phase's seeded
 and ring batches (its three paths summed, and per path in
@@ -173,8 +203,14 @@ cohort form also the cells' chains over the SMs' resident blocks; the
 batched EM timed on set (b); em_sharded, the sharded form's E-step on the
 HLA problem at one shard, with its launches over the sharded_em phase's
 six solves, the tail's beside them, and its library_ms two torch.sparse
-CSR products; no single PyTorch call computes the others, so their
-library_ms is null), and
+CSR products; device_candidates, K10 (census, tiles and keep set on
+the genotyper cell's chunk with the most hits, the chain kernel's
+launches in the pruned genotyper run, its bound the bytes of the census
+sort and the tiles) with the pieces' times, generate's and
+set_candidates' seconds, the decided share and each run's
+read_assignment seconds; launches_dryrun on band_stats_warp and
+em_sharded over the dry runs; no single PyTorch call computes the
+others, so their library_ms is null), and
 {"ok": true, "device": {...}} as the last line.  Work files go to a
 temporary directory that is removed at exit.
 """
@@ -944,6 +980,373 @@ def phase_main(dev, work: str, n_genes: int, copies: int, n_pairs: int,
     for route, m in metrics.items():
         print(f"  {route} stages: " + " ".join(
             f"{k}={v['seconds']}s" for k, v in m.items()), flush=True)
+
+
+def candidate_cases():
+    """(name, seqs, reads, k, hit_len, caps) of the seeded panels of the
+    candidate route: random panels, 40 alleles 1% apart (the genotyper's
+    k = 11, hitLen 31), the same in chunks of 7 reads and tiles of 50
+    buckets, and tiny caps (the hit cap, the bucket cap)."""
+    cases = []
+    for trial in range(3):
+        rng = np.random.default_rng(900 + trial)
+        base = rand_seq(rng, int(rng.integers(300, 700)))
+        seqs = []
+        for _ in range(int(rng.integers(3, 25))):
+            if rng.random() < 0.7:
+                seqs.append(mutate(rng, base, 0.03).replace("N", "A"))
+            else:
+                seqs.append(rand_seq(rng, int(rng.integers(200, 600))))
+        cases.append((f"random{trial}", seqs, make_reads(rng, seqs, 200), 9,
+                      23, dict(bucket_cap=128)))
+    rng = np.random.default_rng(41)
+    base = rand_seq(rng, 900)
+    seqs = [mutate(rng, base, 0.01).replace("N", "G") for _ in range(40)]
+    reads = make_reads(rng, seqs, 400)
+    cases.append(("near_identical", seqs, reads, 11, 31,
+                  dict(bucket_cap=256)))
+    cases.append(("chunks_tiles", seqs, reads, 11, 31,
+                  dict(bucket_cap=256, row_chunk=7, tile_rows=50)))
+    rng = np.random.default_rng(5)
+    base = rand_seq(rng, 400)
+    seqs = [mutate(rng, base, 0.005).replace("N", "T") for _ in range(110)]
+    reads = [mutate(rng, base[:100], 0.01) for _ in range(8)]
+    cases.append(("hit_cap", seqs, reads, 9, 23,
+                  dict(hit_cap=256, bucket_cap=32)))
+    cases.append(("bucket_cap", seqs, reads, 9, 23, dict(bucket_cap=2)))
+    return cases
+
+
+def candidate_keys(out, n_seqs: int) -> np.ndarray:
+    """generate's buckets as read * 2 n_seqs + (strand +1: n_seqs) + seq."""
+    reads, seqs, strands, _ = out
+    return (reads * 2 * n_seqs + np.where(strands == 1, n_seqs, 0)
+            + seqs.astype(np.int64))
+
+
+def check_candidates(dev, packed, k: int, hit_len: int, reads, codes, lens,
+                     caps: dict, what: str, plain_rows=None):
+    """DeviceCandidates on `dev` against its plain version on the CPU (on
+    the first `plain_rows` reads, all by default; array for array) and
+    every decided read's keep set against the engine's overlap buckets.
+    Returns the card's DeviceCandidates, its output and its chunks'
+    figures."""
+    from t1k_tpu_torch.native import NativeEngine
+    from t1k_tpu_torch.ops import phase_a as pa
+
+    dc = pa.DeviceCandidates.build(packed, k, hit_len, device=dev, **caps)
+    out = dc.generate(codes, lens)
+    chunks = list(dc.chunks)
+    sub = slice(0, plain_rows)
+    if plain_rows is not None:
+        got = dc.generate(codes[sub], lens[sub])
+    else:
+        got = out
+    want = pa.DeviceCandidates.build(packed, k, hit_len, device="cpu",
+                                     **caps).generate(codes[sub], lens[sub])
+    for g, w in zip(got, want):
+        if g.dtype != w.dtype or not np.array_equal(g, w):
+            raise AssertionError(f"candidates {what}: card differs from "
+                                 "plain")
+    eng = NativeEngine(packed, k, hit_len_required=hit_len)
+    starts = np.zeros(len(lens), np.int64)
+    starts[1:] = np.cumsum(lens[:-1].astype(np.int64))
+    cat = np.concatenate([encode(r) if isinstance(r, str) else r
+                          for r in reads])
+    off, oseqs, ostrands = eng.overlap_buckets(cat, starts, lens)
+    read_of = np.repeat(np.arange(len(lens)), np.diff(off))
+    keep = ~out[3][read_of]
+    want_keys = candidate_keys((read_of[keep], oseqs[keep], ostrands[keep],
+                                None), packed.n)
+    if not np.array_equal(np.sort(candidate_keys(out, packed.n)),
+                          np.sort(want_keys)):
+        raise AssertionError(f"candidates {what}: keep sets differ from the "
+                             "engine's overlap buckets")
+    return dc, out, chunks
+
+
+def genotype_child(dev, work: str, name: str, flags) -> tuple:
+    """t1k_tpu_torch.cli.genotype on the main phase's reads in a child
+    process (--backend gpu --emBackend gpu --outputReadAssignment):
+    (prefix, the kernels' launch counts, its metrics, process seconds)."""
+    prefix = os.path.join(work, name)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", PORT_GENOTYPE, "-f",
+         os.path.join(work, "panel.fa"), "-1", os.path.join(work, "r_1.fq"),
+         "-2", os.path.join(work, "r_2.fq"), "-o", prefix, "--backend",
+         "gpu", "--emBackend", "gpu", "--device", str(dev),
+         "--outputReadAssignment", *flags],
+        cwd=ROOT, env=child_env(), capture_output=True, text=True)
+    secs = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"{name} failed:\n{proc.stderr[-4000:]}")
+    with open(prefix + "_metrics.json") as f:
+        metrics = json.load(f)
+    return (prefix, json.loads(proc.stdout.strip().splitlines()[-1]),
+            metrics, secs)
+
+
+def k10_chunk(census_args, lens, dc):
+    """One chunk of generate after its probe (DeviceCandidates.chunk: the
+    census, the tiles, the kept keys), the keys brought to the host."""
+    keys, _ = dc.chunk(*census_args, lens, {})
+    return keys.cpu()
+
+
+def k10_bound(census, rows, contrib, n_reads: int, n_seqs: int,
+              n_kept: int) -> tuple:
+    """Bound of one chunk of K10 after its probe, in bytes at the card's
+    memory rate, each value at the narrowest width that holds it.  Census:
+    contrib and cstart in, one posting id read per slot for post_seq and
+    post_off (8 bytes), the sort (8-bit digit passes over the bits of the
+    chunk's largest key, below n_reads * 2 n_seqs, each reading and
+    writing an int32 key and an int32 slot index: 16 bytes a slot a pass)
+    and the outputs (gk, bid, within, a and b per slot, first and count
+    per bucket, int32 each).  Tiles: each chained bucket's seeds (8
+    bytes), its key, first and count, lens and two flags (24 bytes); keep
+    set: each chained bucket's key in and each kept key out (4 bytes).
+    Returns (the bound, the sort's passes, the chained buckets' counts)."""
+    total = census.gk.numel()
+    passes = -(-(n_reads * 2 * n_seqs - 1).bit_length() // 8)
+    cnt = census.count[rows].cpu().numpy()
+    n_bytes = (2 * contrib.numel() * 4 + total * 8 + passes * 16 * total
+               + total * 5 * 4 + int(census.nb_total) * 2 * 4
+               + 8 * float(cnt.sum()) + len(cnt) * 24
+               + len(cnt) * 4 + n_kept * 4)
+    return bound(n_bytes, 0, int32_per_s()), passes, cnt
+
+
+def phase_candidates(dev, work: str, info: dict) -> tuple:
+    """The genotyper's device candidate pruning (DeviceCandidates, K10) on
+    the card; see the module docstring.  Returns ((per-chunk ms, plain ms,
+    bound), the chain's launches in the pruned genotyper run, the kernel
+    record's other fields)."""
+    import torch
+
+    from t1k_tpu_torch.constants import GENOTYPER_KMER_LENGTH
+    from t1k_tpu_torch.core.pipeline import CANDIDATE_CAPS
+    from t1k_tpu_torch.io.refset import RefSet
+    from t1k_tpu_torch.native import NativeEngine
+    from t1k_tpu_torch.ops import phase_a as pa
+
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    decided = screened = 0
+    for name, seqs, reads, k, hlr, caps in candidate_cases():
+        rs = RefSet(digit_units=-1, delimiter="")
+        for i, s in enumerate(seqs):
+            rs.add_allele(f"G{i % 3}*{i:03d}", s, None)
+        codes, lens = pad_reads(reads)
+        dc, out, _ = check_candidates(dev, rs.packed(), k, hlr, reads,
+                                      codes, lens, caps, name)
+        if name.endswith("_cap") and not out[3].all():
+            raise AssertionError(f"candidates {name}: reads past the caps "
+                                 "were decided")
+        decided += dc.decided
+        screened += dc.screened
+    info["seeded_reads"] = screened
+    info["seeded_decided"] = decided
+
+    # the genotyper cell's unique reads, as the stage sends them
+    k = GENOTYPER_KMER_LENGTH
+    packed = RefSet.from_fasta(os.path.join(work, "panel.fa"), -1,
+                               "").packed()
+    seqs = sorted({s for side in ("1", "2") for s in read_fastq_seqs(
+        os.path.join(work, f"r_{side}.fq"), -1)})
+    uniq = [s.decode() for s in seqs]
+    codes, lens = pad_reads(uniq)
+    hlr = NativeEngine(packed, k).hit_len_required
+    t0 = time.perf_counter()
+    dc, out, chunks = check_candidates(dev, packed, k, hlr, uniq, codes,
+                                       lens, CANDIDATE_CAPS,
+                                       "genotyper cell", plain_rows=16)
+    info["check_s"] = f"{time.perf_counter() - t0:.1f}"
+    for c in chunks:
+        print("  chunk {lo}-{hi}: hits={hits} buckets={buckets} "
+              "chained={chained} tiles={tiles} decided={decided} "
+              "kept={kept}".format(**c), flush=True)
+    n = len(uniq)
+    n_decided = int((~out[3]).sum())
+    hits = np.array([c["hits"] for c in chunks])
+    # each read's hits, and the largest chunk total at other chunk sizes
+    # (what the pipeline's row_chunk is chosen from)
+    tot = np.concatenate([pa.probe(
+        torch.from_numpy(codes[lo:lo + 1024]).to(dev),
+        torch.from_numpy(lens[lo:lo + 1024]).to(dev), dc.index)[2].cpu()
+        .numpy() for lo in range(0, n, 1024)]).astype(np.int64)
+    info["hits_per_read"] = (f"mean:{tot.mean():.1f} median:"
+                             f"{np.median(tot):.0f} p99:"
+                             f"{np.percentile(tot, 99):.0f} max:{tot.max()}")
+    for rows in (1024, 512, 256):
+        info[f"max_hits_{rows}_rows"] = int(np.add.reduceat(
+            tot, np.arange(0, n, rows)).max())
+    info["unique_reads"] = n
+    info["decided_share"] = f"{n_decided / n:.4f}"
+    info["row_chunk"] = dc.row_chunk
+    info["chunks"] = len(chunks)
+    info["hits_per_chunk"] = f"{hits.min()}-{int(np.median(hits))}-" \
+                             f"{hits.max()}"
+    info["hit_cap"] = dc.hit_cap
+    info["buckets_per_read"] = \
+        f"{sum(c['buckets'] for c in chunks) / n:.1f}"
+    info["chained_per_read"] = \
+        f"{sum(c['chained'] for c in chunks) / n:.1f}"
+    info["kept_per_read"] = f"{len(out[0]) / max(n_decided, 1):.1f}"
+    if n_decided < 0.95 * n:
+        raise AssertionError(f"the card decided {n_decided} of {n} reads")
+    gen_s = []
+    for _ in range(2):
+        sync()
+        t0 = time.perf_counter()
+        dc.generate(codes, lens)
+        gen_s.append(time.perf_counter() - t0)
+    info["generate_s"] = " ".join(f"{t:.3f}" for t in gen_s)
+    eng = NativeEngine(packed, k)
+    set_s = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        eng.set_candidates(n, *out)
+        set_s.append(time.perf_counter() - t0)
+    info["set_candidates_s"] = " ".join(f"{t:.3f}" for t in set_s)
+
+    # end to end: the genotyper with and without pruning, in turns; every
+    # output of the pruned run equal to the native route's and to the
+    # unpruned port run's
+    runs = {}
+    for name, flags in (("cand_plain_a", []),
+                        ("cand_pruned_a", ["--deviceCandidates"]),
+                        ("cand_pruned_b", ["--deviceCandidates"]),
+                        ("cand_plain_b", [])):
+        runs[name] = genotype_child(dev, work, name, flags)
+    pruned, launches, metrics, _ = runs["cand_pruned_a"]
+    plain = runs["cand_plain_a"][0]
+    for suffix in ("_genotype.tsv", "_allele.tsv", "_aligned_1.fa",
+                   "_aligned_2.fa", "_assign.tsv"):
+        with open(pruned + suffix, "rb") as f:
+            got = f.read()
+        refs = [plain] + ([os.path.join(work, "native")]
+                          if suffix != "_assign.tsv" else [])
+        for ref in refs:
+            with open(ref + suffix, "rb") as f:
+                if f.read() != got:
+                    raise AssertionError(f"pruned {suffix} differs from "
+                                         f"{os.path.basename(ref)}")
+    ra = metrics["read_assignment"]
+    if cuda and min(launches[kn] for kn in (
+            "phase_a_probe", "phase_a_chain", "band_stats",
+            "em_squarem")) <= 0:
+        raise AssertionError(f"a kernel of the pruned route never "
+                             f"launched: {launches}")
+    if ra["device_decided_reads"] <= 0:
+        raise AssertionError("the card decided no read of the genotyper")
+    for name, (_, _, m, secs) in runs.items():
+        r = m["read_assignment"]
+        info[f"{name}_read_assignment_s"] = r["seconds"]
+        info[f"{name}_process_s"] = f"{secs:.2f}"
+        if "candidate_seconds" in r:
+            info[f"{name}_candidate_s"] = r["candidate_seconds"]
+    info["pruned_decided_reads"] = ra["device_decided_reads"]
+    info["pruned_candidates"] = ra["candidate_count"]
+    info["pruned_launches"] = " ".join(f"{kn}:{v}"
+                                       for kn, v in launches.items())
+
+    # K10 on the chunk with the most hits, each piece alone
+    big = max((c for c in chunks if c["hits"] <= dc.hit_cap),
+              key=lambda c: c["hits"])
+    lo, hi = big["lo"], big["hi"]
+    idx = dc.index
+    codes_d = torch.from_numpy(codes[lo:hi]).to(dev)
+    lens_d = torch.from_numpy(lens[lo:hi]).to(dev)
+    contrib, cstart, _ = pa.probe(codes_d, lens_d, idx)
+    census_args = (contrib, cstart, big["hits"])
+    census = pa.cand_census(*census_args, idx)
+    rows = torch.nonzero((census.count >= pa.min_chain_seeds(k, hlr))
+                         & (census.count <= dc.bucket_cap))[:, 0]
+    tiles = [rows[t:t + dc.tile_rows]
+             for t in range(0, len(rows), dc.tile_rows)]
+    tile_kw = dict(k=k, n_seqs=idx.n_seqs, radius=dc.radius,
+                   hit_len_required=hlr, bucket_cap=dc.bucket_cap)
+    seeds = []
+    for tile in tiles:   # the chain kernel's inputs, for it alone
+        cnt = census.count[tile]
+        col = torch.arange(dc.bucket_cap, device=dev)
+        valid = col[None, :] < cnt[:, None]
+        src = torch.where(valid, census.first[tile][:, None] + col, 0)
+        seeds.append((torch.where(valid, census.a[src], 0),
+                      torch.where(valid, census.b[src], 0),
+                      cnt.to(torch.int32),
+                      lens_d[census.gk[census.first[tile]]
+                             // (2 * idx.n_seqs)].contiguous()))
+
+    def chains():
+        for a, b, nb, ln in seeds:
+            pa.chain_rows(a, b, nb, ln, torch.zeros_like(ln), k=k,
+                          radius=dc.radius, hit_len_required=hlr)
+
+    def tiles_fn():
+        for tile in tiles:
+            pa.cand_tile(census, lens_d, tile, **tile_kw)
+
+    keys = torch.cat([torch.where(pa.cand_tile(census, lens_d, tile,
+                                               **tile_kw),
+                                  census.gk[census.first[tile]], -1)
+                      for tile in tiles])
+    reps = 10 if cuda else 1
+    ms = dict(census=time_ms(lambda: pa.cand_census(*census_args, idx),
+                             reps, dev),
+              tiles=time_ms(tiles_fn, reps, dev),
+              chain=time_ms(chains, reps, dev),
+              keep=time_ms(lambda: keys[keys >= 0].cpu(), reps, dev),
+              chunk=time_ms(lambda: k10_chunk(census_args, lens_d, dc),
+                            reps, dev))
+    want = k10_chunk(census_args, lens_d, dc)
+    # the plain version: the same tensor code with the chain's plain
+    # version, on the card's tensors
+    kernel_chain = pa.chain_rows
+
+    def plain_chain(a, b, nb, ln, budgets, **kw):
+        core, budget = pa.chain_rows_plain(a, b, nb, ln, budgets, **kw)
+        return torch.stack([(core & budget).any(dim=1),
+                            core.any(dim=1)]).to(torch.int32)
+    pa.chain_rows = plain_chain
+    try:
+        sync()
+        t0 = time.perf_counter()
+        got = k10_chunk(census_args, lens_d, dc)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        pa.chain_rows = kernel_chain
+    err = 0 if torch.equal(got, want) else 1
+    if err:
+        raise AssertionError("K10 chunk: the chain kernel differs from the "
+                             "plain chain")
+    bnd, passes, cnt = k10_bound(census, rows, contrib, hi - lo,
+                                 idx.n_seqs, len(want))
+    for key, v in ms.items():
+        info[f"k10_{key}_ms"] = f"{v:.4f}"
+    info["k10_plain_ms"] = f"{plain_ms:.1f}"
+    info["k10_chunk"] = f"{lo}-{hi}"
+    info["k10_chunk_hits"] = big["hits"]
+    info["k10_chained"] = len(cnt)
+    info["k10_tiles"] = len(tiles)
+    info["k10_bound_ms"] = f"{bnd[0]:.4f}"
+    info["k10_sort_passes"] = passes
+    info["k10_buckets"] = int(census.nb_total)
+    info["k10_kept"] = len(want)
+    extras = dict(max_abs_err=err, census_ms=ms["census"],
+                  tiles_ms=ms["tiles"], chain_ms=ms["chain"],
+                  keep_ms=ms["keep"], chunk_hits=big["hits"],
+                  launches_probe=launches["phase_a_probe"],
+                  generate_s=float(np.mean(gen_s)),
+                  set_candidates_s=float(np.mean(set_s)),
+                  decided_share=n_decided / n,
+                  read_assignment_s={
+                      name: m["read_assignment"]["seconds"]
+                      for name, (_, _, m, _) in runs.items()},
+                  source_census="t1k_tpu_torch/ops/phase_a.py",
+                  replaces_tile="t1k_tpu/ops/phase_a.py:803")
+    return (ms["chunk"], plain_ms, bnd), launches["phase_a_chain"], extras
 
 
 def thread_slots(t_len: int, p_len: int, ml: int) -> int:
@@ -1859,6 +2262,12 @@ PORT_RUN = ("import json, sys\n"
             "rc = run.main(sys.argv[1:])\n"
             "print(json.dumps({k: v for c in counts for k, v in c.items()}))\n"
             "sys.exit(rc)\n")
+
+# t1k_tpu_torch.cli.genotype as `python -m` runs it, with the kernels' launch
+# counts set to 0 just before it and printed as the last line after it
+PORT_GENOTYPE = PORT_RUN.replace("from t1k_tpu_torch.cli import run",
+                                 "from t1k_tpu_torch.cli import genotype") \
+    .replace("run.main(", "genotype.main(")
 
 
 def timed_chain(cmd, stage_marks=STAGE_MARKS, env=None) -> tuple:
@@ -2889,18 +3298,15 @@ MULTIHOST_CHILD = (
 
 
 def scaling_problem(rg_cnt: int = SCALING_RG, ec_cnt: int = SCALING_EC):
-    """parallel/scaling_bench.py's problem (seed 11, copied): 8 entries of
-    count 1 a read group on average, repeats among them, as
+    """t1k_tpu_torch/parallel/scaling_bench.py's problem (seed 11): 8
+    entries of count 1 a read group on average, repeats among them, as
     em_quantify_sharded's (seg_rg, seg_ec, counts, rg_cnt, ec_len,
     init_x)."""
-    rng = np.random.default_rng(11)
-    nnz = rg_cnt * 8
-    seg_rg = np.sort(rng.integers(0, rg_cnt, nnz)).astype(np.int32)
-    seg_ec = rng.integers(0, ec_cnt, nnz).astype(np.int32)
-    counts = np.ones(nnz, np.float64)
-    ec_len = rng.integers(800, 20000, ec_cnt).astype(np.float64)
-    init = np.ones(ec_cnt, np.float64)
-    return seg_rg, seg_ec, counts, rg_cnt, ec_len, init
+    from t1k_tpu_torch.parallel.scaling_bench import scaling_problem as make
+
+    p = make(rg_cnt, ec_cnt)
+    return (p["seg_rg"], p["seg_ec"], p["counts"], p["rg_cnt"], p["ec_len"],
+            p["init"])
 
 
 def sharded_args(problem: dict) -> tuple:
@@ -3015,6 +3421,35 @@ def estep_bound(tables: dict, add_ns: float, itemsize: int = 8):
                                                               "bytes")
 
 
+def dryrun_scaling(dev, sizes: dict, info: dict) -> dict:
+    """The dry run (parallel/dryrun.py: band kernel, FragWeight, sharded
+    SQUAREM in f32 and f64 against the native loop) and the scaling
+    bench's two loops (parallel/scaling_bench.py) over [dev] x n, n in
+    SHARDS; the dry runs' launch counts set to 0 just before them and read
+    just after.  Prints the bench's JSON line; returns those counts."""
+    from t1k_tpu_torch.ops import align_band as ab
+    from t1k_tpu_torch.ops import em
+    from t1k_tpu_torch.parallel import scaling_bench as sb
+
+    mesh_of = {n: [dev] * n for n in SHARDS}
+    ab.launch_counts.update(dict.fromkeys(ab.launch_counts, 0))
+    em.launch_counts.update(dict.fromkeys(em.launch_counts, 0))
+    step = sb.bench_full_step(mesh_of)
+    dry = {key: d[key] for d, key in ((ab.launch_counts, "band_stats_warp"),
+                                      (em.launch_counts, "em_squarem"),
+                                      (em.launch_counts, "em_sharded"))}
+    if dev.type == "cuda" and min(dry.values()) <= 0:
+        raise AssertionError(f"a dry-run kernel never launched: {dry}")
+    em_scaling = sb.bench_em(mesh_of, sb.scaling_problem(*sizes["scaling"]))
+    for n in SHARDS:
+        info[f"dryrun_n{n}_s"] = step[n]["s_per_step"]
+        info[f"scaling_n{n}_ms"] = em_scaling[n]["ms_per_iteration"]
+    info["dryrun_launches"] = " ".join(f"{k}:{v}" for k, v in dry.items())
+    print(json.dumps({"metric": "sharded_em_scaling", "results": em_scaling,
+                      "full_step_weak_scaling": step}), flush=True)
+    return dry
+
+
 def phase_sharded_em(dev, hla: dict, plate_em: str, sizes: dict, work: str,
                      info: dict):
     """The sharded EM (parallel/mesh.py, multihost.py; the sharded form of
@@ -3114,6 +3549,7 @@ def phase_sharded_em(dev, hla: dict, plate_em: str, sizes: dict, work: str,
     info["multihost_ranks"] = len(ranks)
     info["multihost_estep_launches"] = sum(r["em_sharded"]
                                            for r in ranks.values())
+    dry = dryrun_scaling(dev, sizes, info)
 
     # timings: the solves in turns with K5 and the native loop; then one
     # update's pieces on a built problem
@@ -3208,6 +3644,7 @@ def phase_sharded_em(dev, hla: dict, plate_em: str, sizes: dict, work: str,
         timed = (kernel_ms, plain_ms, estep_bound(t, add_ns))
         extras = dict(library_ms=lib_ms, max_abs_err=err)
     extras.update(
+        launches_dryrun=dry,
         solve_bound_ms=float(info["hla_solve_chain_bound_ms"]),
         launches_tail=launches["em_sharded_tail"],
         launches_multihost=info["multihost_estep_launches"],
@@ -3227,7 +3664,8 @@ KERNELS = {"band_stats": "band_stats", "band_stats_analyzer": "band_stats",
            "em_squarem": "em_squarem", "em_squarem_batched": "em_squarem",
            "em_sharded": "em_squarem",
            "align_full": "align_full",
-           "phase_a_probe": "phase_a_probe", "phase_a_chain": "phase_a_chain"}
+           "phase_a_probe": "phase_a_probe", "phase_a_chain": "phase_a_chain",
+           "device_candidates": "phase_a_chain"}
 
 
 def run(dev, sizes: dict) -> list:
@@ -3269,6 +3707,9 @@ def run(dev, sizes: dict) -> list:
             em_problems = []
             phase_main(dev, work, PANEL_GENES, PANEL_COPIES,
                        sizes["sim_pairs"], info, em_problems)
+        with phase("candidates") as info:
+            times["device_candidates"], cand_launches, cand_extras = \
+                phase_candidates(dev, work, info)
         with phase("em_timing") as info:
             *times["em_squarem"], em_err = phase_em_timing(
                 dev, em_problems[0], sizes, info)
@@ -3309,7 +3750,8 @@ def run(dev, sizes: dict) -> list:
     # and the plate (the v1 aligner's not counted there)
     launches = dict(run_launches, align_full=sum(v1_launches.values()),
                     em_squarem_batched=plate_launches["em_squarem_batched"],
-                    em_sharded=sharded_launches)
+                    em_sharded=sharded_launches,
+                    device_candidates=cand_launches)
     replaces = {"band_stats": "t1k_tpu/ops/align_pallas_band.py:55",
                 "band_stats_analyzer": "t1k_tpu/ops/align_pallas_band.py:55",
                 "band_stats_warp": "t1k_tpu/ops/align_pallas_band.py:55",
@@ -3318,11 +3760,14 @@ def run(dev, sizes: dict) -> list:
                 "em_sharded": "t1k_tpu/parallel/mesh.py:125",
                 "align_full": "t1k_tpu/ops/align_pallas.py:44",
                 "phase_a_probe": "t1k_tpu/ops/phase_a.py:343",
-                "phase_a_chain": "t1k_tpu/ops/phase_a.py:457"}
+                "phase_a_chain": "t1k_tpu/ops/phase_a.py:457",
+                "device_candidates": "t1k_tpu/ops/phase_a.py:754"}
     errs = {name: checks[name].max_err for name in KERNELS}
     errs["em_squarem"] = em_err
     errs["em_squarem_batched"] = batched_err
     errs["em_sharded"] = sharded_extras.pop("max_abs_err")
+    errs["device_candidates"] = cand_extras.pop("max_abs_err")
+    dry_launches = sharded_extras.pop("launches_dryrun")
     # no single PyTorch call computes the others: their library_ms is null
     # the v1 aligner's paths as one kernel, align_full
     plate_launches["align_full"] = sum(
@@ -3337,7 +3782,11 @@ def run(dev, sizes: dict) -> list:
                 "bound_by": times[name][2][1], "library_ms": None}
                for name in KERNELS]
     records[list(KERNELS).index("align_full")].update(v1_extras)
-    records[list(KERNELS).index("em_sharded")].update(sharded_extras)
+    records[list(KERNELS).index("em_sharded")].update(
+        sharded_extras, launches_dryrun=dry_launches["em_sharded"])
+    records[list(KERNELS).index("band_stats_warp")][
+        "launches_dryrun"] = dry_launches["band_stats_warp"]
+    records[list(KERNELS).index("device_candidates")].update(cand_extras)
     return records
 
 

@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
 """Some of chip_smoke.py's phases alone, on one CUDA card.
 
-  python3 scripts/smoke_phases.py [v1] [main] [em_timing] [smartseq]
-                                  [cohort_em_timing] [sharded_em]
+  python3 scripts/smoke_phases.py [v1] [main] [candidates] [em_timing]
+                                  [smartseq] [cohort_em_timing]
+                                  [sharded_em]
 
 Builds the kernels (the smoke's `build` phase, with the compiler's
 register and spill lines), then runs the named phases in the smoke's
-order at its full sizes, each as chip_smoke.run runs it: em_timing takes
-main's EM problem and runs main first; cohort_em_timing takes smartseq's
+order at its full sizes, each as chip_smoke.run runs it: candidates and
+em_timing take main's panel, reads and outputs (em_timing its EM
+problem) and run main first; cohort_em_timing takes smartseq's
 problems and runs smartseq first; sharded_em takes both and runs both
 (its multi-process ranks in child processes); without main, the
 HLA-scale panel is
@@ -28,8 +30,8 @@ sys.path.insert(0, ROOT)
 
 import chip_smoke as cs  # noqa: E402
 
-PHASES = ("v1", "main", "em_timing", "smartseq", "cohort_em_timing",
-          "sharded_em")
+PHASES = ("v1", "main", "candidates", "em_timing", "smartseq",
+          "cohort_em_timing", "sharded_em")
 
 
 def main(argv) -> int:
@@ -43,7 +45,7 @@ def main(argv) -> int:
     if not wanted <= set(PHASES):
         print(f"phases: {' '.join(PHASES)}", file=sys.stderr)
         return 2
-    if "em_timing" in wanted:
+    if wanted & {"candidates", "em_timing"}:
         wanted.add("main")
     if "cohort_em_timing" in wanted:
         wanted.add("smartseq")
@@ -79,6 +81,13 @@ def main(argv) -> int:
                               sizes["sim_pairs"], info, em_problems)
         else:
             cs.build_panel(os.path.join(work, "panel.fa"))
+        if "candidates" in wanted:
+            with cs.phase("candidates") as info:
+                timed, launches, extras = cs.phase_candidates(dev, work,
+                                                              info)
+            print(json.dumps({"device_candidates": dict(
+                extras, ms=timed[0], plain_ms=timed[1], bound_ms=timed[2][0],
+                bound_by=timed[2][1], launches=launches)}), flush=True)
         if "em_timing" in wanted:
             with cs.phase("em_timing") as info:
                 cs.phase_em_timing(dev, em_problems[0], sizes, info)

@@ -2,12 +2,14 @@
 Genotyper.cpp:194-738).
 
   python -m t1k_tpu_torch.cli.genotype -f ref.fa -1 c_1.fq -2 c_2.fq \\
-      -o prefix --backend gpu --emBackend gpu [--device cuda:0]
+      -o prefix --backend gpu --emBackend gpu [--device cuda:0] \\
+      [--deviceCandidates]
 
 Same flags as ``t1k_tpu.cli.genotype``, with ``gpu`` in place of
 ``tpu`` / ``jax`` and a ``--device`` for the gpu routes.  Without a CUDA
 card, ``--backend auto`` (the default) exits with an error naming
-``--backend native`` and ``--device cpu``.
+``--backend native`` and ``--device cpu``; so does ``--deviceCandidates``
+(pruning on the card) without a card, naming ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -49,6 +51,11 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--barcode", nargs="+", action="extend", default=[])
     ap.add_argument("--relaxIntronAlign", action="store_true")
     ap.add_argument("--outputReadAssignment", action="store_true")
+    ap.add_argument("--deviceCandidates", dest="deviceCandidates",
+                    action="store_true",
+                    help="phase-A-lite: device-pruned candidate buckets for "
+                         "the assignment stage, on --device whatever the "
+                         "backend (byte-identical)")
     ap.add_argument("--backend", default="auto",
                     choices=["auto", "native", "gpu"],
                     help="alignment backend: gpu = the band kernel on "
@@ -92,6 +99,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         output_read_assignment=args.outputReadAssignment,
         threads=args.threads, backend=args.backend,
         em_backend=args.emBackend, device=args.device,
+        device_candidates=args.deviceCandidates,
     )
     try:
         _run(args, opts)

@@ -22,7 +22,9 @@ hla-wgs additionally -s 0.97 for the extractor; kir-wgs -> -s 0.9
 ``jax``, and ``--device`` names the torch device of the gpu routes (BAM
 input, -b, screens on them too).  Without a CUDA card, ``auto`` (the
 default) exits with an error naming ``--backend native`` and ``--device
-cpu``.  ``--deviceCandidates`` is not supported by the port yet.
+cpu``.  ``--deviceCandidates`` prunes the genotyper's candidate buckets
+on ``--device`` (byte-identical); without a card it exits with an error
+naming ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ from typing import List, Optional
 
 from ..config import PipelineConfig
 from ..core.genotyper import Genotyper
-from ..device import NoCardError, resolve_backend
+from ..device import NoCardError, resolve_backend, resolve_device
 from . import fold_negative_values
 
 
@@ -106,7 +108,9 @@ def build_parser() -> argparse.ArgumentParser:
                          "cpu for the kernels' plain versions)")
     ap.add_argument("--deviceCandidates", dest="deviceCandidates",
                     action="store_true",
-                    help="not supported by the port yet")
+                    help="phase-A-lite: device-pruned candidate buckets for "
+                         "the genotyper's assignment stage, on --device "
+                         "whatever the backend (byte-identical)")
     return ap
 
 
@@ -137,10 +141,6 @@ def main(argv: Optional[List[str]] = None) -> int:
     # argparse as the -1/-2 options; fold them in
     args = ap.parse_args(fold_negative_values(argv))
 
-    if args.deviceCandidates:
-        print("--deviceCandidates is not supported by t1k_tpu_torch yet.",
-              file=sys.stderr)
-        return 1
     geno_sim, extract_sim, relax = resolve_preset(
         args.preset, args.similarity, args.relaxIntronAlign)
 
@@ -161,6 +161,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         return 1
     try:  # an "auto" route without a card: fail before any output
         resolve_backend(args.backend, args.device)
+        if args.deviceCandidates:  # on --device whatever the backend
+            resolve_device(args.device, NoCardError)
         if args.emBackend == "auto":
             Genotyper._resolve_em_backend(0, 0, args.device)
     except NoCardError as err:
@@ -316,6 +318,7 @@ def _run(args, prefix: str, first: List[str], paired: bool,
             backend=args.backend,
             em_backend=args.emBackend,
             device=args.device,
+            device_candidates=args.deviceCandidates,
         )
         if nproc > 1:
             from ..parallel.distributed import (merge_shards_and_finish,

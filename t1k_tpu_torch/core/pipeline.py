@@ -25,12 +25,13 @@ import numpy as np
 
 from ..constants import (DEFAULT_MAX_ASSIGN_CNT, DEFAULT_REF_SEQ_SIMILARITY,
                          GENOTYPER_KMER_LENGTH, encode_seq)
-from ..device import BACKENDS, resolve_backend, resolve_device
+from ..device import BACKENDS, NoCardError, resolve_backend, resolve_device
 from ..io.reads import read_seq_files
 from ..io.refset import RefSet
 from ..native import NativeEngine
 from ..ops import align_band
 from ..ops.align_band import DeferredDescService
+from ..ops.phase_a import DeviceCandidates
 from ..utils.observability import metrics, reset_metrics, stage
 from .fragment import OverlapRec
 from .genotyper import Genotyper, GenotyperConfig
@@ -67,6 +68,17 @@ class GenotypeOptions:
     # torch device of the gpu routes: a CUDA device, or "cpu" for the
     # kernels' plain versions
     device: str = "cuda"
+    # The device prunes each read's (strand, seq) buckets to those whose
+    # chains emit an overlap (ops/phase_a.py DeviceCandidates) and the host
+    # engine collects hits only for them; byte-identical.  Off by default,
+    # as in the JAX package.  Runs on `device` whatever the backend.
+    device_candidates: bool = False
+
+
+# The candidate route's chunking on the genotyper (a routing choice; every
+# cap gives the same outputs): reads per chunk such that a chunk's hit
+# arena stays under the 2^24-slot cap on an HLA-scale panel (PERF.md §5).
+CANDIDATE_CAPS = dict(row_chunk=512)
 
 
 @dataclass
@@ -104,7 +116,7 @@ def assign_unique_reads(
     engine, seqs: List[str], backend: str = "native",
     desc_service: Optional[DeferredDescService] = None,
     store_results: bool = True, defer_chunk: int = 0,
-    zero_weights: bool = False,
+    zero_weights: bool = False, device_candidates=None,
 ) -> Tuple[List[str], np.ndarray, np.ndarray, np.ndarray]:
     """Group identical read sequences and run the engine once per unique
     sequence with the group size as its weight (Genotyper.cpp:450-479).
@@ -112,7 +124,9 @@ def assign_unique_reads(
     (Analyzer.cpp:142).
 
     With backend "gpu" the gap-fill and overhang alignments go to
-    `desc_service` through the engine's deferred descriptor mode."""
+    `desc_service` through the engine's deferred descriptor mode.  With
+    `device_candidates` (a DeviceCandidates) the engine collects hits
+    only for the buckets it keeps, on either backend."""
     order = sorted(range(len(seqs)), key=lambda i: seqs[i])
     uniq: List[str] = []
     weights: List[int] = []
@@ -137,6 +151,12 @@ def assign_unique_reads(
     if len(lens):
         starts[1:] = np.cumsum(lens[:-1])
     w = np.array(weights, dtype=np.int32)
+    prune = device_candidates is not None and len(uniq) > 0
+    if prune:
+        padded = np.full((len(uniq), int(lens.max())), 4, dtype=np.int8)
+        padded[np.arange(padded.shape[1])[None, :] < lens[:, None]] = codes
+        engine.set_candidates(len(uniq), *device_candidates.generate(padded,
+                                                                     lens))
     if backend == "gpu":
         if desc_service is None:
             raise ValueError("the gpu backend needs a desc_service")
@@ -149,6 +169,8 @@ def assign_unique_reads(
                                        store_results=store_results)
     else:
         raise ValueError(f"unknown alignment backend {backend!r}")
+    if prune:
+        engine.set_candidates(0, None, None, None, None)  # clear
     return uniq, group_of, rec, off
 
 
@@ -230,6 +252,8 @@ def prepare_genotyper(
     `desc_service` replaces the band-kernel service the gpu backend
     would build on `opts.device`."""
     opts = opts or GenotypeOptions()
+    if opts.device_candidates:  # on opts.device whatever the backend
+        resolve_device(opts.device, NoCardError)
     backend = resolve_backend(opts.backend, opts.device)
     if backend not in BACKENDS:
         raise ValueError(f"unknown alignment backend {backend!r}")
@@ -261,12 +285,17 @@ def prepare_genotyper(
     reset_metrics()
     log(f"Found {read_cnt} read fragments. Start read assignment.")
     all_seqs = seqs1 + seqs2
+    dev_cand = None
+    if opts.device_candidates:
+        dev_cand = DeviceCandidates.build(
+            packed, GENOTYPER_KMER_LENGTH, engine.hit_len_required,
+            device=resolve_device(opts.device), **CANDIDATE_CAPS)
     launches0 = align_band.launch_counts["band_stats"]
     items0 = desc_service.items_scored if desc_service is not None else 0
     with stage("read_assignment") as ctx:
         uniq, group_of, _, _ = assign_unique_reads(
             engine, all_seqs, backend, desc_service, store_results=False,
-            defer_chunk=opts.defer_chunk)
+            defer_chunk=opts.defer_chunk, device_candidates=dev_cand)
         ctx["read_count"] = len(all_seqs)
         ctx["unique_read_count"] = len(uniq)
         ctx["alignment_count"] = engine.last_assign_count
@@ -275,6 +304,10 @@ def prepare_genotyper(
             if backend == "gpu" else 0)
         ctx["band_kernel_launches"] = (align_band.launch_counts["band_stats"]
                                        - launches0)
+        if dev_cand is not None:
+            ctx["candidate_count"] = dev_cand.kept
+            ctx["device_decided_reads"] = dev_cand.decided
+            ctx["candidate_seconds"] = round(dev_cand.seconds, 6)
     log("Finish read end assignments.")
 
     has_n = np.array(

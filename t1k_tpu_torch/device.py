@@ -60,13 +60,15 @@ def resolve_backend(backend: str, device="cuda") -> str:
     return "gpu"
 
 
-def resolve_device(device) -> torch.device:
+def resolve_device(device, error=RuntimeError) -> torch.device:
     """The torch device the gpu routes run on.  A CUDA device on a machine
-    without CUDA raises instead of running elsewhere."""
+    without CUDA raises `error` naming --device cpu instead of running
+    elsewhere (NoCardError where a CLI is to exit 2 on it)."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {str(dev)!r} requested but CUDA is not "
-                           "available on this machine")
+        raise error(f"device {str(dev)!r} requested but CUDA is not "
+                    "available on this machine: pass --device cpu for the "
+                    "kernels' plain versions on the CPU")
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {str(dev)!r}")
     return dev

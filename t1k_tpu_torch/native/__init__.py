@@ -134,6 +134,16 @@ _lib.t1k_fragment_batch.argtypes = [
 _lib.t1k_screen_batch.argtypes = [
     ct.c_void_p, _c_i8p, _c_i64p, _c_i32p, ct.c_int64, _c_u8p,
 ]
+_lib.t1k_overlap_buckets.restype = ct.c_int64
+_lib.t1k_overlap_buckets.argtypes = [
+    ct.c_void_p, _c_i8p, _c_i64p, _c_i32p, ct.c_int64, ct.c_int64,
+    _c_i32p, _c_i8p, _c_i64p,
+]
+_c_u64p = np.ctypeslib.ndpointer(dtype=np.uint64, flags="C_CONTIGUOUS")
+_lib.t1k_set_candidates.restype = None
+_lib.t1k_set_candidates.argtypes = [
+    ct.c_void_p, ct.c_int64, _c_u8p, _c_u64p, ct.c_int32,
+]
 _lib.t1k_coalesce_batch.restype = ct.c_int64
 _lib.t1k_coalesce_batch.argtypes = [ct.c_void_p]
 _lib.t1k_coalesce_dims.argtypes = [
@@ -486,6 +496,9 @@ class NativeEngine:
         total = 0
         slot = 0
         for lo, hi in bounds:
+            # the begin pass finds a read's candidate buckets (set_candidates)
+            # at base + i; the finish of the chunk before resets the base
+            _lib.t1k_defer_set_base(self._handle, lo)
             _lib.t1k_defer2_begin(self._handle, slot, read_codes,
                                   read_starts[lo:hi], read_lens[lo:hi],
                                   weights[lo:hi], hi - lo, total_len)
@@ -576,6 +589,62 @@ class NativeEngine:
         return np.ctypeslib.as_array(
             _lib.t1k_get_pos_weight(self._handle), shape=(total, 4)
         ).copy()
+
+    def set_candidates(self, n_reads: int, cand_reads, cand_seqs,
+                       cand_strands, undecided) -> None:
+        """Install device-generated candidate buckets
+        (ops/phase_a.py DeviceCandidates.generate's output) for the next
+        assign/defer cycle: hit collection keeps only the listed (strand,
+        seq) buckets of a read; reads flagged `undecided` run unpruned.
+        n_reads = 0 clears.
+
+        Each read's bucket bits are uint64 words, bit (strand == +1 ?
+        n_seqs : 0) + seq.  The words are built as sums of the distinct
+        powers of two in each word, which equal their OR: the global bit
+        indices are sorted and deduplicated (generate's order already is),
+        then summed per word with one reduceat."""
+        if n_reads == 0:
+            _lib.t1k_set_candidates(self._handle, 0, np.zeros(0, np.uint8),
+                                    np.zeros(0, np.uint64), 0)
+            return
+        n_seqs = int(self._packed.n)
+        words = max(1, (2 * n_seqs + 63) // 64)
+        bits = np.zeros(n_reads * words, np.uint64)
+        has = (~np.asarray(undecided, bool)).astype(np.uint8)
+        flat = (np.asarray(cand_reads, np.int64) * (64 * words)
+                + np.where(np.asarray(cand_strands) == 1, n_seqs, 0)
+                + np.asarray(cand_seqs, np.int64))
+        if len(flat) and not (flat[1:] > flat[:-1]).all():
+            flat = np.unique(flat)
+        if len(flat):
+            word = flat >> 6
+            start = np.flatnonzero(np.r_[True, word[1:] != word[:-1]])
+            power = np.left_shift(np.uint64(1), (flat & 63).astype(np.uint64))
+            bits[word[start]] = np.add.reduceat(power, start)
+        _lib.t1k_set_candidates(self._handle, n_reads,
+                                np.ascontiguousarray(has), bits, words)
+
+    def overlap_buckets(self, read_codes: np.ndarray,
+                        read_starts: np.ndarray, read_lens: np.ndarray):
+        """Per read, the distinct (seq, strand) buckets whose chains emit
+        at least one overlap in the assignment path's pre-DP stage: the
+        parity oracle of DeviceCandidates.  Returns CSR (offsets [n+1]
+        int64, seqs int32, strands int8)."""
+        n = len(read_lens)
+        codes = np.ascontiguousarray(read_codes, dtype=np.int8)
+        starts = np.ascontiguousarray(read_starts, dtype=np.int64)
+        lens = np.ascontiguousarray(read_lens, dtype=np.int32)
+        off = np.zeros(n + 1, dtype=np.int64)
+        cap = max(1024, 64 * n)
+        while True:
+            seqs = np.zeros(cap, dtype=np.int32)
+            strands = np.zeros(cap, dtype=np.int8)
+            total = _lib.t1k_overlap_buckets(
+                self._handle, codes, starts, lens, n, cap, seqs, strands,
+                off)
+            if total <= cap:
+                return off, seqs[:total], strands[:total]
+            cap = int(total)
 
     def screen_batch(self, read_codes: np.ndarray, read_starts: np.ndarray,
                      read_lens: np.ndarray) -> np.ndarray:

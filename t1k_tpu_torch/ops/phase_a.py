@@ -33,6 +33,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import time
 from dataclasses import dataclass, fields
 from typing import Tuple
 
@@ -801,3 +802,286 @@ class DeviceScreen:
         while inflight:
             drain_one()
         return out_v.cpu().numpy(), out_d.cpu().numpy()
+
+
+# ----------------------------------------------------- candidate generation
+#
+# The genotyper's pre-DP pruning (the JAX package's DeviceCandidates, its
+# XLA programs `_cand_census_kernel` and `_cand_tile_kernel`, K10): every
+# (read, strand, seq) bucket of a chunk is a chain row of the same state
+# machine as the screen's, and the buckets whose chains emit at least one
+# overlap in the assignment path (engine.cc BuildOverlaps) survive.  The
+# host engine then collects hits only for those buckets.
+
+@dataclass
+class Census:
+    """A chunk's hit arena sorted by bucket (`cand_census`).  Per slot, in
+    bucket order: the key gk = read * 2 n_seqs + lkey, the read and seq
+    offsets, the dense bucket id and the slot's rank inside its bucket.
+    Per bucket b < nb_total: its first slot and its slot count (count is
+    0 from nb_total on)."""
+
+    gk: torch.Tensor        # int64 [total], ascending
+    a: torch.Tensor         # int32 [total]
+    b: torch.Tensor         # int32 [total]
+    bid: torch.Tensor       # int64 [total]
+    within: torch.Tensor    # int64 [total]
+    first: torch.Tensor     # int64 [total]
+    count: torch.Tensor     # int64 [total]
+    nb_total: torch.Tensor  # int64 scalar, on the device
+
+
+def cand_census(contrib: torch.Tensor, cstart: torch.Tensor, total: int,
+                index: PhaseAIndex) -> Census:
+    """`_cand_census_kernel`: expand the emitting windows' posting slices
+    into a flat arena of exactly `total` slots (as `expand_buckets`; the
+    JAX program pads it to an arena tier), then one sort by bucket key.
+
+    The sort need not be stable: `_chain_rows` orders each bucket's seeds
+    by its own diagonal sort, so the order inside a bucket never reaches
+    a verdict, and a bucket of more than bucket_cap seeds leaves its read
+    undecided whichever seeds come first.  bid, within and nb_total do not
+    depend on it.  Needs no host synchronisation."""
+    dev = contrib.device
+    R, W2 = contrib.shape
+    W = W2 // 2
+    NG = 2 * index.n_seqs
+    flatc = contrib.reshape(-1).long()
+    startf = torch.cumsum(flatc, 0) - flatc
+    wid = torch.repeat_interleave(torch.arange(R * W2, device=dev), flatc,
+                                  output_size=total)
+    slot = torch.arange(total, device=dev)
+    pidx = cstart.reshape(-1).long()[wid] + (slot - startf[wid])
+    woff = wid % W2
+    is_fwd = woff < W
+    roff = torch.where(is_fwd, woff, woff - W)
+    lkey = index.post_seq.long()[pidx] + torch.where(is_fwd, index.n_seqs, 0)
+    gk, order = torch.sort((wid // W2) * NG + lkey)
+    newb = torch.ones(total, dtype=torch.bool, device=dev)
+    newb[1:] = gk[1:] != gk[:-1]
+    bid = torch.cumsum(newb, 0) - 1
+    start = torch.cummax(torch.where(newb, slot, 0), 0).values
+    count = torch.zeros(total, dtype=torch.int64, device=dev).scatter_add_(
+        0, bid, torch.ones_like(bid))
+    first = torch.zeros(total, dtype=torch.int64, device=dev).scatter_(
+        0, bid, start)
+    nb_total = (bid[-1] + 1 if total
+                else torch.zeros((), dtype=torch.int64, device=dev))
+    return Census(gk=gk, a=roff[order].to(torch.int32),
+                  b=index.post_off[pidx[order]], bid=bid,
+                  within=slot - start, first=first, count=count,
+                  nb_total=nb_total)
+
+
+def min_chain_seeds(k: int, hit_len_required: int) -> int:
+    """The fewest seeds a bucket needs for a segment to pass the core
+    tests (size >= 3 and size * k >= hitLen): a smaller bucket never
+    emits an overlap, so it need not be chained."""
+    return max(_MIN_HIT_REQUIRED, -(-hit_len_required // k))
+
+
+def cand_tile(census: Census, lens: torch.Tensor, rows: torch.Tensor, *,
+              k: int, n_seqs: int, radius: int, hit_len_required: int,
+              bucket_cap: int):
+    """`_cand_tile_kernel` for the buckets `rows` (int64, each below
+    nb_total): gather each bucket's seeds into a dense [len(rows),
+    bucket_cap] tile and run `chain_rows` with zero budgets (the chain
+    kernel on a card, its plain version on the CPU).
+
+    Returns `keep` per bucket: the buckets whose chain emits at least one
+    overlap.  A bucket with fewer than `min_chain_seeds` seeds or more
+    than bucket_cap (its read is undecided) gets an empty chain row and
+    keep False, as its full chain would give."""
+    B = bucket_cap
+    dev = rows.device
+    cnt = census.count[rows]
+    chained = (cnt >= min_chain_seeds(k, hit_len_required)) & (cnt <= B)
+    first = census.first[rows]
+    read = census.gk[first] // (2 * n_seqs)
+    col = torch.arange(B, device=dev)
+    valid = col[None, :] < torch.where(chained, cnt, 0)[:, None]
+    src = torch.where(valid, first[:, None] + col[None, :], 0)
+    a = torch.where(valid, census.a[src], 0)
+    b = torch.where(valid, census.b[src], 0)
+    lens_row = lens[read].contiguous()
+    flags = chain_rows(a, b, valid.sum(dim=1, dtype=torch.int32), lens_row,
+                       torch.zeros_like(lens_row), k=k, radius=radius,
+                       hit_len_required=hit_len_required)
+    return (flags[1] != 0) & chained
+
+
+class DeviceCandidates:
+    """Per-read candidate (strand, seq) buckets on a torch device (the JAX
+    package's DeviceCandidates).
+
+    generate(codes [n, L], lens) -> (reads int64, seqs int32, strands
+    int8, undecided bool [n]): the surviving buckets (exactly those whose
+    chains emit at least one overlap in the host assignment path), in
+    (read, strand -1 then +1, seq) order, and the reads the device could
+    not decide (a chunk past the hit cap, a bucket past bucket_cap, or L
+    outside [k, 4096)), whose buckets are dropped: the caller runs those
+    reads unpruned.  With the JAX package's caps the arrays equal its
+    generate's element for element.
+
+    Each chunk of row_chunk reads is probed (`probe`), censused
+    (`cand_census`) and chained in tiles of at most tile_rows buckets
+    (`cand_tile`), on a side stream.  The host waits three times a chunk:
+    for its hit total (the arena size; the probes of the next chunks stay
+    queued meanwhile), for the number of buckets worth chaining (the
+    tiles' shapes) and for the kept buckets."""
+
+    MAX_INFLIGHT = 4
+    _MAX_TIER = 1 << 24     # the JAX program's largest arena tier
+
+    def __init__(self, index: PhaseAIndex, hit_len_required: int,
+                 radius: int = 10, hit_cap: int = 1 << 24,
+                 bucket_cap: int = 128, row_chunk: int = 1024,
+                 tile_rows: int = 16384):
+        if bucket_cap > CHAIN_MAX_B:
+            raise ValueError(f"bucket_cap above {CHAIN_MAX_B}")
+        self.index = index
+        self.hit_len_required = hit_len_required
+        self.radius = radius
+        self.bucket_cap = bucket_cap
+        self.row_chunk = row_chunk
+        self.tile_rows = tile_rows
+        # a chunk whose hit total exceeds the largest arena is undecided
+        self.hit_cap = min(hit_cap, self._MAX_TIER)
+        self.device = index.device
+        # reads handed to generate(), the share of them decided here, the
+        # buckets kept and generate()'s host-clock seconds
+        self.screened = 0
+        self.decided = 0
+        self.kept = 0
+        self.seconds = 0.0
+        # one dict a chunk: hits, buckets, chained, tiles, decided, kept
+        self.chunks = []
+        self._stream = (torch.cuda.Stream(self.device)
+                        if self.device.type == "cuda" else None)
+
+    @classmethod
+    def build(cls, packed, k: int, hit_len_required: int, device="cuda",
+              **caps) -> "DeviceCandidates":
+        return cls(PhaseAIndex.build(packed, k, device), hit_len_required,
+                   **caps)
+
+    def _upload(self, x: np.ndarray) -> torch.Tensor:
+        t = torch.from_numpy(np.ascontiguousarray(x))
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t
+
+    def generate(self, codes: np.ndarray, lens: np.ndarray):
+        t0 = time.perf_counter()
+        n, L = codes.shape
+        if n == 0 or L < self.index.k or L >= MAX_READ_LEN:
+            out = (np.zeros(0, np.int64), np.zeros(0, np.int32),
+                   np.zeros(0, np.int8), np.ones(n, bool))
+        elif self._stream is None:
+            out = self._generate(codes, lens)
+        else:
+            # the index was uploaded on the device's current stream
+            self._stream.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.device(self.device), \
+                    torch.cuda.stream(self._stream):
+                out = self._generate(codes, lens)
+        self.screened += n
+        self.decided += int((~out[3]).sum())
+        self.kept += len(out[0])
+        self.seconds += time.perf_counter() - t0
+        return out
+
+    def chunk(self, contrib: torch.Tensor, cstart: torch.Tensor, total: int,
+              lens: torch.Tensor, info: dict):
+        """K10 on one probed chunk whose `total` hits fit hit_cap: the
+        census, then the buckets worth chaining in tiles of at most
+        tile_rows.  Returns the kept buckets' keys (read * 2 n_seqs +
+        lkey, the read counted from the chunk's first) and, per read, its
+        buckets past bucket_cap (int32; a read with any is undecided), on
+        the device; sets info's buckets, chained and tiles."""
+        idx = self.index
+        NG = 2 * idx.n_seqs
+        census = cand_census(contrib, cstart, total, idx)
+        over = torch.zeros(len(lens), dtype=torch.int32, device=lens.device)
+        over.scatter_add_(0, census.gk[census.first] // NG,
+                          (census.count > self.bucket_cap).int())
+        rows = torch.nonzero(
+            (census.count >= min_chain_seeds(idx.k, self.hit_len_required))
+            & (census.count <= self.bucket_cap))[:, 0]
+        info.update(buckets=int(census.nb_total), chained=len(rows), tiles=0)
+        keys = [torch.zeros(0, dtype=torch.int64, device=lens.device)]
+        for t0 in range(0, len(rows), self.tile_rows):
+            tile = rows[t0:t0 + self.tile_rows]
+            keep = cand_tile(
+                census, lens, tile, k=idx.k, n_seqs=idx.n_seqs,
+                radius=self.radius, hit_len_required=self.hit_len_required,
+                bucket_cap=self.bucket_cap)
+            keys.append(torch.where(keep, census.gk[census.first[tile]], -1))
+            info["tiles"] += 1
+        keys = torch.cat(keys)
+        return keys[keys >= 0], over
+
+    def _generate(self, codes: np.ndarray, lens: np.ndarray):
+        idx = self.index
+        n = codes.shape[0]
+        NG = 2 * idx.n_seqs
+        lens = np.asarray(lens, np.int32)
+        codes_d = self._upload(codes.astype(np.int8, copy=False))
+        lens_d = self._upload(lens)
+        undecided = np.zeros(n, bool)
+        over_d = torch.zeros(n, dtype=torch.int32, device=self.device)
+        kept = []           # per chunk: lo * NG + key of its kept buckets
+        chunks = []
+        cuda = self.device.type == "cuda"
+        inflight = []
+
+        def drain_one():
+            lo, hi, contrib, cstart, total, done = inflight.pop(0)
+            if done is not None:
+                done.synchronize()
+            total = int(total)
+            info = dict(lo=lo, hi=hi, hits=total, buckets=0, chained=0,
+                        tiles=0)
+            chunks.append(info)
+            if total > self.hit_cap:
+                undecided[lo:hi] = True
+                return
+            keys, over = self.chunk(contrib, cstart, total, lens_d[lo:hi],
+                                    info)
+            over_d[lo:hi] += over
+            kept.append(keys + lo * NG)
+
+        for lo in range(0, n, self.row_chunk):
+            hi = min(lo + self.row_chunk, n)
+            contrib, cstart, tot = probe(codes_d[lo:hi], lens_d[lo:hi], idx)
+            if cuda:
+                total = torch.empty((), dtype=torch.int64, pin_memory=True)
+                total.copy_(tot.sum(dtype=torch.int64), non_blocking=True)
+                done = torch.cuda.Event()
+                done.record()
+            else:
+                total, done = tot.sum(dtype=torch.int64), None
+            inflight.append((lo, hi, contrib, cstart, total, done))
+            if len(inflight) >= self.MAX_INFLIGHT:
+                drain_one()
+        while inflight:
+            drain_one()
+
+        undecided |= over_d.cpu().numpy() > 0
+        keys = (torch.cat(kept).cpu().numpy() if kept
+                else np.zeros(0, np.int64))
+        reads = keys // NG
+        # drop the buckets of undecided reads (the host recomputes them)
+        keys = keys[~undecided[reads]]
+        reads = keys // NG
+        lkey = keys % NG
+        is_fwd = lkey >= idx.n_seqs
+        seqs = np.where(is_fwd, lkey - idx.n_seqs, lkey).astype(np.int32)
+        strands = np.where(is_fwd, 1, -1).astype(np.int8)
+        per_chunk = np.bincount(reads // self.row_chunk,
+                                minlength=len(chunks))
+        for c, info in enumerate(chunks):
+            info["decided"] = int((~undecided[info["lo"]:info["hi"]]).sum())
+            info["kept"] = int(per_chunk[c])
+        self.chunks.extend(chunks)
+        return reads, seqs, strands, undecided

@@ -253,20 +253,30 @@ def test_auto_without_a_card_exits_before_any_output(tmp_path, monkeypatch,
 
 
 @pytest.mark.parametrize("flags", [["-b", "x.bam"], ["--deviceCandidates"]])
-def test_unported_inputs_are_refused(tmp_path, capsys, flags):
-    """--deviceCandidates is refused; -b without -c exits 1 with the
-    reference's diagnostic (run-t1k:284-287).  Neither writes output."""
+def test_unported_inputs_are_refused(tmp_path, capsys, monkeypatch, flags):
+    """-b without -c exits 1 with the reference's diagnostic
+    (run-t1k:284-287) and writes no output.  --deviceCandidates, once
+    refused, is accepted and reaches the genotyper's GenotypeOptions."""
+    if flags[0] == "--deviceCandidates":
+        from t1k_tpu_torch.core import pipeline
+
+        seen = []
+        monkeypatch.setattr(pipeline, "run_genotyper",
+                            lambda *args: seen.append(args[-1]))
+        assert main(["-f", REF, "-1", MULTIGENE[0], "-2", MULTIGENE[1],
+                     "--od", str(tmp_path / "o"), "--device", "cpu",
+                     "--noExtraction", "--skipPostAnalysis", *flags]) == 0
+        assert len(seen) == 1 and seen[0].device_candidates
+        assert seen[0].device == "cpu"
+        return
     assert main(["-f", REF, "-1", MULTIGENE[0], "--od", str(tmp_path / "o"),
                  "--device", "cpu", *flags]) == 1
     err = capsys.readouterr().err
-    if flags[0] == "-b":
-        assert host_main(["-f", REF, "-1", MULTIGENE[0], "--od",
-                          str(tmp_path / "h"), *flags]) == 1
-        assert capsys.readouterr().err == err
-        assert err == ("Need to use -c to specify gene coordinate file for "
-                       "BAM input.\n")
-    else:
-        assert "not supported by t1k_tpu_torch" in err
+    assert host_main(["-f", REF, "-1", MULTIGENE[0], "--od",
+                      str(tmp_path / "h"), *flags]) == 1
+    assert capsys.readouterr().err == err
+    assert err == ("Need to use -c to specify gene coordinate file for "
+                   "BAM input.\n")
     assert not os.path.exists(str(tmp_path / "o"))
     assert not os.path.exists(str(tmp_path / "h"))
 
