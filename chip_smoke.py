@@ -48,29 +48,37 @@ Phases, in order; any failure raises and the exit code is non-zero:
                    gpu, byte-compared with the native route of t1k_tpu;
                    both kernels' launch counts over the run must be > 0;
                    the EM problem its genotyper solves is kept
-  8. candidates    DeviceCandidates (K10: probe, census, tiles of the chain
-                   kernel) on the card against its plain version on the
+  8. candidates    DeviceCandidates (K10: probe, census kernel, bucket
+                   chain) on the card against its plain version on the
                    CPU, array for array, and every decided read's keep set
                    against the native engine's overlap buckets: seeded
                    panels (random panels, 40 alleles 1% apart at k = 11,
-                   the same in chunks of 7 reads and tiles of 50 buckets,
-                   a tiny hit cap and a tiny bucket cap), then main's
-                   unique reads with the pipeline's caps (the plain version
-                   on the first 16), each chunk's hit total, buckets,
-                   chained buckets, tiles, decided reads and kept buckets
-                   printed, 95% of the reads decided or it fails; generate
-                   and set_candidates timed; t1k_tpu_torch.cli.genotype
+                   the same in chunks of 7 reads, a tiny hit cap and a
+                   tiny bucket cap), then main's unique reads with the
+                   pipeline's caps (the plain version on the first 16),
+                   each chunk's hit total, buckets, decided reads and
+                   kept buckets printed, 95% of the reads decided or it
+                   fails; generate (one host wait a chunk and two at the
+                   end, or it fails) and set_candidates timed;
+                   t1k_tpu_torch.cli.genotype
                    --backend gpu --emBackend gpu --outputReadAssignment in
                    child processes without, with, with and without
                    --deviceCandidates (launch counts set to 0 before each
                    and printed after it): the pruned run's outputs equal
                    main's native route's and its _assign.tsv the unpruned
-                   run's, probe, chain, band and EM kernels launched, the
-                   card deciding reads; each run's read_assignment
-                   seconds; on main's chunk with the most hits, the
-                   census, the tiles, the chain kernel alone, the keep set
-                   and the whole chunk timed, and the chunk with the
-                   chain's plain version (on the card's tensors)
+                   run's, probe, census, bucket chain, band and EM
+                   kernels launched and the dense chain not, the card
+                   deciding reads; each run's read_assignment seconds; on
+                   main's chunk with the most hits, the census kernel (at
+                   its default keys a pass and at FORCED_BINS) and the
+                   bucket chain against their plain versions on the
+                   card's tensors (buckets exactly, each bucket's seeds as
+                   a multiset; keep and over-counts exactly), the chunk's
+                   kept keys against the tile route's, the chunk run
+                   with implicit syncs raising; the census, the forced
+                   census, the census of the chunk's largest read alone,
+                   the chain, the keep set, the chunk and the tile route
+                   timed, the plain census and chain once
   9. em_timing     the EM kernel on that HLA problem, the microcell and a
                    seeded problem with ~10x its incidences (the
                    device-memory instantiation): kernel alone (tables on
@@ -203,12 +211,14 @@ cohort form also the cells' chains over the SMs' resident blocks; the
 batched EM timed on set (b); em_sharded, the sharded form's E-step on the
 HLA problem at one shard, with its launches over the sharded_em phase's
 six solves, the tail's beside them, and its library_ms two torch.sparse
-CSR products; device_candidates, K10 (census, tiles and keep set on
-the genotyper cell's chunk with the most hits, the chain kernel's
-launches in the pruned genotyper run, its bound the bytes of the census
-sort and the tiles) with the pieces' times, generate's and
-set_candidates' seconds, the decided share and each run's
-read_assignment seconds; launches_dryrun on band_stats_warp and
+CSR products; cand_census and device_candidates, K10's census kernel
+and bucket chain on the genotyper cell's chunk with the most hits (their
+launches in the pruned genotyper run, their bounds the work: the
+postings read and the seeds and buckets written; the chained seeds in
+and the keep set out) with the forced and largest-read census times,
+the chunk's, the keep set's and the tile route's, generate's and
+set_candidates' seconds, host waits a chunk, the decided share and each
+run's read_assignment seconds; launches_dryrun on band_stats_warp and
 em_sharded over the dry runs; no single PyTorch call computes the
 others, so their library_ms is null), and
 {"ok": true, "device": {...}} as the last line.  Work files go to a
@@ -985,8 +995,8 @@ def phase_main(dev, work: str, n_genes: int, copies: int, n_pairs: int,
 def candidate_cases():
     """(name, seqs, reads, k, hit_len, caps) of the seeded panels of the
     candidate route: random panels, 40 alleles 1% apart (the genotyper's
-    k = 11, hitLen 31), the same in chunks of 7 reads and tiles of 50
-    buckets, and tiny caps (the hit cap, the bucket cap)."""
+    k = 11, hitLen 31), the same in chunks of 7 reads, and tiny caps (the
+    hit cap, the bucket cap)."""
     cases = []
     for trial in range(3):
         rng = np.random.default_rng(900 + trial)
@@ -1005,8 +1015,8 @@ def candidate_cases():
     reads = make_reads(rng, seqs, 400)
     cases.append(("near_identical", seqs, reads, 11, 31,
                   dict(bucket_cap=256)))
-    cases.append(("chunks_tiles", seqs, reads, 11, 31,
-                  dict(bucket_cap=256, row_chunk=7, tile_rows=50)))
+    cases.append(("chunks", seqs, reads, 11, 31,
+                  dict(bucket_cap=256, row_chunk=7)))
     rng = np.random.default_rng(5)
     base = rand_seq(rng, 400)
     seqs = [mutate(rng, base, 0.005).replace("N", "T") for _ in range(110)]
@@ -1087,41 +1097,82 @@ def genotype_child(dev, work: str, name: str, flags) -> tuple:
             metrics, secs)
 
 
-def k10_chunk(census_args, lens, dc):
-    """One chunk of generate after its probe (DeviceCandidates.chunk: the
-    census, the tiles, the kept keys), the keys brought to the host."""
-    keys, _ = dc.chunk(*census_args, lens, {})
-    return keys.cpu()
+# keys a pass of the census kernel forced on one chunk, so that the
+# genotyper cell's 11,520 keys take 12 slices (the default takes them in
+# one); its walks of each read's postings go up from 3 to 36
+FORCED_BINS = 1000
 
 
-def k10_bound(census, rows, contrib, n_reads: int, n_seqs: int,
-              n_kept: int) -> tuple:
-    """Bound of one chunk of K10 after its probe, in bytes at the card's
-    memory rate, each value at the narrowest width that holds it.  Census:
-    contrib and cstart in, one posting id read per slot for post_seq and
-    post_off (8 bytes), the sort (8-bit digit passes over the bits of the
-    chunk's largest key, below n_reads * 2 n_seqs, each reading and
-    writing an int32 key and an int32 slot index: 16 bytes a slot a pass)
-    and the outputs (gk, bid, within, a and b per slot, first and count
-    per bucket, int32 each).  Tiles: each chained bucket's seeds (8
-    bytes), its key, first and count, lens and two flags (24 bytes); keep
-    set: each chained bucket's key in and each kept key out (4 bytes).
-    Returns (the bound, the sort's passes, the chained buckets' counts)."""
-    total = census.gk.numel()
-    passes = -(-(n_reads * 2 * n_seqs - 1).bit_length() // 8)
-    cnt = census.count[rows].cpu().numpy()
-    n_bytes = (2 * contrib.numel() * 4 + total * 8 + passes * 16 * total
-               + total * 5 * 4 + int(census.nb_total) * 2 * 4
-               + 8 * float(cnt.sum()) + len(cnt) * 24
-               + len(cnt) * 4 + n_kept * 4)
-    return bound(n_bytes, 0, int32_per_s()), passes, cnt
+def census_arrays(cen):
+    """A BucketCensus on its device, for a comparison in which the order
+    inside a bucket is free: its bucket count, every bucket's key, first
+    slot and count, and the arena's (bucket, a, b) keys sorted."""
+    import torch
+
+    nb = int(cen.nb_total)
+    count = cen.count[:nb].long()
+    bucket = torch.repeat_interleave(torch.arange(nb, device=count.device),
+                                     count, output_size=len(cen.a))
+    seeds = torch.sort((bucket << 32) | (cen.a.long() << 20)
+                       | cen.b.long()).values
+    return nb, cen.key[:nb], cen.first[:nb], cen.count[:nb], seeds
 
 
-def phase_candidates(dev, work: str, info: dict) -> tuple:
+def tiles_chunk(contrib, cstart, total: int, lens, dc, tile_rows=16384):
+    """The tile route of K10 that the two kernels replace, for the time
+    beside theirs: the tensor code census (`cand_census`: one sort of the
+    arena), the buckets worth chaining in dense tiles of tile_rows
+    (`cand_tile`, the dense chain kernel) and their kept keys, brought to
+    the host."""
+    import torch
+
+    from t1k_tpu_torch.ops import phase_a as pa
+
+    idx = dc.index
+    census = pa.cand_census(contrib, cstart, total, idx)
+    rows = torch.nonzero(
+        (census.count >= pa.min_chain_seeds(idx.k, dc.hit_len_required))
+        & (census.count <= dc.bucket_cap))[:, 0]
+    keys = [torch.zeros(0, dtype=torch.int64, device=lens.device)]
+    for t0 in range(0, len(rows), tile_rows):
+        tile = rows[t0:t0 + tile_rows]
+        keep = pa.cand_tile(census, lens, tile, k=idx.k, n_seqs=idx.n_seqs,
+                            radius=dc.radius,
+                            hit_len_required=dc.hit_len_required,
+                            bucket_cap=dc.bucket_cap)
+        keys.append(torch.where(keep, census.gk[census.first[tile]], -1))
+    keys = torch.cat(keys)
+    return keys[keys >= 0].cpu()
+
+
+def k10_bounds(contrib, total: int, nb: int, cnt: np.ndarray,
+               n_kept: int) -> tuple:
+    """Bounds of one chunk of K10 after its probe: the work, whatever
+    implements it, each value at the narrowest width that holds it.
+    Census: contrib and cstart in, one posting read per hit (post_seq and
+    post_off, 8 bytes), one seed written per hit (a and b, 8 bytes), key,
+    first and count per bucket (12 bytes); its few integer operations a
+    hit are not counted (bytes set it).  Chain: each bucket's count (4
+    bytes), each chained bucket's key, first and read length (12 bytes)
+    and seeds (8 bytes each) in, the keep set out (4 bytes a kept key);
+    operations as chain_bound's for the chained buckets (`cnt`, their seed
+    counts).  Returns the census's, the chain's and the chunk's bounds."""
+    census_bytes = 2 * contrib.numel() * 4 + 16 * total + 12 * nb
+    n = cnt.astype(np.int64)
+    logn = np.ceil(np.log2(np.maximum(n, 2)))
+    ops = float((3 * 2 * n * logn + 20 * n).sum())
+    chain_bytes = 4 * nb + 12 * len(n) + 8 * float(n.sum()) + 4 * n_kept
+    rate = int32_per_s()
+    return (bound(census_bytes, 0, rate), bound(chain_bytes, ops, rate),
+            bound(census_bytes + chain_bytes, ops, rate))
+
+
+def phase_candidates(dev, work: str, info: dict) -> dict:
     """The genotyper's device candidate pruning (DeviceCandidates, K10) on
-    the card; see the module docstring.  Returns ((per-chunk ms, plain ms,
-    bound), the chain's launches in the pruned genotyper run, the kernel
-    record's other fields)."""
+    the card; see the module docstring.  Returns, for the census kernel
+    (cand_census) and the bucket chain (device_candidates), each its
+    ((ms, plain ms, bound), launches in the pruned genotyper run, the
+    kernel record's other fields)."""
     import torch
 
     from t1k_tpu_torch.constants import GENOTYPER_KMER_LENGTH
@@ -1164,8 +1215,7 @@ def phase_candidates(dev, work: str, info: dict) -> tuple:
     info["check_s"] = f"{time.perf_counter() - t0:.1f}"
     for c in chunks:
         print("  chunk {lo}-{hi}: hits={hits} buckets={buckets} "
-              "chained={chained} tiles={tiles} decided={decided} "
-              "kept={kept}".format(**c), flush=True)
+              "decided={decided} kept={kept}".format(**c), flush=True)
     n = len(uniq)
     n_decided = int((~out[3]).sum())
     hits = np.array([c["hits"] for c in chunks])
@@ -1190,18 +1240,24 @@ def phase_candidates(dev, work: str, info: dict) -> tuple:
     info["hit_cap"] = dc.hit_cap
     info["buckets_per_read"] = \
         f"{sum(c['buckets'] for c in chunks) / n:.1f}"
-    info["chained_per_read"] = \
-        f"{sum(c['chained'] for c in chunks) / n:.1f}"
     info["kept_per_read"] = f"{len(out[0]) / max(n_decided, 1):.1f}"
     if n_decided < 0.95 * n:
         raise AssertionError(f"the card decided {n_decided} of {n} reads")
     gen_s = []
     for _ in range(2):
+        waits = dc.waits
         sync()
         t0 = time.perf_counter()
         dc.generate(codes, lens)
         gen_s.append(time.perf_counter() - t0)
+        waits = dc.waits - waits
     info["generate_s"] = " ".join(f"{t:.3f}" for t in gen_s)
+    # host waits of one generate: one a chunk (its hit total), two at the
+    # end (the kept count, the copy)
+    info["host_waits"] = f"{waits} for {len(chunks)} chunks"
+    if cuda and waits != len(chunks) + 2:
+        raise AssertionError(f"generate waited {waits} times on "
+                             f"{len(chunks)} chunks")
     eng = NativeEngine(packed, k)
     set_s = []
     for _ in range(2):
@@ -1233,11 +1289,12 @@ def phase_candidates(dev, work: str, info: dict) -> tuple:
                     raise AssertionError(f"pruned {suffix} differs from "
                                          f"{os.path.basename(ref)}")
     ra = metrics["read_assignment"]
-    if cuda and min(launches[kn] for kn in (
-            "phase_a_probe", "phase_a_chain", "band_stats",
-            "em_squarem")) <= 0:
-        raise AssertionError(f"a kernel of the pruned route never "
-                             f"launched: {launches}")
+    # the pruned route runs the census and bucket chain kernels and no
+    # dense chain tile (the genotyper runs no screen)
+    if cuda and (min(launches[kn] for kn in (
+            "phase_a_probe", "cand_census", "cand_chain", "band_stats",
+            "em_squarem")) <= 0 or launches["phase_a_chain"] != 0):
+        raise AssertionError(f"the pruned route's launches: {launches}")
     if ra["device_decided_reads"] <= 0:
         raise AssertionError("the card decided no read of the genotyper")
     for name, (_, _, m, secs) in runs.items():
@@ -1251,102 +1308,115 @@ def phase_candidates(dev, work: str, info: dict) -> tuple:
     info["pruned_launches"] = " ".join(f"{kn}:{v}"
                                        for kn, v in launches.items())
 
-    # K10 on the chunk with the most hits, each piece alone
+    # K10 on the chunk with the most hits: each kernel against its plain
+    # version on the same inputs (the plain versions on the card's
+    # tensors), then each piece alone
     big = max((c for c in chunks if c["hits"] <= dc.hit_cap),
               key=lambda c: c["hits"])
-    lo, hi = big["lo"], big["hi"]
+    lo, hi, total = big["lo"], big["hi"], big["hits"]
     idx = dc.index
     codes_d = torch.from_numpy(codes[lo:hi]).to(dev)
     lens_d = torch.from_numpy(lens[lo:hi]).to(dev)
-    contrib, cstart, _ = pa.probe(codes_d, lens_d, idx)
-    census_args = (contrib, cstart, big["hits"])
-    census = pa.cand_census(*census_args, idx)
-    rows = torch.nonzero((census.count >= pa.min_chain_seeds(k, hlr))
-                         & (census.count <= dc.bucket_cap))[:, 0]
-    tiles = [rows[t:t + dc.tile_rows]
-             for t in range(0, len(rows), dc.tile_rows)]
-    tile_kw = dict(k=k, n_seqs=idx.n_seqs, radius=dc.radius,
-                   hit_len_required=hlr, bucket_cap=dc.bucket_cap)
-    seeds = []
-    for tile in tiles:   # the chain kernel's inputs, for it alone
-        cnt = census.count[tile]
-        col = torch.arange(dc.bucket_cap, device=dev)
-        valid = col[None, :] < cnt[:, None]
-        src = torch.where(valid, census.first[tile][:, None] + col, 0)
-        seeds.append((torch.where(valid, census.a[src], 0),
-                      torch.where(valid, census.b[src], 0),
-                      cnt.to(torch.int32),
-                      lens_d[census.gk[census.first[tile]]
-                             // (2 * idx.n_seqs)].contiguous()))
-
-    def chains():
-        for a, b, nb, ln in seeds:
-            pa.chain_rows(a, b, nb, ln, torch.zeros_like(ln), k=k,
-                          radius=dc.radius, hit_len_required=hlr)
-
-    def tiles_fn():
-        for tile in tiles:
-            pa.cand_tile(census, lens_d, tile, **tile_kw)
-
-    keys = torch.cat([torch.where(pa.cand_tile(census, lens_d, tile,
-                                               **tile_kw),
-                                  census.gk[census.first[tile]], -1)
-                      for tile in tiles])
+    contrib, cstart, row_hits = pa.probe(codes_d, lens_d, idx)
+    kw = dict(k=k, n_seqs=idx.n_seqs, radius=dc.radius,
+              hit_len_required=hlr, bucket_cap=dc.bucket_cap)
+    size = total // pa.min_chain_seeds(k, hlr)
+    census = pa.bucket_census(contrib, cstart, total, idx)
+    keep, over = pa.chain_buckets(census, lens_d, **kw)
+    t0 = time.perf_counter()
+    want = census_arrays(pa.bucket_census_plain(contrib, cstart, total, idx))
+    for bins in (None, FORCED_BINS):
+        got = census_arrays(pa.bucket_census(contrib, cstart, total, idx,
+                                             bins_per_pass=bins))
+        if got[0] != want[0] or not all(torch.equal(g, w) for g, w in
+                                        zip(got[1:], want[1:])):
+            raise AssertionError(f"census kernel (keys a pass {bins}) "
+                                 "differs from the plain census")
+    plain_keep, plain_over = pa.chain_buckets_plain(census, lens_d, **kw)
+    if not (torch.equal(keep, plain_keep) and torch.equal(over, plain_over)):
+        raise AssertionError("bucket chain kernel differs from the plain "
+                             "chain")
+    keys, nb_dev, _ = dc.chunk(contrib, cstart, total, lens_d)
+    keys = keys[keys >= 0].cpu()
+    if not torch.equal(keys.long(), tiles_chunk(contrib, cstart, total,
+                                                lens_d, dc)):
+        raise AssertionError("K10 chunk: kept keys differ from the tile "
+                             "route's")
+    info["k10_check_s"] = f"{time.perf_counter() - t0:.1f}"
+    if cuda:  # the chunk waits on nothing: any implicit sync raises
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            dc.chunk(contrib, cstart, total, lens_d)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    # the census's tail: the chunk's read with the most hits alone
+    r_max = int(row_hits.argmax())
+    one = (contrib[r_max:r_max + 1], cstart[r_max:r_max + 1],
+           int(row_hits[r_max]))
     reps = 10 if cuda else 1
-    ms = dict(census=time_ms(lambda: pa.cand_census(*census_args, idx),
-                             reps, dev),
-              tiles=time_ms(tiles_fn, reps, dev),
-              chain=time_ms(chains, reps, dev),
-              keep=time_ms(lambda: keys[keys >= 0].cpu(), reps, dev),
-              chunk=time_ms(lambda: k10_chunk(census_args, lens_d, dc),
-                            reps, dev))
-    want = k10_chunk(census_args, lens_d, dc)
-    # the plain version: the same tensor code with the chain's plain
-    # version, on the card's tensors
-    kernel_chain = pa.chain_rows
-
-    def plain_chain(a, b, nb, ln, budgets, **kw):
-        core, budget = pa.chain_rows_plain(a, b, nb, ln, budgets, **kw)
-        return torch.stack([(core & budget).any(dim=1),
-                            core.any(dim=1)]).to(torch.int32)
-    pa.chain_rows = plain_chain
-    try:
-        sync()
-        t0 = time.perf_counter()
-        got = k10_chunk(census_args, lens_d, dc)
-        plain_ms = (time.perf_counter() - t0) * 1e3
-    finally:
-        pa.chain_rows = kernel_chain
-    err = 0 if torch.equal(got, want) else 1
-    if err:
-        raise AssertionError("K10 chunk: the chain kernel differs from the "
-                             "plain chain")
-    bnd, passes, cnt = k10_bound(census, rows, contrib, hi - lo,
-                                 idx.n_seqs, len(want))
+    ms = dict(census=time_ms(lambda: pa.bucket_census(contrib, cstart,
+                                                      total, idx), reps, dev),
+              census_forced=time_ms(lambda: pa.bucket_census(
+                  contrib, cstart, total, idx, bins_per_pass=FORCED_BINS),
+                  3, dev),
+              census_largest_read=time_ms(lambda: pa.bucket_census(
+                  *one, idx), reps, dev),
+              chain=time_ms(lambda: pa.chain_buckets(census, lens_d, **kw),
+                            reps, dev),
+              keep=time_ms(lambda: pa.kept_keys(census.key, keep, size),
+                           reps, dev),
+              chunk=time_ms(lambda: dc.chunk(contrib, cstart, total, lens_d),
+                            reps, dev),
+              tiles_route=time_ms(lambda: tiles_chunk(contrib, cstart, total,
+                                                      lens_d, dc), 3, dev))
+    plain = dict(census=time_ms(lambda: pa.bucket_census_plain(
+                     contrib, cstart, total, idx), 1, dev),
+                 chain=time_ms(lambda: pa.chain_buckets_plain(
+                     census, lens_d, **kw), 1, dev))
+    nb = int(nb_dev)
+    cnt = census.count[:nb].cpu().numpy()
+    cnt = cnt[(cnt >= pa.min_chain_seeds(k, hlr)) & (cnt <= dc.bucket_cap)]
+    b_census, b_chain, b_chunk = k10_bounds(contrib, total, nb, cnt,
+                                            len(keys))
     for key, v in ms.items():
         info[f"k10_{key}_ms"] = f"{v:.4f}"
-    info["k10_plain_ms"] = f"{plain_ms:.1f}"
+    for key, v in plain.items():
+        info[f"k10_{key}_plain_ms"] = f"{v:.1f}"
     info["k10_chunk"] = f"{lo}-{hi}"
-    info["k10_chunk_hits"] = big["hits"]
+    info["k10_chunk_hits"] = total
+    info["k10_read_hits"] = (f"median:{int(row_hits.median())} "
+                             f"max:{int(row_hits.max())}")
+    info["k10_buckets"] = nb
     info["k10_chained"] = len(cnt)
-    info["k10_tiles"] = len(tiles)
-    info["k10_bound_ms"] = f"{bnd[0]:.4f}"
-    info["k10_sort_passes"] = passes
-    info["k10_buckets"] = int(census.nb_total)
-    info["k10_kept"] = len(want)
-    extras = dict(max_abs_err=err, census_ms=ms["census"],
-                  tiles_ms=ms["tiles"], chain_ms=ms["chain"],
-                  keep_ms=ms["keep"], chunk_hits=big["hits"],
-                  launches_probe=launches["phase_a_probe"],
+    info["k10_chained_seeds"] = (f"median:{int(np.median(cnt))} p90:"
+                                 f"{int(np.percentile(cnt, 90))} "
+                                 f"max:{int(cnt.max())}")
+    info["k10_kept"] = len(keys)
+    info["k10_forced_bins"] = FORCED_BINS
+    for name, b in (("census", b_census), ("chain", b_chain),
+                    ("chunk", b_chunk)):
+        info[f"k10_{name}_bound_ms"] = f"{b[0]:.4f} ({b[1]})"
+    common = dict(max_abs_err=0, chunk_hits=total, chunk_buckets=nb,
+                  chunk_ms=ms["chunk"], chunk_bound_ms=b_chunk[0],
+                  tiles_route_ms=ms["tiles_route"],
+                  host_waits_per_chunk=(waits - 2 * cuda) / len(chunks),
                   generate_s=float(np.mean(gen_s)),
-                  set_candidates_s=float(np.mean(set_s)),
-                  decided_share=n_decided / n,
                   read_assignment_s={
                       name: m["read_assignment"]["seconds"]
-                      for name, (_, _, m, _) in runs.items()},
-                  source_census="t1k_tpu_torch/ops/phase_a.py",
-                  replaces_tile="t1k_tpu/ops/phase_a.py:803")
-    return (ms["chunk"], plain_ms, bnd), launches["phase_a_chain"], extras
+                      for name, (_, _, m, _) in runs.items()})
+    return {"cand_census": (
+                (ms["census"], plain["census"], b_census),
+                launches["cand_census"],
+                dict(common, forced_ms=ms["census_forced"],
+                     forced_bins=FORCED_BINS,
+                     largest_read_ms=ms["census_largest_read"])),
+            "device_candidates": (
+                (ms["chain"], plain["chain"], b_chain),
+                launches["cand_chain"],
+                dict(common, keep_ms=ms["keep"], chained=len(cnt),
+                     kept=len(keys), launches_probe=launches["phase_a_probe"],
+                     set_candidates_s=float(np.mean(set_s)),
+                     decided_share=n_decided / n))}
 
 
 def thread_slots(t_len: int, p_len: int, ml: int) -> int:
@@ -3657,7 +3727,7 @@ def phase_sharded_em(dev, hla: dict, plate_em: str, sizes: dict, work: str,
 
 
 SOURCES = ("band_stats", "em_squarem", "align_full", "phase_a_probe",
-           "phase_a_chain")
+           "phase_a_chain", "cand_census")
 # kernel record -> its source under t1k_tpu_torch/csrc/
 KERNELS = {"band_stats": "band_stats", "band_stats_analyzer": "band_stats",
            "band_stats_warp": "band_stats",
@@ -3665,7 +3735,7 @@ KERNELS = {"band_stats": "band_stats", "band_stats_analyzer": "band_stats",
            "em_sharded": "em_squarem",
            "align_full": "align_full",
            "phase_a_probe": "phase_a_probe", "phase_a_chain": "phase_a_chain",
-           "device_candidates": "phase_a_chain"}
+           "cand_census": "cand_census", "device_candidates": "phase_a_chain"}
 
 
 def run(dev, sizes: dict) -> list:
@@ -3708,8 +3778,9 @@ def run(dev, sizes: dict) -> list:
             phase_main(dev, work, PANEL_GENES, PANEL_COPIES,
                        sizes["sim_pairs"], info, em_problems)
         with phase("candidates") as info:
-            times["device_candidates"], cand_launches, cand_extras = \
-                phase_candidates(dev, work, info)
+            cand = phase_candidates(dev, work, info)
+            for name, (timed, _, _) in cand.items():
+                times[name] = timed
         with phase("em_timing") as info:
             *times["em_squarem"], em_err = phase_em_timing(
                 dev, em_problems[0], sizes, info)
@@ -3751,7 +3822,7 @@ def run(dev, sizes: dict) -> list:
     launches = dict(run_launches, align_full=sum(v1_launches.values()),
                     em_squarem_batched=plate_launches["em_squarem_batched"],
                     em_sharded=sharded_launches,
-                    device_candidates=cand_launches)
+                    **{name: v[1] for name, v in cand.items()})
     replaces = {"band_stats": "t1k_tpu/ops/align_pallas_band.py:55",
                 "band_stats_analyzer": "t1k_tpu/ops/align_pallas_band.py:55",
                 "band_stats_warp": "t1k_tpu/ops/align_pallas_band.py:55",
@@ -3761,12 +3832,14 @@ def run(dev, sizes: dict) -> list:
                 "align_full": "t1k_tpu/ops/align_pallas.py:44",
                 "phase_a_probe": "t1k_tpu/ops/phase_a.py:343",
                 "phase_a_chain": "t1k_tpu/ops/phase_a.py:457",
-                "device_candidates": "t1k_tpu/ops/phase_a.py:754"}
+                "cand_census": "t1k_tpu/ops/phase_a.py:754",
+                "device_candidates": "t1k_tpu/ops/phase_a.py:803"}
     errs = {name: checks[name].max_err for name in KERNELS}
     errs["em_squarem"] = em_err
     errs["em_squarem_batched"] = batched_err
     errs["em_sharded"] = sharded_extras.pop("max_abs_err")
-    errs["device_candidates"] = cand_extras.pop("max_abs_err")
+    for name, (_, _, extras) in cand.items():
+        errs[name] = extras.pop("max_abs_err")
     dry_launches = sharded_extras.pop("launches_dryrun")
     # no single PyTorch call computes the others: their library_ms is null
     # the v1 aligner's paths as one kernel, align_full
@@ -3786,7 +3859,8 @@ def run(dev, sizes: dict) -> list:
         sharded_extras, launches_dryrun=dry_launches["em_sharded"])
     records[list(KERNELS).index("band_stats_warp")][
         "launches_dryrun"] = dry_launches["band_stats_warp"]
-    records[list(KERNELS).index("device_candidates")].update(cand_extras)
+    for name, (_, _, extras) in cand.items():
+        records[list(KERNELS).index(name)].update(extras)
     return records
 
 

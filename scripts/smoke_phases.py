@@ -83,11 +83,12 @@ def main(argv) -> int:
             cs.build_panel(os.path.join(work, "panel.fa"))
         if "candidates" in wanted:
             with cs.phase("candidates") as info:
-                timed, launches, extras = cs.phase_candidates(dev, work,
-                                                              info)
-            print(json.dumps({"device_candidates": dict(
+                cand = cs.phase_candidates(dev, work, info)
+            print(json.dumps({name: dict(
                 extras, ms=timed[0], plain_ms=timed[1], bound_ms=timed[2][0],
-                bound_by=timed[2][1], launches=launches)}), flush=True)
+                bound_by=timed[2][1], launches=launches)
+                for name, (timed, launches, extras) in cand.items()}),
+                flush=True)
         if "em_timing" in wanted:
             with cs.phase("em_timing") as info:
                 cs.phase_em_timing(dev, em_problems[0], sizes, info)

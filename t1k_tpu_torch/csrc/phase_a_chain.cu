@@ -23,8 +23,13 @@
 //
 // Output int32 [2, NR]: row 0 = some segment passes core and budget (the
 // screen's HasHitInSet verdict), row 1 = some segment passes core (the
-// bucket emits an overlap in the assignment path).  The tile interface is
-// the one DeviceCandidates' tile kernel needs as well.
+// bucket emits an overlap in the assignment path).
+//
+// A second entry, bucket_kernel, runs the same state machine (chain_row)
+// for K10 (t1k_tpu/ops/phase_a.py::_cand_tile_kernel): one warp per
+// bucket of cand_census.cu's arena, reading the bucket's seeds where the
+// census wrote them, so no dense tile is built; a persistent grid walks
+// the buckets up to the count the census left on the card.
 //
 // What bounds it on an H100: the bytes are tiny (8 bytes per seed in, 8
 // per row out) and the operations few (three sorts of nb keys and linear
@@ -414,30 +419,23 @@ __device__ void lis_shared(const long long* key, int nk, const int* seg_sz,
   }
 }
 
-__global__ void __launch_bounds__(kWarps * 32)
-chain_kernel(const int32_t* __restrict__ a_in,
-             const int32_t* __restrict__ b_in,
-             const int32_t* __restrict__ nb_in,
-             const int32_t* __restrict__ lens,
-             const int32_t* __restrict__ budgets, int B, int cap, int k,
-             int radius, int hlr, int NR, int32_t* __restrict__ out) {
-  extern __shared__ long long smem[];
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kWarps + warp;
-  if (row >= NR) return;  // whole warps leave together
-  // this warp's slice: int64 keys, then four int32 arrays of `cap`
-  long long* key = smem + (size_t)warp * 3 * cap;
+// The chain state machine of one bucket, run by one warp: seeds ar[0, n)
+// and br[0, n), in any order; the warp's shared-memory slice `key` holds
+// 3 x cap int64 (cap >= n, a power of two).  Sets verdict (some segment
+// passes the core and budget tests) and core_any (some segment passes
+// the core tests) on every lane.
+__device__ __forceinline__ void chain_row(const int32_t* __restrict__ ar,
+                                          const int32_t* __restrict__ br,
+                                          int n, int len, int budget, int k,
+                                          int radius, int hlr, int cap,
+                                          long long* key, int lane,
+                                          int& verdict, int& core_any) {
+  // the slice: int64 keys, then four int32 arrays of `cap`
   int* link = reinterpret_cast<int*>(key + cap);  // segment of a seed,
                                                   // then the LIS links
   int* top_v = link + cap;   // dominant run per segment, then LIS tops
   int* top_i = top_v + cap;  // LIS tops' seed indices
   int* seg_sz = top_i + cap;
-  const int n = min(max(nb_in[row], 0), B);
-  const int len = lens[row];
-  const int budget = budgets[row];
-  const int32_t* ar = a_in + (int64_t)row * B;
-  const int32_t* br = b_in + (int64_t)row * B;
 
   // ---- 1. diagonal sort: (c, b, a) ascending
   for (int i = lane; i < n; i += 32) {
@@ -529,7 +527,8 @@ chain_kernel(const int32_t* __restrict__ a_in,
     nk += __popc(__ballot_sync(kFull, base + lane < n &&
                                           key[base + lane] != kBig));
 
-  int verdict = 0, core_any = 0;
+  verdict = 0;
+  core_any = 0;
   if (nk <= 32) {
     lis_regs<1>(key, nk, nseg, seg_sz, link, k, hlr, len, budget, lane,
                 verdict, core_any);
@@ -543,9 +542,69 @@ chain_kernel(const int32_t* __restrict__ a_in,
     lis_shared(key, nk, seg_sz, link, top_v, top_i, k, hlr, len, budget,
                lane, verdict, core_any);
   }
+}
+
+// The dense entry: row r of a [NR, B] tile, one warp a row.
+__global__ void __launch_bounds__(kWarps * 32)
+chain_kernel(const int32_t* __restrict__ a_in,
+             const int32_t* __restrict__ b_in,
+             const int32_t* __restrict__ nb_in,
+             const int32_t* __restrict__ lens,
+             const int32_t* __restrict__ budgets, int B, int cap, int k,
+             int radius, int hlr, int NR, int32_t* __restrict__ out) {
+  extern __shared__ long long smem[];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * kWarps + warp;
+  if (row >= NR) return;  // whole warps leave together
+  int verdict, core_any;
+  chain_row(a_in + (int64_t)row * B, b_in + (int64_t)row * B,
+            min(max(nb_in[row], 0), B), lens[row], budgets[row], k, radius,
+            hlr, cap, smem + (size_t)warp * 3 * cap, lane, verdict,
+            core_any);
   if (lane == 0) {
     out[row] = verdict;
     out[NR + row] = core_any;
+  }
+}
+
+// The bucket-ragged entry (K10's chain, replacing _cand_tile_kernel's
+// dense tiles): bucket g < *nb_total holds the seeds a[first[g],
+// first[g] + count[g]) of read key[g] / NG.  A persistent grid of warps
+// walks the buckets; a bucket of min_seeds to bucket_cap seeds is
+// chained with a zero budget straight from the arena and keep[g] is its
+// core verdict; a smaller one gets keep 0 unchained, a larger one keep 0
+// and one more count in over[read] (its read is undecided).
+__global__ void __launch_bounds__(kWarps * 32)
+bucket_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ b,
+              const int32_t* __restrict__ key,
+              const int32_t* __restrict__ first,
+              const int32_t* __restrict__ count,
+              const int32_t* __restrict__ nb_total,
+              const int32_t* __restrict__ lens, int NG, int min_seeds,
+              int bucket_cap, int cap, int k, int radius, int hlr,
+              int32_t* __restrict__ keep, int32_t* __restrict__ over) {
+  extern __shared__ long long smem[];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  long long* slice = smem + (size_t)warp * 3 * cap;
+  const int nb = *nb_total;
+  for (int g = blockIdx.x * kWarps + warp; g < nb;
+       g += gridDim.x * kWarps) {
+    const int n = count[g];
+    const int read = key[g] / NG;
+    if (n < min_seeds || n > bucket_cap) {
+      if (lane == 0) {
+        keep[g] = 0;
+        if (n > bucket_cap) atomicAdd(&over[read], 1);
+      }
+      continue;
+    }
+    int verdict, core_any;
+    chain_row(a + first[g], b + first[g], n, lens[read], 0, k, radius, hlr,
+              cap, slice, lane, verdict, core_any);
+    if (lane == 0) keep[g] = core_any;
+    __syncwarp();  // the slice is the next bucket's
   }
 }
 
@@ -569,5 +628,36 @@ extern "C" int t1k_phase_a_chain(const void* a, const void* b, const void* nb,
       static_cast<const int32_t*>(nb), static_cast<const int32_t*>(lens),
       static_cast<const int32_t*>(budgets), B, cap, k, radius, hlr, NR,
       static_cast<int32_t*>(out));
+  return (int)cudaGetLastError();
+}
+
+// K10's chain over a census: a, b int32 arena; key, first, count int32
+// [>= nb_total]; nb_total int32 [1] on the card; lens int32 [R].  keep:
+// int32 [>= nb_total], over: int32 [R], zeroed by the caller.
+// bucket_cap <= 512.  Returns the launch's cudaGetLastError().
+extern "C" int t1k_phase_a_chain_buckets(
+    const void* a, const void* b, const void* key, const void* first,
+    const void* count, const void* nb_total, const void* lens, int NG,
+    int min_seeds, int bucket_cap, int k, int radius, int hlr, void* keep,
+    void* over, void* stream) {
+  if (bucket_cap < 1 || bucket_cap > kMaxB || NG < 1)
+    return (int)cudaErrorInvalidValue;
+  int cap = 32;
+  while (cap < bucket_cap) cap <<= 1;
+  const size_t smem = (size_t)kWarps * 3 * cap * sizeof(long long);
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, bucket_kernel,
+                                                kWarps * 32, smem);
+  const unsigned grid = (unsigned)(sms * (per_sm > 0 ? per_sm : 1));
+  bucket_kernel<<<grid, kWarps * 32, smem,
+                  static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(a), static_cast<const int32_t*>(b),
+      static_cast<const int32_t*>(key), static_cast<const int32_t*>(first),
+      static_cast<const int32_t*>(count),
+      static_cast<const int32_t*>(nb_total),
+      static_cast<const int32_t*>(lens), NG, min_seeds, bucket_cap, cap, k,
+      radius, hlr, static_cast<int32_t*>(keep), static_cast<int32_t*>(over));
   return (int)cudaGetLastError();
 }

@@ -21,12 +21,16 @@ the same bit-exactness contract against the native engine's HasHitInSet
     maximal equal-diagonal run, runs the reference's patience LIS, and
     counts TotalSpan with gap breaks > k-1 on both axes.
 
-Two functions carry kernels, each with its plain PyTorch version beside
+Four functions carry kernels, each with its plain PyTorch version beside
 it: ``probe`` (``csrc/phase_a_probe.cu``) and ``chain_rows``
-(``csrc/phase_a_chain.cu``).  CPU tensors take the plain version; CUDA
-tensors launch the kernel and never fall back.  The posting expansion
-and bucket choice between them (``expand_buckets``) is integer tensor
-code on either device.  All arithmetic is exact integer arithmetic.
+(``csrc/phase_a_chain.cu``) for the screen; ``bucket_census``
+(``csrc/cand_census.cu``) and ``chain_buckets`` (the bucket-ragged entry
+of ``csrc/phase_a_chain.cu``) for the genotyper's candidate pruning (the
+JAX package's DeviceCandidates, K10).  CPU tensors take the plain
+version; CUDA tensors launch the kernel and never fall back.  The
+screen's posting expansion and bucket choice (``expand_buckets``) is
+integer tensor code on either device.  All arithmetic is exact integer
+arithmetic.
 """
 
 from __future__ import annotations
@@ -49,7 +53,8 @@ MAX_READ_LEN = 1 << 12      # longer reads are screened on the host
 CHAIN_MAX_B = 512           # bucket width the chain kernel holds in shared memory
 
 # Kernel launches, counted by the CUDA wrappers where they launch.
-launch_counts = {"phase_a_probe": 0, "phase_a_chain": 0}
+launch_counts = {"phase_a_probe": 0, "phase_a_chain": 0, "cand_census": 0,
+                 "cand_chain": 0}
 
 
 # --------------------------------------------------------------- table build
@@ -623,6 +628,9 @@ def _chain_lib() -> ctypes.CDLL:
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    lib.t1k_phase_a_chain_buckets.restype = ctypes.c_int
+    lib.t1k_phase_a_chain_buckets.argtypes = (
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 3)
     return lib
 
 
@@ -880,6 +888,17 @@ def min_chain_seeds(k: int, hit_len_required: int) -> int:
     return max(_MIN_HIT_REQUIRED, -(-hit_len_required // k))
 
 
+def _gather_seeds(a, b, first, cnt, bucket_cap: int):
+    """Each bucket's seeds a[first, first + cnt) and b[...] (cnt <=
+    bucket_cap) on a dense [len(first), bucket_cap] tile, and the seeds
+    per row."""
+    col = torch.arange(bucket_cap, device=first.device)
+    valid = col[None, :] < cnt[:, None]
+    src = torch.where(valid, first[:, None] + col[None, :], 0)
+    return (torch.where(valid, a[src], 0), torch.where(valid, b[src], 0),
+            valid.sum(dim=1, dtype=torch.int32))
+
+
 def cand_tile(census: Census, lens: torch.Tensor, rows: torch.Tensor, *,
               k: int, n_seqs: int, radius: int, hit_len_required: int,
               bucket_cap: int):
@@ -891,23 +910,204 @@ def cand_tile(census: Census, lens: torch.Tensor, rows: torch.Tensor, *,
     Returns `keep` per bucket: the buckets whose chain emits at least one
     overlap.  A bucket with fewer than `min_chain_seeds` seeds or more
     than bucket_cap (its read is undecided) gets an empty chain row and
-    keep False, as its full chain would give."""
-    B = bucket_cap
-    dev = rows.device
+    keep False, as its full chain would give.  With `cand_census`, K10's
+    plain reference, held against the JAX programs; `DeviceCandidates`
+    runs `bucket_census` and `chain_buckets`."""
     cnt = census.count[rows]
-    chained = (cnt >= min_chain_seeds(k, hit_len_required)) & (cnt <= B)
+    chained = (cnt >= min_chain_seeds(k, hit_len_required)) \
+        & (cnt <= bucket_cap)
     first = census.first[rows]
     read = census.gk[first] // (2 * n_seqs)
-    col = torch.arange(B, device=dev)
-    valid = col[None, :] < torch.where(chained, cnt, 0)[:, None]
-    src = torch.where(valid, first[:, None] + col[None, :], 0)
-    a = torch.where(valid, census.a[src], 0)
-    b = torch.where(valid, census.b[src], 0)
+    a, b, nb = _gather_seeds(census.a, census.b, first,
+                             torch.where(chained, cnt, 0), bucket_cap)
     lens_row = lens[read].contiguous()
-    flags = chain_rows(a, b, valid.sum(dim=1, dtype=torch.int32), lens_row,
-                       torch.zeros_like(lens_row), k=k, radius=radius,
-                       hit_len_required=hit_len_required)
+    flags = chain_rows(a, b, nb, lens_row, torch.zeros_like(lens_row), k=k,
+                       radius=radius, hit_len_required=hit_len_required)
     return (flags[1] != 0) & chained
+
+
+@dataclass
+class BucketCensus:
+    """A chunk's hit arena in bucket order (`bucket_census`): per slot the
+    read and seq offsets; per bucket g < nb_total, in (read, strand -1
+    then +1, seq) order, its key read * 2 n_seqs + lkey (lkey = seq, plus
+    n_seqs on the forward strand), its first slot and its seed count.
+    The per-bucket arrays have `total` entries and hold no bucket from
+    nb_total on; the seeds of one bucket lie in any order."""
+
+    a: torch.Tensor         # int32 [total], read offsets
+    b: torch.Tensor         # int32 [total], seq offsets
+    key: torch.Tensor       # int32 [total]
+    first: torch.Tensor     # int32 [total]
+    count: torch.Tensor     # int32 [total]
+    nb_total: torch.Tensor  # int32 scalar, on the device
+
+
+def bucket_census(contrib: torch.Tensor, cstart: torch.Tensor, total: int,
+                  index: PhaseAIndex, bins_per_pass=None) -> BucketCensus:
+    """K10's census of one probed chunk of `total` hits: on a card
+    `csrc/cand_census.cu` (a counting sort per read), on the CPU the
+    plain version (`cand_census`, projected).  `bins_per_pass` caps the
+    kernel's keys per walk over a read's postings (None: as many as a
+    block's shared memory holds; a smaller value exercises the slices);
+    the plain version ignores it.  Needs no host synchronisation."""
+    if contrib.shape[0] * 2 * index.n_seqs > 1 << 31:
+        raise ValueError("bucket keys read * 2 n_seqs + lkey pass int32")
+    if contrib.device.type == "cuda":
+        return bucket_census_cuda(contrib, cstart, total, index,
+                                  bins_per_pass)
+    if contrib.device.type == "cpu":
+        return bucket_census_plain(contrib, cstart, total, index)
+    raise ValueError(f"no census kernel for device {contrib.device}")
+
+
+def bucket_census_plain(contrib: torch.Tensor, cstart: torch.Tensor,
+                        total: int, index: PhaseAIndex) -> BucketCensus:
+    """Plain PyTorch version of the census kernel: `cand_census`'s sorted
+    arena and its buckets' keys, first slots and counts."""
+    cen = cand_census(contrib, cstart, total, index)
+    live = torch.arange(total, device=contrib.device) < cen.nb_total
+    return BucketCensus(a=cen.a, b=cen.b,
+                        key=torch.where(live, cen.gk[cen.first], 0).int(),
+                        first=cen.first.int(), count=cen.count.int(),
+                        nb_total=cen.nb_total.int())
+
+
+@functools.lru_cache(maxsize=None)
+def _census_lib() -> ctypes.CDLL:
+    from ._build import load
+
+    lib = load("cand_census")
+    lib.t1k_cand_census.restype = ctypes.c_int
+    lib.t1k_cand_census.argtypes = (
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 8)
+    return lib
+
+
+def bucket_census_cuda(contrib: torch.Tensor, cstart: torch.Tensor,
+                       total: int, index: PhaseAIndex,
+                       bins_per_pass=None) -> BucketCensus:
+    """Launch csrc/cand_census.cu on the current stream (no
+    synchronisation); the same buckets as bucket_census_plain, the seeds
+    of each bucket in another order."""
+    dev = contrib.device
+    _check("contrib", contrib, torch.int32, dev)
+    _check("cstart", cstart, torch.int32, dev)
+    _check("post_seq", index.post_seq, torch.int32, dev)
+    _check("post_off", index.post_off, torch.int32, dev)
+    R, W2 = contrib.shape
+    total = int(total)
+    if cstart.shape != (R, W2) or W2 % 2 or total > I32MAX:
+        raise ValueError("contrib, cstart [R, 2W] and total < 2^31")
+    a, b, key, first, count = (torch.empty(total, dtype=torch.int32,
+                                           device=dev) for _ in range(5))
+    nb_total = torch.zeros((), dtype=torch.int32, device=dev)
+    if R == 0 or total == 0:
+        return BucketCensus(a, b, key, first, count, nb_total)
+    scratch = torch.empty(2 * R, dtype=torch.int32, device=dev)
+    lib = _census_lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.t1k_cand_census(
+            contrib.data_ptr(), cstart.data_ptr(), index.post_seq.data_ptr(),
+            index.post_off.data_ptr(), R, W2, index.n_seqs, total,
+            int(bins_per_pass or 0), a.data_ptr(), b.data_ptr(),
+            key.data_ptr(), first.data_ptr(), count.data_ptr(),
+            nb_total.data_ptr(), scratch.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"cand_census kernel launch failed: CUDA error "
+                           f"{rc}")
+    launch_counts["cand_census"] += 1
+    return BucketCensus(a, b, key, first, count, nb_total)
+
+
+def chain_buckets(census: BucketCensus, lens: torch.Tensor, *, k: int,
+                  n_seqs: int, radius: int, hit_len_required: int,
+                  bucket_cap: int):
+    """K10's chain over a census (`_cand_tile_kernel` without its tiles):
+    on a card the bucket-ragged entry of `csrc/phase_a_chain.cu`, on the
+    CPU the plain version.  Every bucket of `min_chain_seeds` to
+    bucket_cap seeds is chained with a zero budget; the others are not.
+
+    Returns (keep, over): int32 [len(census.key)], 1 for a bucket below
+    nb_total whose chain emits at least one overlap and 0 elsewhere; int32
+    [len(lens)], per read its buckets past bucket_cap (a read with any is
+    undecided).  Needs no host synchronisation on a card."""
+    if bucket_cap > CHAIN_MAX_B:
+        raise ValueError(f"bucket_cap above {CHAIN_MAX_B}")
+    kw = dict(k=k, n_seqs=n_seqs, radius=radius,
+              hit_len_required=hit_len_required, bucket_cap=bucket_cap)
+    if lens.device.type == "cuda":
+        return chain_buckets_cuda(census, lens, **kw)
+    if lens.device.type == "cpu":
+        return chain_buckets_plain(census, lens, **kw)
+    raise ValueError(f"no chain kernel for device {lens.device}")
+
+
+def chain_buckets_plain(census: BucketCensus, lens: torch.Tensor, *, k: int,
+                        n_seqs: int, radius: int, hit_len_required: int,
+                        bucket_cap: int):
+    """Plain PyTorch version of the bucket-ragged chain: `cand_tile`'s
+    gather of the chained buckets and the chain's plain version."""
+    dev = lens.device
+    nb = int(census.nb_total)
+    cnt = census.count[:nb].long()
+    read = census.key[:nb].long() // (2 * n_seqs)
+    keep = torch.zeros(len(census.key), dtype=torch.int32, device=dev)
+    over = torch.zeros(len(lens), dtype=torch.int32, device=dev)
+    over.scatter_add_(0, read, (cnt > bucket_cap).int())
+    rows = torch.nonzero((cnt >= min_chain_seeds(k, hit_len_required))
+                         & (cnt <= bucket_cap))[:, 0]
+    if len(rows):
+        a, b, nbr = _gather_seeds(census.a, census.b,
+                                  census.first[rows].long(), cnt[rows],
+                                  bucket_cap)
+        lens_row = lens[read[rows]]
+        core, _ = chain_rows_plain(a, b, nbr, lens_row,
+                                   torch.zeros_like(lens_row), k=k,
+                                   radius=radius,
+                                   hit_len_required=hit_len_required)
+        keep[rows] = core.any(dim=1).int()
+    return keep, over
+
+
+def chain_buckets_cuda(census: BucketCensus, lens: torch.Tensor, *, k: int,
+                       n_seqs: int, radius: int, hit_len_required: int,
+                       bucket_cap: int):
+    """Launch the bucket-ragged entry of csrc/phase_a_chain.cu on the
+    current stream (no synchronisation); the same result as
+    chain_buckets_plain."""
+    dev = lens.device
+    for name in ("a", "b", "key", "first", "count", "nb_total"):
+        _check(name, getattr(census, name), torch.int32, dev)
+    _check("lens", lens, torch.int32, dev)
+    keep = torch.zeros(len(census.key), dtype=torch.int32, device=dev)
+    over = torch.zeros(len(lens), dtype=torch.int32, device=dev)
+    if len(census.key) == 0:
+        return keep, over
+    lib = _chain_lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.t1k_phase_a_chain_buckets(
+            census.a.data_ptr(), census.b.data_ptr(), census.key.data_ptr(),
+            census.first.data_ptr(), census.count.data_ptr(),
+            census.nb_total.data_ptr(), lens.data_ptr(), 2 * n_seqs,
+            min_chain_seeds(k, hit_len_required), bucket_cap, k, radius,
+            hit_len_required, keep.data_ptr(), over.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"phase_a_chain bucket kernel launch failed: CUDA "
+                           f"error {rc}")
+    launch_counts["cand_chain"] += 1
+    return keep, over
+
+
+def kept_keys(key: torch.Tensor, keep: torch.Tensor, size: int):
+    """The keys of the buckets with keep != 0, in bucket order, then -1:
+    int32 [size] (size bounds the kept count), without a host wait."""
+    pos = torch.cumsum(keep, 0) - 1
+    out = torch.full((size + 1,), -1, dtype=torch.int32, device=key.device)
+    out.scatter_(0, torch.where(keep != 0, pos, size), key)
+    return out[:size]
 
 
 class DeviceCandidates:
@@ -924,19 +1124,19 @@ class DeviceCandidates:
     generate's element for element.
 
     Each chunk of row_chunk reads is probed (`probe`), censused
-    (`cand_census`) and chained in tiles of at most tile_rows buckets
-    (`cand_tile`), on a side stream.  The host waits three times a chunk:
-    for its hit total (the arena size; the probes of the next chunks stay
-    queued meanwhile), for the number of buckets worth chaining (the
-    tiles' shapes) and for the kept buckets."""
+    (`bucket_census`) and chained bucket by bucket (`chain_buckets`) on a
+    side stream; its kept keys, bucket count and over-counts stay on the
+    device.  The host waits once a chunk, for its hit total (the arena's
+    size; the probes of the next chunks stay queued meanwhile), and twice
+    at the end: for the count of kept buckets and for one copy of every
+    chunk's results."""
 
     MAX_INFLIGHT = 4
     _MAX_TIER = 1 << 24     # the JAX program's largest arena tier
 
     def __init__(self, index: PhaseAIndex, hit_len_required: int,
                  radius: int = 10, hit_cap: int = 1 << 24,
-                 bucket_cap: int = 128, row_chunk: int = 1024,
-                 tile_rows: int = 16384):
+                 bucket_cap: int = 128, row_chunk: int = 1024):
         if bucket_cap > CHAIN_MAX_B:
             raise ValueError(f"bucket_cap above {CHAIN_MAX_B}")
         self.index = index
@@ -944,17 +1144,18 @@ class DeviceCandidates:
         self.radius = radius
         self.bucket_cap = bucket_cap
         self.row_chunk = row_chunk
-        self.tile_rows = tile_rows
         # a chunk whose hit total exceeds the largest arena is undecided
         self.hit_cap = min(hit_cap, self._MAX_TIER)
         self.device = index.device
         # reads handed to generate(), the share of them decided here, the
-        # buckets kept and generate()'s host-clock seconds
+        # buckets kept, generate()'s host-clock seconds and its host waits
+        # on the card
         self.screened = 0
         self.decided = 0
         self.kept = 0
         self.seconds = 0.0
-        # one dict a chunk: hits, buckets, chained, tiles, decided, kept
+        self.waits = 0
+        # one dict a chunk: lo, hi, hits, buckets, decided, kept
         self.chunks = []
         self._stream = (torch.cuda.Stream(self.device)
                         if self.device.type == "cuda" else None)
@@ -992,34 +1193,21 @@ class DeviceCandidates:
         return out
 
     def chunk(self, contrib: torch.Tensor, cstart: torch.Tensor, total: int,
-              lens: torch.Tensor, info: dict):
+              lens: torch.Tensor):
         """K10 on one probed chunk whose `total` hits fit hit_cap: the
-        census, then the buckets worth chaining in tiles of at most
-        tile_rows.  Returns the kept buckets' keys (read * 2 n_seqs +
-        lkey, the read counted from the chunk's first) and, per read, its
-        buckets past bucket_cap (int32; a read with any is undecided), on
-        the device; sets info's buckets, chained and tiles."""
+        census, then the chain of its buckets.  Returns, on the device and
+        without a host wait, the kept buckets' keys (read * 2 n_seqs +
+        lkey, the read counted from the chunk's first) in bucket order
+        then -1 (int32), the chunk's bucket count, and per read its
+        buckets past bucket_cap (int32; a read with any is undecided)."""
         idx = self.index
-        NG = 2 * idx.n_seqs
-        census = cand_census(contrib, cstart, total, idx)
-        over = torch.zeros(len(lens), dtype=torch.int32, device=lens.device)
-        over.scatter_add_(0, census.gk[census.first] // NG,
-                          (census.count > self.bucket_cap).int())
-        rows = torch.nonzero(
-            (census.count >= min_chain_seeds(idx.k, self.hit_len_required))
-            & (census.count <= self.bucket_cap))[:, 0]
-        info.update(buckets=int(census.nb_total), chained=len(rows), tiles=0)
-        keys = [torch.zeros(0, dtype=torch.int64, device=lens.device)]
-        for t0 in range(0, len(rows), self.tile_rows):
-            tile = rows[t0:t0 + self.tile_rows]
-            keep = cand_tile(
-                census, lens, tile, k=idx.k, n_seqs=idx.n_seqs,
-                radius=self.radius, hit_len_required=self.hit_len_required,
-                bucket_cap=self.bucket_cap)
-            keys.append(torch.where(keep, census.gk[census.first[tile]], -1))
-            info["tiles"] += 1
-        keys = torch.cat(keys)
-        return keys[keys >= 0], over
+        census = bucket_census(contrib, cstart, total, idx)
+        keep, over = chain_buckets(
+            census, lens, k=idx.k, n_seqs=idx.n_seqs, radius=self.radius,
+            hit_len_required=self.hit_len_required,
+            bucket_cap=self.bucket_cap)
+        size = total // min_chain_seeds(idx.k, self.hit_len_required)
+        return kept_keys(census.key, keep, size), census.nb_total, over
 
     def _generate(self, codes: np.ndarray, lens: np.ndarray):
         idx = self.index
@@ -1029,8 +1217,9 @@ class DeviceCandidates:
         codes_d = self._upload(codes.astype(np.int8, copy=False))
         lens_d = self._upload(lens)
         undecided = np.zeros(n, bool)
-        over_d = torch.zeros(n, dtype=torch.int32, device=self.device)
+        over_d = torch.zeros(n, dtype=torch.int64, device=self.device)
         kept = []           # per chunk: lo * NG + key of its kept buckets
+        buckets = []        # per chunk: its bucket count
         chunks = []
         cuda = self.device.type == "cuda"
         inflight = []
@@ -1039,17 +1228,19 @@ class DeviceCandidates:
             lo, hi, contrib, cstart, total, done = inflight.pop(0)
             if done is not None:
                 done.synchronize()
+                self.waits += 1
             total = int(total)
-            info = dict(lo=lo, hi=hi, hits=total, buckets=0, chained=0,
-                        tiles=0)
-            chunks.append(info)
+            chunks.append(dict(lo=lo, hi=hi, hits=total, buckets=0))
             if total > self.hit_cap:
                 undecided[lo:hi] = True
+                buckets.append(torch.zeros((), dtype=torch.int64,
+                                           device=self.device))
                 return
-            keys, over = self.chunk(contrib, cstart, total, lens_d[lo:hi],
-                                    info)
+            keys, nb, over = self.chunk(contrib, cstart, total,
+                                        lens_d[lo:hi])
             over_d[lo:hi] += over
-            kept.append(keys + lo * NG)
+            kept.append(torch.where(keys >= 0, keys.long() + lo * NG, -1))
+            buckets.append(nb.long())
 
         for lo in range(0, n, self.row_chunk):
             hi = min(lo + self.row_chunk, n)
@@ -1067,20 +1258,29 @@ class DeviceCandidates:
         while inflight:
             drain_one()
 
-        undecided |= over_d.cpu().numpy() > 0
-        keys = (torch.cat(kept).cpu().numpy() if kept
-                else np.zeros(0, np.int64))
-        reads = keys // NG
-        # drop the buckets of undecided reads (the host recomputes them)
-        keys = keys[~undecided[reads]]
+        # at the end, on the device: drop the padding and the buckets of
+        # undecided reads (the host recomputes them), split the keys; the
+        # host waits twice, for the kept count and for one copy
+        over = over_d > 0
+        keys = torch.cat(kept) if kept else over_d[:0]
+        keys = keys[(keys >= 0) & ~over[(keys // NG).clamp(min=0)]]
         reads = keys // NG
         lkey = keys % NG
         is_fwd = lkey >= idx.n_seqs
-        seqs = np.where(is_fwd, lkey - idx.n_seqs, lkey).astype(np.int32)
-        strands = np.where(is_fwd, 1, -1).astype(np.int8)
-        per_chunk = np.bincount(reads // self.row_chunk,
-                                minlength=len(chunks))
+        m = len(chunks)
+        host = torch.cat([
+            over.long(), torch.stack(buckets),
+            torch.bincount(reads // self.row_chunk, minlength=m), reads,
+            torch.where(is_fwd, lkey - idx.n_seqs, lkey),
+            is_fwd.long()]).cpu().numpy()
+        self.waits += 2 * cuda
+        undecided |= host[:n] != 0
+        nbs, per_chunk = host[n:n + m], host[n + m:n + 2 * m]
+        reads, seqs, is_fwd = host[n + 2 * m:].reshape(3, len(reads))
+        seqs = seqs.astype(np.int32)
+        strands = np.where(is_fwd != 0, 1, -1).astype(np.int8)
         for c, info in enumerate(chunks):
+            info["buckets"] = int(nbs[c])
             info["decided"] = int((~undecided[info["lo"]:info["hi"]]).sum())
             info["kept"] = int(per_chunk[c])
         self.chunks.extend(chunks)

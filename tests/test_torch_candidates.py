@@ -181,22 +181,26 @@ def test_generate_matches_jax_on_a_near_identical_panel():
 
 
 def test_generate_does_not_depend_on_chunks_or_tiles():
-    """Chunks of 7 reads and tiles of 50 buckets keep the same buckets, in
-    the same order, as one chunk and one tile."""
+    """Chunks of 7 reads keep the same buckets, in the same order, as one
+    chunk (the chain takes every bucket of a chunk at once: there are no
+    tiles), and each chunk's figures add up."""
     rng = np.random.default_rng(41)
     seqs = near_identical_panel(rng)
     reads = make_reads(rng, seqs, 40)
     packed = _packed(seqs)
     codes, lens = _pad(reads)
-    one = tpa.DeviceCandidates.build(packed, 11, 31, device="cpu",
-                                     bucket_cap=256).generate(codes, lens)
+    whole = tpa.DeviceCandidates.build(packed, 11, 31, device="cpu",
+                                       bucket_cap=256)
+    one = whole.generate(codes, lens)
     dc = tpa.DeviceCandidates.build(packed, 11, 31, device="cpu",
-                                    bucket_cap=256, row_chunk=7,
-                                    tile_rows=50)
+                                    bucket_cap=256, row_chunk=7)
     many = dc.generate(codes, lens)
     for a, b in zip(one, many):
         assert np.array_equal(a, b)
-    assert len(dc.chunks) == 6 and max(c["tiles"] for c in dc.chunks) > 1
+    assert len(dc.chunks) == 6 and len(whole.chunks) == 1
+    assert sum(c["buckets"] for c in dc.chunks) \
+        == whole.chunks[0]["buckets"] > len(one[0])
+    assert sum(c["kept"] for c in dc.chunks) == len(one[0])
     assert len(one[0]) > 100 and not one[3].any()
 
 
@@ -251,6 +255,132 @@ def test_census_and_tile_match_the_jax_programs():
             assert np.array_equal(g.numpy(), np.asarray(w)[:nb])
         assert not np.asarray(want[0])[nb:].any()
     assert got[4].any() and got[0].any()   # bucket_cap 8 overflows some
+
+
+def _panel(kind, seed):
+    """(seqs, reads, k, hit_len) of a seeded random panel (k = 9) or of
+    the near-identical panel (the genotyper's k = 11, hitLen 31)."""
+    rng = np.random.default_rng(seed)
+    if kind == "random":
+        seqs = random_panel(rng)
+        return seqs, make_reads(rng, seqs, 60), 9, 23
+    seqs = near_identical_panel(rng)
+    return seqs, make_reads(rng, seqs, 60), 11, 31
+
+
+def _probed(seqs, reads, k, device="cpu"):
+    """The panel's index and one probed chunk of the reads on `device`:
+    (packed, index, contrib, cstart, total, lens)."""
+    packed = _packed(seqs)
+    codes, lens = _pad(reads)
+    idx = tpa.PhaseAIndex.build(packed, k, device=device)
+    lens_d = torch.from_numpy(lens).to(device)
+    contrib, cstart, tot = tpa.probe(torch.from_numpy(codes).to(device),
+                                     lens_d, idx)
+    return packed, idx, contrib, cstart, int(tot.sum()), lens_d
+
+
+def _census_arrays(cen):
+    """A BucketCensus on the host: nb, then key, first and count of its
+    buckets, then each bucket's seeds sorted (bucket, a, b), for a
+    comparison in which the order inside a bucket is free."""
+    nb = int(cen.nb_total)
+    key, first, count = (getattr(cen, n)[:nb].cpu().numpy()
+                         for n in ("key", "first", "count"))
+    assert np.array_equal(first, np.cumsum(count) - count)
+    assert count.sum() == len(cen.a) and (count > 0).all()
+    bucket = np.repeat(np.arange(nb), count)
+    a, b = cen.a.cpu().numpy(), cen.b.cpu().numpy()
+    order = np.lexsort((b, a, bucket))
+    return nb, key, first, count, a[order], b[order]
+
+
+@pytest.mark.parametrize("kind,seed", [("random", 900), ("random", 901),
+                                       ("random", 902),
+                                       ("near_identical", 41)])
+def test_bucket_census_matches_cand_census_and_jax(kind, seed):
+    """The plain bucket_census (keys, first slots, counts, nb_total)
+    equals the projection of cand_census and of the JAX package's
+    `_cand_census_kernel`, exactly; each bucket's seeds equal the JAX
+    program's as a multiset."""
+    from t1k_tpu.ops import phase_a as jpa
+
+    seqs, reads, k, _ = _panel(kind, seed)
+    packed, idx, contrib, cstart, total, _ = _probed(seqs, reads, k)
+    got = tpa.bucket_census(contrib, cstart, total, idx)
+    assert all(getattr(got, n).dtype == torch.int32 for n in (
+        "a", "b", "key", "first", "count", "nb_total"))
+    nb, key, first, count, a, b = _census_arrays(got)
+    cen = tpa.cand_census(contrib, cstart, total, idx)
+    assert nb == int(cen.nb_total) > 50
+    assert np.array_equal(first, cen.first[:nb].numpy())
+    assert np.array_equal(count, cen.count[:nb].numpy())
+    assert np.array_equal(key, cen.gk[cen.first[:nb]].numpy())
+    jidx = jpa.PhaseAIndex.build(packed, k)
+    gk_s, a_s, b_s, bid, within, jnb = (
+        np.asarray(x) for x in jpa._cand_census_kernel(
+            contrib.numpy(), cstart.numpy(), jidx.post_seq, jidx.post_off,
+            n_seqs=jidx.n_seqs, cap=1 << max(16, total.bit_length())))
+    jfirst = np.nonzero(within[:total] == 0)[0]
+    assert int(jnb) == nb == len(jfirst)
+    assert np.array_equal(first, jfirst)
+    assert np.array_equal(key, gk_s[jfirst])
+    assert np.array_equal(count, np.bincount(bid[:total], minlength=nb))
+    order = np.lexsort((b_s[:total], a_s[:total], bid[:total]))
+    assert np.array_equal(a, a_s[:total][order])
+    assert np.array_equal(b, b_s[:total][order])
+
+
+@pytest.mark.parametrize("bucket_cap", [128, 8])
+def test_chain_buckets_matches_cand_tile(bucket_cap):
+    """The plain chain_buckets over every bucket gives the keep set of
+    cand_tile over the chained buckets and the over-count per read that
+    DeviceCandidates took from cand_census (buckets past bucket_cap)."""
+    rng = np.random.default_rng(23)
+    seqs = random_panel(rng)
+    reads = make_reads(rng, seqs, 100)
+    k, hlr = 9, 23
+    _, idx, contrib, cstart, total, lens = _probed(seqs, reads, k)
+    kw = dict(k=k, n_seqs=idx.n_seqs, radius=10, hit_len_required=hlr,
+              bucket_cap=bucket_cap)
+    keep, over = tpa.chain_buckets(
+        tpa.bucket_census(contrib, cstart, total, idx), lens, **kw)
+    cen = tpa.cand_census(contrib, cstart, total, idx)
+    rows = torch.nonzero((cen.count >= tpa.min_chain_seeds(k, hlr))
+                         & (cen.count <= bucket_cap))[:, 0]
+    want = torch.zeros(total, dtype=torch.int32)
+    want[rows] = tpa.cand_tile(cen, lens, rows, **kw).int()
+    want_over = torch.zeros(len(reads), dtype=torch.int32).scatter_add_(
+        0, cen.gk[cen.first] // (2 * idx.n_seqs),
+        (cen.count > bucket_cap).int())
+    assert keep.dtype == over.dtype == torch.int32
+    assert torch.equal(keep, want) and torch.equal(over, want_over)
+    assert keep.any() and (over.any() if bucket_cap == 8 else
+                           not over.any())
+
+
+def test_chain_verdicts_do_not_depend_on_seed_order():
+    """A seeded permutation of the seeds inside every bucket (the freedom
+    the census kernel's atomics take) leaves every keep verdict and every
+    over-count unchanged."""
+    import dataclasses
+
+    seqs, reads, k, hlr = _panel("near_identical", 7)
+    _, idx, contrib, cstart, total, lens = _probed(seqs, reads, k)
+    cen = tpa.bucket_census(contrib, cstart, total, idx)
+    nb, *_ = _census_arrays(cen)
+    bucket = np.repeat(np.arange(nb), cen.count[:nb].numpy())
+    perm = torch.from_numpy(np.lexsort(
+        (np.random.default_rng(5).random(total), bucket)))
+    assert (perm != torch.arange(total)).sum() > total // 2
+    shuffled = dataclasses.replace(cen, a=cen.a[perm], b=cen.b[perm])
+    for bucket_cap in (128, 32):
+        kw = dict(k=k, n_seqs=idx.n_seqs, radius=10, hit_len_required=hlr,
+                  bucket_cap=bucket_cap)
+        keep, over = tpa.chain_buckets(cen, lens, **kw)
+        keep_s, over_s = tpa.chain_buckets(shuffled, lens, **kw)
+        assert torch.equal(keep, keep_s) and torch.equal(over, over_s)
+        assert keep.sum() > 100
 
 
 def test_tiny_caps_leave_every_read_undecided():
@@ -471,28 +601,32 @@ def cuda_device():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("caps", [dict(bucket_cap=128),
-                                  dict(bucket_cap=256, row_chunk=7,
-                                       tile_rows=50),
+                                  dict(bucket_cap=256, row_chunk=7),
                                   dict(hit_cap=256, bucket_cap=32)])
 def test_cuda_generate_matches_plain(cuda_device, caps):
-    """The card's route (probe and chain kernels, census on the card)
-    equals the plain version on the CPU, array for array, and the
-    engine's oracle on every decided read; the chain kernel launched."""
+    """The card's route (probe, census and bucket chain kernels) equals
+    the plain version on the CPU, array for array, and the engine's
+    oracle on every decided read; the census and chain kernels launched,
+    and the host waited once a chunk and twice at the end."""
     rng = np.random.default_rng(77)
     seqs = near_identical_panel(rng) + random_panel(rng)
     reads = make_reads(rng, seqs, 400)
     packed = _packed(seqs)
     codes, lens = _pad(reads)
-    chain0 = tpa.launch_counts["phase_a_chain"]
-    got = tpa.DeviceCandidates.build(packed, 11, 31, device=cuda_device,
-                                     **caps).generate(codes, lens)
+    census0 = tpa.launch_counts["cand_census"]
+    chain0 = tpa.launch_counts["cand_chain"]
+    dc = tpa.DeviceCandidates.build(packed, 11, 31, device=cuda_device,
+                                    **caps)
+    got = dc.generate(codes, lens)
     want = tpa.DeviceCandidates.build(packed, 11, 31, device="cpu",
                                       **caps).generate(codes, lens)
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and np.array_equal(g, w)
     oracle_check(packed, 11, 31, reads, got)
+    assert dc.waits == len(dc.chunks) + 2
     if not got[3].all():
-        assert tpa.launch_counts["phase_a_chain"] > chain0
+        assert tpa.launch_counts["cand_census"] > census0
+        assert tpa.launch_counts["cand_chain"] > chain0
 
 
 @pytest.mark.cuda
@@ -524,3 +658,55 @@ def test_cuda_census_and_tile_match_plain(cuda_device):
     for g, w in zip(out["cuda"], out["cpu"]):
         assert np.array_equal(g, w)
     assert out["cpu"][-1].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bins_per_pass", [None, 37])
+def test_cuda_bucket_census_matches_plain(cuda_device, bins_per_pass):
+    """csrc/cand_census.cu against the plain census on the CPU: nb_total,
+    every bucket's key, first slot and count exactly, each bucket's seeds
+    as a multiset; at the default keys per pass and at 37 (four slices of
+    the panel's 128 keys, one not a multiple of 32)."""
+    rng = np.random.default_rng(23)
+    seqs = near_identical_panel(rng) + random_panel(rng)
+    reads = make_reads(rng, seqs, 300)
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        _, idx, contrib, cstart, total, _ = _probed(seqs, reads, 11, dev)
+        launches = tpa.launch_counts["cand_census"]
+        cen = tpa.bucket_census(contrib, cstart, total, idx,
+                                bins_per_pass=bins_per_pass)
+        assert tpa.launch_counts["cand_census"] == launches + (
+            dev.type == "cuda")
+        out[dev.type] = _census_arrays(cen)
+    assert 2 * idx.n_seqs == 128 and out["cpu"][0] > 1000
+    for g, w in zip(out["cuda"], out["cpu"]):
+        assert np.array_equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bucket_cap", [128, 8])
+def test_cuda_chain_buckets_matches_plain(cuda_device, bucket_cap):
+    """The bucket-ragged entry of csrc/phase_a_chain.cu on the card's
+    census against the plain chain on the same census on the CPU: keep
+    per bucket and the over-counts per read, exactly."""
+    import dataclasses
+
+    rng = np.random.default_rng(31)
+    seqs = near_identical_panel(rng) + random_panel(rng)
+    reads = make_reads(rng, seqs, 300)
+    _, idx, contrib, cstart, total, lens = _probed(seqs, reads, 11,
+                                                   cuda_device)
+    cen = tpa.bucket_census(contrib, cstart, total, idx)
+    kw = dict(k=11, n_seqs=idx.n_seqs, radius=10, hit_len_required=31,
+              bucket_cap=bucket_cap)
+    launches = tpa.launch_counts["cand_chain"]
+    keep, over = tpa.chain_buckets(cen, lens, **kw)
+    assert tpa.launch_counts["cand_chain"] == launches + 1
+    host = dataclasses.replace(cen, **{f.name: getattr(cen, f.name).cpu()
+                                       for f in dataclasses.fields(cen)})
+    want_keep, want_over = tpa.chain_buckets(host, lens.cpu(), **kw)
+    assert torch.equal(keep.cpu(), want_keep)
+    assert torch.equal(over.cpu(), want_over)
+    assert want_keep.any() and (want_over.any() if bucket_cap == 8 else
+                                not want_over.any())
