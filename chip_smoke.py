@@ -164,9 +164,14 @@ Phases, in order; any failure raises and the exit code is non-zero:
  18. cohort_em_timing  the EM kernel's cohort form alone on (a) the 96
                    problems the port's second pass solved and (b) 384
                    cells of benchmarks/cohort_em.py's default shape: the
-                   batched launch, one single-problem launch per cell,
-                   the per-cell native loop and the plain version, in
-                   turns, every cell bit for bit against the native loop
+                   batched launches at the cells' widths, the same cells
+                   forced to 1,024 threads, one single-problem launch per
+                   cell, the per-cell native loop and the plain version,
+                   in turns, then every cell forced to each width from 32
+                   to 1,024 in turns, every cell bit for bit against the
+                   native loop; per launch its kernel's registers, local
+                   bytes, resident blocks an SM and waves (local bytes in
+                   a launch at the cells' widths fail)
  19. sharded_em    the sharded EM (t1k_tpu_torch/parallel/mesh.py and
                    multihost.py; the sharded form of em_squarem.cu) on
                    one card: em_quantify_sharded_squarem over [card] x n,
@@ -207,9 +212,11 @@ batch with the analyzer's; the
 bound each could reach on the card and what sets it - for the EM the
 longer of its bytes/operations bound and the chain of dependent f64 adds
 em.cc's order forces, at the add latency the card measured, and for its
-cohort form also the cells' chains over the SMs' resident blocks; the
-batched EM timed on set (b); em_sharded, the sharded form's E-step on the
-HLA problem at one shard, with its launches over the sharded_em phase's
+cohort form also the cells' chains over the SMs' resident warps, a warp
+a chain; the batched EM timed on set (b), with set (b) forced to 1,024
+threads, with its lists left in device memory and forced to each width,
+and set (a)'s times and bound; em_sharded, the sharded form's E-step on
+the HLA problem at one shard, with its launches over the sharded_em phase's
 six solves, the tail's beside them, and its library_ms two torch.sparse
 CSR products; cand_census and device_candidates, K10's census kernel
 and bucket chain on the genotyper cell's chunk with the most hits (their
@@ -463,9 +470,11 @@ def time_ms(fn, reps: int, dev) -> float:
 
 # Peak rates of one H100 SXM (NVIDIA's data sheet) for the bounds: HBM3
 # bytes/s, f64 outside the tensor cores, and int32 issue as 132 SMs x 64
-# INT32 lanes x the SM clock (read from the card, 1980 MHz on the CPU).
+# INT32 lanes x the SM clock (read from the card, 1980 MHz on the CPU);
+# the resident warps an SM holds.
 HBM_BYTES_PER_S = 3.35e12
 F64_PER_S = 34e12
+WARPS_PER_SM = 64
 # int32 operations per DP cell counted for the aligners' bounds, in the
 # instructions this card needs.  Scores alone: E an add and a DPX add-max
 # (__viaddmax_s32, one instruction on Hopper), H a DPX add-max of the
@@ -3170,16 +3179,25 @@ def cohort_plate(n_cells: int) -> tuple:
 
 def cohort_case(dev, name: str, cohort: tuple, add_ns: float, sms: int,
                 info: dict):
-    """One cohort through the batched EM: the batched launch (tables on
-    the card), one single-problem launch per cell on one stream, the
+    """One cohort through the batched EM: the batched launches at
+    ops/em.py's widths (tables on the card), the same cells forced to
+    1,024 threads, one single-problem launch per cell on one stream, the
     per-cell native loop and the plain version (on the CPU), in turns
-    (native, batched, singles, plain, native, batched, singles), each
-    held to the native loop bit for bit per cell.  The bound is the
+    (native, batched, 1,024, unstaged, singles, plain, native, unstaged,
+    1,024, batched, singles: unstaged is the cells' widths with every
+    list left in device memory), then every cell forced to each of
+    em.COHORT_WIDTHS in turns (in order, then reversed), each held to
+    the native loop bit for bit per cell.  Per launch of the widths' and
+    the 1,024-thread form:
+    registers, local bytes and resident blocks an SM at its shared bytes
+    (the kernel's attributes), and the waves its cells take; a launch of
+    the widths' f64 kernels with local bytes fails.  The bound is the
     largest of the longest cell's add chain (em_chain_adds at `add_ns`),
-    the cells' chains spread over `sms` SMs x 2 resident blocks, and the
-    cohort's bytes/operations (em_work; the reference tables once).
-    Returns (batched ms, plain ms, (bound ms, bound by), max |batched -
-    plain|)."""
+    the cells' chains spread over `sms` SMs x 64 resident warps (a chain
+    holds at least one warp, whatever the design), and the cohort's
+    bytes/operations (em_work; the reference tables once).  Returns
+    (batched ms, plain ms, (bound ms, bound by), max |batched - plain|,
+    {1,024-thread ms, unstaged ms, {width: ms}})."""
     import torch
 
     from t1k_tpu_torch.native import em_quantify
@@ -3191,11 +3209,12 @@ def cohort_case(dev, name: str, cohort: tuple, add_ns: float, sms: int,
                 max_iterations=1000)
     cuda = dev.type == "cuda"
     f64 = torch.float64
+    pre = f"{name}_"
     problems = [p for p in problems if len(p[0])]
     t0 = time.perf_counter()
     cells = [em.em_tables(p[0], p[1], p[2], eff_len, p[3], gene, major,
                           n_genes, n_majors) for p in problems]
-    info[f"{name}_tables_ms"] = f"{(time.perf_counter() - t0) * 1e3:.1f}"
+    info[pre + "tables_ms"] = f"{(time.perf_counter() - t0) * 1e3:.1f}"
 
     def native():
         return [em_quantify(p[0], p[1], p[2], eff_len, np.zeros(len(gene)),
@@ -3206,32 +3225,56 @@ def cohort_case(dev, name: str, cohort: tuple, add_ns: float, sms: int,
         return [(it, c.numpy()) for it, c in em.squarem_batched_plain(
             cells, **opts, device="cpu", dtype=f64)]
 
+    widths = em.COHORT_WIDTHS
     if cuda:
         t0 = time.perf_counter()
         batch_dev = em.squarem_batched_device(cells, dev, f64)
         torch.cuda.synchronize()
-        info[f"{name}_upload_ms"] = f"{(time.perf_counter() - t0) * 1e3:.1f}"
+        info[pre + "upload_ms"] = f"{(time.perf_counter() - t0) * 1e3:.1f}"
+        forced = {w: em.squarem_batched_device(cells, dev, f64, width=w)
+                  for w in widths}
+        unstaged = em.squarem_batched_device(cells, dev, f64, stage=False)
         singles = [em.squarem_device(**t, device=dev, dtype=f64)
                    for t in cells]
 
-        def batched():
-            em.squarem_batched_launch(batch_dev, **opts)
+        def launcher(bd):
+            return lambda: em.squarem_batched_launch(bd, **opts)
+
+        def reader(bd):
+            return lambda: [(it, c.cpu().numpy()) for it, c in
+                            em.squarem_batched_results(bd)]
 
         def single():
             for d in singles:
                 em.squarem_launch(d, **opts)
 
-        def batched_result():
-            return [(it, c.cpu().numpy())
-                    for it, c in em.squarem_batched_results(batch_dev)]
-
         def single_result():
             return [(int(d["iterations"].item()), d["count"].cpu().numpy())
                     for d in singles]
-        info[f"{name}_launches"] = len(batch_dev["launches"])
-        info[f"{name}_shared_cells"] = int(sum(
-            len(g["cells"]) for g in batch_dev["launches"] if g["shared"]))
-    else:  # CPU rehearsal: the plain version stands in for both kernels
+        batched, batched_result = launcher(batch_dev), reader(batch_dev)
+        runs = {w: (launcher(forced[w]), reader(forced[w])) for w in widths}
+        runs["unstaged"] = launcher(unstaged), reader(unstaged)
+        info[pre + "launches"] = len(batch_dev["launches"])
+        info[pre + "staged_cells"] = int(sum(
+            len(g["cells"]) for g in batch_dev["launches"]
+            if g["form"] == em.STAGED_FORM))
+        for tag, bd in (("", batch_dev), ("w1024_", forced[1024])):
+            for g in bd["launches"]:
+                a = em.batched_kernel_attrs(f64, g["form"], g["width"],
+                                            g["bytes"])
+                form = ("device", "shared", "staged")[g["form"]]
+                waves = -(-len(g["cells"]) // max(a["blocks_per_sm"] * sms,
+                                                  1))
+                info[f"{pre}{tag}{form}{g['width']}"] = (
+                    f"cells:{len(g['cells'])},regs:{a['registers']},"
+                    f"local:{a['local_bytes']},smem:{g['bytes']},"
+                    f"blocks_per_sm:{a['blocks_per_sm']},waves:{waves}")
+                if not tag and a["local_bytes"]:
+                    raise AssertionError(
+                        f"cohort {name}: the {form} kernel of width "
+                        f"{g['width']} has {a['local_bytes']} bytes of "
+                        "local memory")
+    else:  # CPU rehearsal: the plain version stands in for every kernel
         out = []
 
         def batched():
@@ -3241,6 +3284,7 @@ def cohort_case(dev, name: str, cohort: tuple, add_ns: float, sms: int,
         def batched_result():
             return out
         single_result = batched_result
+        runs = {w: (batched, batched_result) for w in (*widths, "unstaged")}
 
     def host_ms(fn):
         t0 = time.perf_counter()
@@ -3248,26 +3292,36 @@ def cohort_case(dev, name: str, cohort: tuple, add_ns: float, sms: int,
         return (time.perf_counter() - t0) * 1e3, got
 
     want = native()
-    times = {k: [] for k in ("native", "batched", "singles", "plain")}
+
+    def check(route, res):
+        for c, ((it, count), (it_w, count_w)) in enumerate(zip(res, want)):
+            if it != it_w or count.tobytes() != count_w.tobytes():
+                raise AssertionError(f"cohort {name}: {route} differs from "
+                                     f"the native loop in cell {c}")
+    reps = 20 if cuda else 1
+    times = {k: [] for k in ("native", "batched", "forced1024", "unstaged",
+                             "singles", "plain")}
     plain_out = None
     for turn in range(2):
         ms, got = host_ms(native)
         times["native"].append(ms)
-        routes = [("native", got)]
-        times["batched"].append(time_ms(batched, 20 if cuda else 1, dev))
-        routes.append(("batched", batched_result()))
+        check("native", got)
+        pair = [("batched", batched, batched_result),
+                ("forced1024", *runs[1024]), ("unstaged", *runs["unstaged"])]
+        for route, fn, result in pair if turn == 0 else pair[::-1]:
+            times[route].append(time_ms(fn, reps, dev))
+            check(route, result())
         times["singles"].append(time_ms(single, 3 if cuda else 1, dev))
-        routes.append(("singles", single_result()))
+        check("singles", single_result())
         if turn == 0:
             ms, plain_out = host_ms(plain)
             times["plain"].append(ms)
-            routes.append(("plain", plain_out))
-        for route, res in routes:
-            for c, ((it, count), (it_w, count_w)) in enumerate(zip(res,
-                                                                   want)):
-                if it != it_w or count.tobytes() != count_w.tobytes():
-                    raise AssertionError(f"cohort {name}: {route} differs "
-                                         f"from the native loop in cell {c}")
+            check("plain", plain_out)
+    width_ms = {w: [] for w in widths}
+    for order in (widths, widths[::-1]):
+        for w in order:
+            width_ms[w].append(time_ms(runs[w][0], reps, dev))
+            check(f"width {w}", runs[w][1]())
     err = max(float(np.abs(b[1] - p[1]).max(initial=0))
               for b, p in zip(batched_result(), plain_out))
     iters = np.array([it for it, _ in want])
@@ -3277,10 +3331,9 @@ def cohort_case(dev, name: str, cohort: tuple, add_ns: float, sms: int,
     ref_bytes = sum(cells[0][k].nbytes for k in EM_REFERENCE_TABLES)
     work_ms, work_by = bound(sum(w[0] for w in work) + ref_bytes,
                              sum(w[1] for w in work), F64_PER_S)
-    spread_ms = chain_ms.sum() / (2 * sms)
+    spread_ms = chain_ms.sum() / (sms * WARPS_PER_SM)
     b = max((chain_ms.max(), "operations"), (spread_ms, "operations"),
             (work_ms, work_by))
-    pre = f"{name}_"
     info[pre + "cells"] = len(cells)
     info[pre + "nnz"] = sum(len(t["rg_ecs"]) for t in cells)
     largest = max(cells, key=lambda t: len(t["rg_counts"]) * len(t["ec_len"]))
@@ -3289,12 +3342,17 @@ def cohort_case(dev, name: str, cohort: tuple, add_ns: float, sms: int,
     info[pre + "iterations"] = f"{iters.min()}-{iters.max()}"
     for k, v in times.items():
         info[pre + k + "_ms"] = " ".join(f"{t:.4f}" for t in v)
+    for w, v in width_ms.items():
+        info[f"{pre}w{w}_ms"] = " ".join(f"{t:.4f}" for t in v)
     info[pre + "longest_chain_ms"] = f"{chain_ms.max():.4f}"
-    info[pre + "spread_chain_ms"] = f"{spread_ms:.4f}"
+    info[pre + "spread_chain_ms"] = f"{spread_ms:.6f}"
     info[pre + "work_bound_ms"] = f"{work_ms:.6f}"
     info[pre + "bound_share"] = f"{b[0] / np.mean(times['batched']):.4f}"
     return (float(np.mean(times["batched"])), float(times["plain"][0]), b,
-            err)
+            err, dict(ms_1024=float(np.mean(times["forced1024"])),
+                      unstaged_ms=float(np.mean(times["unstaged"])),
+                      width_ms={w: float(np.mean(v))
+                                for w, v in width_ms.items()}))
 
 
 def phase_cohort_em_timing(dev, problems_path: str, n_cells: int,
@@ -3303,7 +3361,8 @@ def phase_cohort_em_timing(dev, problems_path: str, n_cells: int,
     smartseq phase's port run solved in its second pass and (b)
     `n_cells` cells of benchmarks/cohort_em.py's default shape; the f64
     add latency from the clock probe.  Returns set (b)'s (batched ms,
-    plain ms, bound, max |batched - plain|)."""
+    plain ms, bound, max |batched - plain|) and the record's extras: set
+    (b)'s 1,024-thread and per-width times, set (a)'s times and bound."""
     import pickle
 
     import torch
@@ -3319,9 +3378,14 @@ def phase_cohort_em_timing(dev, problems_path: str, n_cells: int,
     info["sms"] = sms
     with open(problems_path, "rb") as f:
         args, kwargs = pickle.load(f)
-    cohort_case(dev, "plate", (args, kwargs), add_ns, sms, info)
-    return cohort_case(dev, "cohort", cohort_plate(n_cells), add_ns, sms,
-                       info)
+    plate_ms, _, plate_bound, plate_err, plate_x = cohort_case(
+        dev, "plate", (args, kwargs), add_ns, sms, info)
+    ms, plain_ms, b, err, extras = cohort_case(
+        dev, "cohort", cohort_plate(n_cells), add_ns, sms, info)
+    extras.update(plate_ms=plate_ms, plate_ms_1024=plate_x["ms_1024"],
+                  plate_width_ms=plate_x["width_ms"],
+                  plate_bound_ms=plate_bound[0])
+    return ms, plain_ms, b, max(err, plate_err), extras
 
 
 # t1k_tpu/parallel/scaling_bench.py's problem: read groups, ECs (8 entries
@@ -3808,7 +3872,7 @@ def run(dev, sizes: dict) -> list:
             plate_launches, plate_em = phase_smartseq(dev, work, info,
                                                       sizes["plate"])
         with phase("cohort_em_timing") as info:
-            *times["em_squarem_batched"], batched_err = \
+            *times["em_squarem_batched"], batched_err, batched_extras = \
                 phase_cohort_em_timing(dev, plate_em, sizes["cohort"], info)
         with phase("sharded_em") as info:
             times["em_sharded"], sharded_launches, sharded_extras = \
@@ -3857,6 +3921,7 @@ def run(dev, sizes: dict) -> list:
     records[list(KERNELS).index("align_full")].update(v1_extras)
     records[list(KERNELS).index("em_sharded")].update(
         sharded_extras, launches_dryrun=dry_launches["em_sharded"])
+    records[list(KERNELS).index("em_squarem_batched")].update(batched_extras)
     records[list(KERNELS).index("band_stats_warp")][
         "launches_dryrun"] = dry_launches["band_stats_warp"]
     for name, (_, _, extras) in cand.items():

@@ -29,20 +29,34 @@
 // gather costs several bank-conflicting wavefronts) and one correctly
 // rounded f64 divide per incidence in the CSC pass.  Those are the
 // floors that only a design across SMs would lift.  The cohort form is
-// bound by its longest cell's add chain and by the cells' chains spread
-// over the two 1,024-thread blocks an SM holds; a small cell leaves most
-// of its block idle.
+// bound by its longest cell's add chain, and the cells' chains spread
+// over the SMs' resident warps, one warp a chain.  Its cells are small
+// (tens of ECs, hundreds of read groups), and on the card a round of
+// such a cell is a chain of latencies far above its adds: the CSC pass's
+// correctly rounded divides, a few hundred cycles each, waited on one
+// after another down each column (three quarters of a 600 x 48 cell's
+// round at 1,024 threads), the list loads, the one-thread folds.
 //
 // Design: the whole convergence loop is one launch of one block
-// (squarem_kernel); the cohort form (squarem_batched_kernel) runs the
-// same block code once per cell, each block on its own cell.
+// (squarem_kernel, 1,024 threads); the cohort form
+// (squarem_batched_kernel) runs the same block code once per cell, each
+// block on its own cell, with kW threads (32 to 1,024): the host gives
+// every cell of a cohort its share of the threads the card holds at once
+// (ops/em.py::cohort_width: 256 for 384 cells on 132 SMs, at most 512),
+// deals its lists at that width, and launches each (form, width) class
+// once, every class on its own stream.  A cell whose vectors and lists
+// fit in shared memory (kStagedForm, every cell of a plate) has its lists
+// copied there first, and its CSC pass computes every term at once across
+// the block before each thread adds its column's terms in order.  Each
+// (form, width) is built for the resident blocks that keep its registers
+// off the stack (cohort_blocks).
 //   * The per-read-group pairs (psum, the group count: one 16-byte
 //     gather per CSC term) and the per-EC vectors (x0-x3, count,
 //     per_len, the effective lengths) live in dynamic shared memory when
 //     they fit (kShared); otherwise the same code runs on device-memory
-//     copies.  The index lists stay in device memory, laid out by the
-//     host so that a warp's 32 threads, each walking its own list, read
-//     128 contiguous bytes a load.
+//     copies.  The index lists stay in device memory (but in the cohort's
+//     staged form), laid out by the host so that a warp's 32 threads,
+//     each walking its own list, read 128 contiguous bytes a load.
 //   * CSR pass: one thread per read group sums its ECs in the group's
 //     order; CSC pass: one thread per EC sums its read groups' shares in
 //     ascending read-group order (em.cc's scatter order).  The host deals
@@ -55,7 +69,8 @@
 //   * The EC-length sums (normalizer, alpha's sum_r and sum_v, the L1
 //     change): every thread writes its terms to a vector, then one thread
 //     folds it left to right with the loads running ahead; sum_r and
-//     sum_v fold on two warps at once.  x0 = x1 is a pointer swap.
+//     sum_v fold on two warps at once (on one thread, interleaved, in a
+//     one-warp block).  x0 = x1 is a pointer swap.
 //   * The mask: one thread per major allele sums its alleles in ascending
 //     order (the host's major -> alleles lists), which is em.cc's chain;
 //     the gene maximum is exact in any order (an integer atomicMax on the
@@ -106,12 +121,13 @@ __device__ __forceinline__ void atomic_max_pos(double* a, double v) {
 }
 
 // One pass's lists (CSR rows or CSC columns) as the host deals them to
-// the threads: slot k*kThreads + t holds the list thread t folds in its
+// a block of W threads: slot k*W + t holds the list thread t folds in its
 // k-th turn (sched, -1 for none) and its length; the 32 slots of a warp
 // share a block of the stream at base[slot / 32], element j of lane l's
-// list at base + 32*j + l, so a warp's loads are coalesced.
+// list at base + 32*j + l, so a warp's loads are coalesced; the stream
+// holds stream_len elements (the cohort form's staging copies them).
 struct Lists {
-  int32_t slots;
+  int32_t slots, stream_len;
   const int32_t* sched;
   const int32_t* len;
   const int64_t* base;
@@ -145,12 +161,30 @@ struct Scratch {
 };
 
 // The loop's working vectors, in shared or device memory; grp[2 r] is
-// read group r's psum, grp[2 r + 1] its count.
+// read group r's psum, grp[2 r + 1] its count; the staged form's CSC
+// terms at their stream positions.
 template <typename T>
 struct Vecs {
-  T *x0, *x1, *x2, *x3, *count, *per_len, *grp;
+  T *x0, *x1, *x2, *x3, *count, *per_len, *grp, *terms;
   const T* ec_len;
 };
+
+__host__ __device__ constexpr size_t align8(size_t n) {
+  return (n + 7) & ~(size_t)7;
+}
+
+// Dynamic shared memory of the kShared form for one problem.
+template <typename T>
+__host__ __device__ size_t shared_bytes(int64_t rg_cnt, int64_t ec_cnt) {
+  return (2 * (size_t)rg_cnt + 7 * (size_t)ec_cnt) * sizeof(T);
+}
+
+// Shared bytes of one pass's lists staged (ops/em.py::staged_bytes):
+// base, then sched, len and stream, to a multiple of 8.
+__host__ __device__ size_t staged_list_bytes(const Lists& l) {
+  return align8(8 * (size_t)(l.slots / 32) +
+                4 * (2 * (size_t)l.slots + (size_t)l.stream_len));
+}
 
 template <typename T> struct Pair;
 template <> struct Pair<float> { using type = float2; };
@@ -192,81 +226,143 @@ __device__ __forceinline__ T fold_seq(const T* a, int n) {
   return sum;
 }
 
+// fold_seq(a, n) into *sum_a and fold_seq(b, n) into *sum_b, the two
+// chains interleaved on the calling thread.
+template <typename T>
+__device__ __forceinline__ void fold_two(const T* a, const T* b, int n,
+                                         T* sum_a, T* sum_b) {
+  T sa = 0, sb = 0;
+  int i = 0;
+  for (; i + kUnroll <= n; i += kUnroll) {
+    T ta[kUnroll], tb[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      ta[u] = a[i + u];
+      tb[u] = b[i + u];
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      sa += ta[u];
+      sb += tb[u];
+    }
+  }
+  for (; i < n; ++i) {
+    sa += a[i];
+    sb += b[i];
+  }
+  *sum_a = sa;
+  *sum_b = sb;
+}
+
+// An index of a list: through the read-only cache from device memory,
+// or a plain load where the lists are staged in shared memory.
+template <bool kStaged>
+__device__ __forceinline__ int32_t index_at(const int32_t* a) {
+  if constexpr (kStaged)
+    return *a;
+  else
+    return __ldg(a);
+}
+
 // term(l[0]) + term(l[1]) + ... in list order from 0, for the list l a
 // thread's slot holds (`base` its lane's first element, `n` its length).
-// kUnroll terms at a time, their indices loaded one batch ahead; a
-// batch's terms are computed before its adds, and past the list's end a
-// term (of index 0, always valid) is computed but not added.
-template <typename T, typename Term>
+// kU terms at a time, their indices loaded one batch ahead; a batch's
+// terms are computed before its adds, and past the list's end a term (of
+// index 0, always valid) is computed but not added.
+template <typename T, bool kStaged = false, int kU = kUnroll, typename Term>
 __device__ __forceinline__ T list_fold(const int32_t* base, int n,
                                        Term term) {
   T sum = 0;
-  int32_t cur[kUnroll];
+  int32_t cur[kU];
 #pragma unroll
-  for (int u = 0; u < kUnroll; ++u) cur[u] = u < n ? __ldg(base + 32 * u) : 0;
-  for (int j = 0; j < n; j += kUnroll) {
-    int32_t nxt[kUnroll];
+  for (int u = 0; u < kU; ++u)
+    cur[u] = u < n ? index_at<kStaged>(base + 32 * u) : 0;
+  for (int j = 0; j < n; j += kU) {
+    int32_t nxt[kU];
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int k = j + kUnroll + u;
-      nxt[u] = k < n ? __ldg(base + 32 * k) : 0;
+    for (int u = 0; u < kU; ++u) {
+      const int k = j + kU + u;
+      nxt[u] = k < n ? index_at<kStaged>(base + 32 * k) : 0;
     }
-    T t[kUnroll];
+    T t[kU];
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) t[u] = term(cur[u]);
+    for (int u = 0; u < kU; ++u) t[u] = term(cur[u]);
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u)
+    for (int u = 0; u < kU; ++u)
       if (j + u < n) sum += t[u];
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) cur[u] = nxt[u];
+    for (int u = 0; u < kU; ++u) cur[u] = nxt[u];
   }
+  return sum;
+}
+
+// a[0] + a[32] + ... + a[32 (n - 1)] (a lane's list of precomputed
+// terms), left to right from 0, the next kU loads issued before the
+// current adds.
+template <typename T, int kU>
+__device__ __forceinline__ T term_fold(const T* a, int n) {
+  T sum = 0;
+  int j = 0;
+  for (; j + kU <= n; j += kU) {
+    T t[kU];
+#pragma unroll
+    for (int u = 0; u < kU; ++u) t[u] = a[32 * (j + u)];
+#pragma unroll
+    for (int u = 0; u < kU; ++u) sum += t[u];
+  }
+  for (; j < n; ++j) sum += a[32 * j];
   return sum;
 }
 
 // out = per_len / (per_len[0] + ... + per_len[n-1]), em.cc's normalizer;
 // s_norm: a shared scalar.
-template <typename T>
+template <int kW, typename T>
 __device__ __forceinline__ void normalize(const T* per_len, int n, T* out,
                                           T* s_norm) {
   const int tid = threadIdx.x;
   if (tid == 0) *s_norm = fold_seq(per_len, n);
   __syncthreads();
   const T norm = *s_norm;
-  for (int e = tid; e < n; e += kThreads) out[e] = per_len[e] / norm;
+  for (int e = tid; e < n; e += kW) out[e] = per_len[e] / norm;
   __syncthreads();
 }
 
 // x3 = the SQUAREM extrapolation of x0, x1, x2 (em.cc): alpha from the
 // sums of r^2 (through x3) and v^2 (through per_len), folded on two warps
-// at once into s_fold[1] and s_fold[2], then clamped at min_alpha.
-template <typename T>
+// at once (interleaved on one thread in a one-warp block) into s_fold[1]
+// and s_fold[2], then clamped at min_alpha.
+template <int kW, typename T>
 __device__ __forceinline__ void extrapolate(const Vecs<T>& v, int ec,
                                             T min_alpha, T* s_fold) {
   const int tid = threadIdx.x;
-  for (int i = tid; i < ec; i += kThreads) {
+  for (int i = tid; i < ec; i += kW) {
     const T r = v.x1[i] - v.x0[i];
     const T w = v.x2[i] - 2 * v.x1[i] + v.x0[i];
     v.x3[i] = r * r;
     v.per_len[i] = w * w;
   }
   __syncthreads();
-  if (tid == 0) s_fold[1] = fold_seq(v.x3, ec);
-  if (tid == 32) s_fold[2] = fold_seq(v.per_len, ec);
+  if constexpr (kW > 32) {
+    if (tid == 0) s_fold[1] = fold_seq(v.x3, ec);
+    if (tid == 32) s_fold[2] = fold_seq(v.per_len, ec);
+  } else if (tid == 0) {
+    fold_two(v.x3, v.per_len, ec, &s_fold[1], &s_fold[2]);
+  }
   __syncthreads();
   const T sum_r = s_fold[1], sum_v = s_fold[2];
   T alpha = sum_v == 0 ? (T)-1 : -sqrt_of(sum_r) / sqrt_of(sum_v);
   if (min_alpha < 0 && alpha < min_alpha) alpha = min_alpha;
-  for (int i = tid; i < ec; i += kThreads)
+  for (int i = tid; i < ec; i += kW)
     v.x3[i] = v.x0[i] - 2 * alpha * (v.x1[i] - v.x0[i]) +
               alpha * alpha * (v.x2[i] - 2 * v.x1[i] + v.x0[i]);
   __syncthreads();
 }
 
 // |x1 - x0| summed in order (em.cc's L1 change), its terms through x2.
-template <typename T>
+template <int kW, typename T>
 __device__ __forceinline__ T l1_change(const Vecs<T>& v, int ec, T* s_fold) {
   const int tid = threadIdx.x;
-  for (int i = tid; i < ec; i += kThreads)
+  for (int i = tid; i < ec; i += kW)
     v.x2[i] = abs_of(v.x1[i] - v.x0[i]);
   __syncthreads();
   if (tid == 0) s_fold[1] = fold_seq(v.x2, ec);
@@ -275,58 +371,89 @@ __device__ __forceinline__ T l1_change(const Vecs<T>& v, int ec, T* s_fold) {
 }
 
 // out = normalized EM update of `in`; leaves the expected read counts in
-// v.count (em.cc emUpdate).
-template <typename T, bool kProf>
+// v.count (em.cc emUpdate).  kStaged (lists in shared memory): the CSC
+// pass first computes every term at its stream position on all kW
+// threads at once, so a column's divides no longer wait on each other
+// (each takes a few hundred cycles of latency), then each thread adds its
+// column's terms in list order; the terms and their order are the fused
+// pass's, so are the bits.
+template <typename T, bool kProf, int kW, bool kStaged, int kU>
 __device__ __forceinline__ void em_update(const Problem<T>& p,
                                           const Vecs<T>& v, const T* in,
                                           T* out, T* s_norm, long long* cyc,
                                           long long& last) {
   const int tid = threadIdx.x, lane = tid & 31;
   const Lists& rows = p.rows;
-  for (int k = tid; k < rows.slots; k += kThreads) {
+  for (int k = tid; k < rows.slots; k += kW) {
     const int i = rows.sched[k];
     if (i < 0) continue;
-    const T sum = list_fold<T>(rows.stream + rows.base[k >> 5] + lane,
-                               rows.len[k], [&](int32_t e) { return in[e]; });
+    const T sum = list_fold<T, kStaged, kU>(
+        rows.stream + rows.base[k >> 5] + lane, rows.len[k],
+        [&](int32_t e) { return in[e]; });
     v.grp[2 * i] = sum == 0 ? (T)1 : sum;
   }
   __syncthreads();
   mark<kProf>(cyc, kCsr, last);
   const Lists& cols = p.cols;
   const auto* grp = reinterpret_cast<const typename Pair<T>::type*>(v.grp);
-  for (int k = tid; k < cols.slots; k += kThreads) {
+  if constexpr (kStaged) {
+    // position q of the stream is element (q - base[w]) / 32 of the list
+    // in slot 32 w + lane (q = lane mod 32), w its warp block
+    int w = 0;
+    for (int q = tid; q < cols.stream_len; q += kW) {
+      while ((w + 1) * 32 < cols.slots && cols.base[w + 1] <= q) ++w;
+      const int k = 32 * w + lane;
+      const int e = cols.sched[k];
+      T term = 0;
+      if (e >= 0 && (q - (int)cols.base[w]) / 32 < cols.len[k]) {
+        const T xe = in[e];
+        if (xe != 0) {
+          const auto g = grp[cols.stream[q]];
+          term = g.y * (xe / g.x);
+        }
+      }
+      v.terms[q] = term;
+    }
+    __syncthreads();
+  }
+  for (int k = tid; k < cols.slots; k += kW) {
     const int e = cols.sched[k];
     if (e < 0) continue;
     // an EC the mask zeroed: every term count * (0 / psum) is +0 or -0
     // (psum > 0), so the sum from +0 is +0 - without the divides, whose
     // zero-dividend case leaves the fast path
     const T xe = in[e];
-    const T c = xe == 0 ? (T)0 : list_fold<T>(
-        cols.stream + cols.base[k >> 5] + lane, cols.len[k],
-        [&](int32_t r) {
-          const auto g = grp[r];
-          return g.y * (xe / g.x);
-        });
+    T c;
+    if constexpr (kStaged)
+      c = xe == 0 ? (T)0 : term_fold<T, kU>(
+          v.terms + cols.base[k >> 5] + lane, cols.len[k]);
+    else
+      c = xe == 0 ? (T)0 : list_fold<T, false, kU>(
+          cols.stream + cols.base[k >> 5] + lane, cols.len[k],
+          [&](int32_t r) {
+            const auto g = grp[r];
+            return g.y * (xe / g.x);
+          });
     v.count[e] = c;
     v.per_len[e] = c / v.ec_len[e];
   }
   __syncthreads();
   mark<kProf>(cyc, kCsc, last);
-  normalize(v.per_len, p.ec_cnt, out, s_norm);
+  normalize<kW>(v.per_len, p.ec_cnt, out, s_norm);
   mark<kProf>(cyc, kNorm, last);
 }
 
 // Low-abundance major-allele mask; resets x0 (em.cc maskAndReset).
-template <typename T>
+template <int kW, typename T>
 __device__ __forceinline__ void mask_reset(const Problem<T>& p,
                                            const Scratch<T>& s,
                                            const Vecs<T>& v) {
   const int tid = threadIdx.x;
-  for (int a = tid; a < p.allele_cnt; a += kThreads)
+  for (int a = tid; a < p.allele_cnt; a += kW)
     s.allele_abund[a] = s.allele_ec_abund[a] = 0;
-  for (int g = tid; g < p.gene_cnt; g += kThreads) s.gene_max[g] = 0;
+  for (int g = tid; g < p.gene_cnt; g += kW) s.gene_max[g] = 0;
   __syncthreads();
-  for (int e = tid; e < p.ec_cnt; e += kThreads) {
+  for (int e = tid; e < p.ec_cnt; e += kW) {
     const int64_t size = p.ec_off[e + 1] - p.ec_off[e];
     const T abund = v.count[e] / v.ec_len[e] * (T)1000.0;
     for (int64_t j = p.ec_off[e]; j < p.ec_off[e + 1]; ++j) {
@@ -335,7 +462,7 @@ __device__ __forceinline__ void mask_reset(const Problem<T>& p,
     }
   }
   __syncthreads();
-  for (int m = tid; m < p.major_cnt; m += kThreads) {
+  for (int m = tid; m < p.major_cnt; m += kW) {
     T sum = 0;
     for (int64_t j = p.maj_off[m]; j < p.maj_off[m + 1]; ++j)
       sum += s.allele_abund[p.maj_alleles[j]];
@@ -343,12 +470,12 @@ __device__ __forceinline__ void mask_reset(const Problem<T>& p,
   }
   __syncthreads();
   // em.cc: gene_max starts at 0 and takes a value only if it is larger
-  for (int a = tid; a < p.allele_cnt; a += kThreads) {
+  for (int a = tid; a < p.allele_cnt; a += kW) {
     const T w = s.major_abund[p.allele_major[a]];
     if (w > 0) atomic_max_pos(&s.gene_max[p.allele_gene[a]], w);
   }
   __syncthreads();
-  for (int a = tid; a < p.allele_cnt; a += kThreads) {
+  for (int a = tid; a < p.allele_cnt; a += kW) {
     if (s.major_abund[p.allele_major[a]] <
         p.filter_frac * (T)0.5 * s.gene_max[p.allele_gene[a]]) {
       s.allele_abund[a] = 0;
@@ -356,15 +483,18 @@ __device__ __forceinline__ void mask_reset(const Problem<T>& p,
     }
   }
   __syncthreads();
-  for (int e = tid; e < p.ec_cnt; e += kThreads)
+  for (int e = tid; e < p.ec_cnt; e += kW)
     v.x0[e] = s.allele_ec_abund[p.ec_alleles[p.ec_off[e]]];
   __syncthreads();
 }
 
-// The whole convergence loop of problem p on the calling block.  `smem`
-// is the block's dynamic shared memory (the kShared form's vectors),
-// s_fold three shared scalars: normalizer / sum_r and L1 change, sum_v.
-template <typename T, bool kShared, bool kProf>
+// The whole convergence loop of problem p on the calling block of kW
+// threads.  `smem` is the block's dynamic shared memory (the kShared
+// form's vectors), s_fold three shared scalars: normalizer / sum_r and
+// L1 change, sum_v.  kStaged: p's lists lie in shared memory, behind the
+// vectors, and the CSC terms behind them; kU: the list folds' batch.
+template <typename T, bool kShared, bool kProf, int kW, bool kStaged = false,
+          int kU = kUnroll>
 __device__ __forceinline__ void squarem_block(const Problem<T>& p,
                                               const Scratch<T>& s,
                                               int32_t* iterations,
@@ -384,8 +514,12 @@ __device__ __forceinline__ void squarem_block(const Problem<T>& p,
     v.x3 = v.x2 + ec;
     v.count = v.x3 + ec;
     v.per_len = v.count + ec;
-    for (int e = tid; e < ec; e += kThreads) len[e] = p.ec_len[e];
+    for (int e = tid; e < ec; e += kW) len[e] = p.ec_len[e];
     v.ec_len = len;
+    if constexpr (kStaged)
+      v.terms = reinterpret_cast<T*>(
+          smem + align8(shared_bytes<T>(p.rg_cnt, ec)) +
+          staged_list_bytes(p.rows) + staged_list_bytes(p.cols));
   } else {
     v.grp = s.grp;
     v.x0 = s.x0;
@@ -396,9 +530,9 @@ __device__ __forceinline__ void squarem_block(const Problem<T>& p,
     v.per_len = s.per_len;
     v.ec_len = p.ec_len;
   }
-  for (int64_t i = tid; i < p.rg_cnt; i += kThreads)
+  for (int64_t i = tid; i < p.rg_cnt; i += kW)
     v.grp[2 * i + 1] = p.rg_counts[i];
-  for (int e = tid; e < ec; e += kThreads) v.x0[e] = p.init_x[e];
+  for (int e = tid; e < ec; e += kW) v.x0[e] = p.init_x[e];
   __syncthreads();
   long long cyc[kPhases] = {};
   long long last = kProf ? clock64() : 0;
@@ -407,24 +541,27 @@ __device__ __forceinline__ void squarem_block(const Problem<T>& p,
   int ret = 0;
   for (int t = 0; t < p.max_iterations; ++t) {
     ++ret;
-    em_update<T, kProf>(p, v, v.x0, v.x1, &s_fold[0], cyc, last);
-    em_update<T, kProf>(p, v, v.x1, v.x2, &s_fold[0], cyc, last);
-    extrapolate(v, ec, p.min_alpha, s_fold);  // x3, from r^2 and v^2
+    em_update<T, kProf, kW, kStaged, kU>(p, v, v.x0, v.x1, &s_fold[0], cyc,
+                                         last);
+    em_update<T, kProf, kW, kStaged, kU>(p, v, v.x1, v.x2, &s_fold[0], cyc,
+                                         last);
+    extrapolate<kW>(v, ec, p.min_alpha, s_fold);  // x3, from r^2 and v^2
     mark<kProf>(cyc, kAlpha, last);
-    em_update<T, kProf>(p, v, v.x3, v.x1, &s_fold[0], cyc, last);
-    const T diff = l1_change(v, ec, s_fold);
+    em_update<T, kProf, kW, kStaged, kU>(p, v, v.x3, v.x1, &s_fold[0], cyc,
+                                         last);
+    const T diff = l1_change<kW>(v, ec, s_fold);
     T* const old_x0 = v.x0;  // x0 = x1
     v.x0 = v.x1;
     v.x1 = old_x0;
     mark<kProf>(cyc, kDiff, last);
     if (diff < (T)1e-5 && t < p.max_iterations - 2) t = p.max_iterations - 2;
     if (t > 0 && t % kMaskRound == 0) {
-      mask_reset(p, s, v);
+      mask_reset<kW>(p, s, v);
       mark<kProf>(cyc, kMask, last);
     }
   }
   if constexpr (kShared)
-    for (int e = tid; e < ec; e += kThreads) s.count[e] = v.count[e];
+    for (int e = tid; e < ec; e += kW) s.count[e] = v.count[e];
   if (tid == 0) {
     *iterations = ret;
     if (kProf) {
@@ -440,16 +577,61 @@ squarem_kernel(Problem<T> p, Scratch<T> s, int32_t* iterations,
                long long* cycles) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ T s_fold[3];
-  squarem_block<T, kShared, kProf>(p, s, iterations, cycles, smem, s_fold);
+  squarem_block<T, kShared, kProf, kThreads>(p, s, iterations, cycles, smem,
+                                            s_fold);
+}
+
+// The cohort form's cell forms: vectors and lists in device memory; the
+// vectors in shared memory (kShared); vectors and lists in shared memory.
+enum Form { kDeviceForm, kSharedForm, kStagedForm };
+
+// The cohort form's blocks: kW threads, a power of two from 32 to
+// kThreads, the host's choice per cohort (ops/em.py::cohort_width).  Each
+// (form, width) is built for cohort_blocks resident blocks an SM, so a
+// thread may hold 65,536 / (kW x that) registers: the shared-memory forms
+// 64 at every width, 1,024 threads an SM whatever the width, with the
+// list folds in batches of kCohortUnroll = 2, which is what fits 64
+// without spilling; the device-memory form 128 up to 512 threads (it
+// takes 116-122) and 64 at 1,024, where it spills and no rule sends it.
+constexpr int cohort_blocks(int form, int w) {
+  return form != kDeviceForm ? kThreads / w : w < 512 ? 512 / w : 1;
+}
+template <int kForm, int kW>
+constexpr int kCohortUnroll =
+    kForm != kDeviceForm || kW == kThreads ? 2 : kUnroll;
+
+// l's arrays copied by the block's kW threads to shared memory at `at`
+// (8-aligned, staged_list_bytes(l) of room); returns the copy.
+template <int kW>
+__device__ Lists stage_lists(const Lists& l, unsigned char* at) {
+  Lists c = l;
+  auto* base = reinterpret_cast<int64_t*>(at);
+  auto* sched = reinterpret_cast<int32_t*>(base + l.slots / 32);
+  int32_t* len = sched + l.slots;
+  int32_t* stream = len + l.slots;
+  for (int i = threadIdx.x; i < l.slots / 32; i += kW) base[i] = l.base[i];
+  for (int i = threadIdx.x; i < l.slots; i += kW) {
+    sched[i] = l.sched[i];
+    len[i] = l.len[i];
+  }
+  for (int i = threadIdx.x; i < l.stream_len; i += kW)
+    stream[i] = l.stream[i];
+  c.base = base;
+  c.sched = sched;
+  c.len = len;
+  c.stream = stream;
+  return c;
 }
 
 // Block b runs problem b of the cohort (problems[b], scratch[b],
 // iterations[b]; the options are the launch's): the replacement of the
 // reference's batched program, every cell with the native loop's bits.
 // Thread 0 copies the cell's structs into shared memory before the first
-// barrier; a converged block exits, so nothing freezes finished cells.
-template <typename T, bool kShared>
-__global__ void __launch_bounds__(kThreads)
+// barrier; the staged form then copies both passes' lists behind the
+// vectors, so the loop's index loads stay on the SM.  A converged block
+// exits, so nothing freezes finished cells.
+template <typename T, int kForm, int kW>
+__global__ void __launch_bounds__(kW, cohort_blocks(kForm, kW))
 squarem_batched_kernel(const Problem<T>* problems, const Scratch<T>* scratch,
                        int32_t* iterations, int max_iterations,
                        T filter_frac, T min_alpha) {
@@ -465,8 +647,21 @@ squarem_batched_kernel(const Problem<T>* problems, const Scratch<T>* scratch,
     s = scratch[blockIdx.x];
   }
   __syncthreads();
-  squarem_block<T, kShared, false>(p, s, iterations + blockIdx.x, nullptr,
-                                   smem, s_fold);
+  if constexpr (kForm == kStagedForm) {
+    unsigned char* at = smem + align8(shared_bytes<T>(p.rg_cnt, p.ec_cnt));
+    const Lists rows = stage_lists<kW>(p.rows, at);
+    const Lists cols =
+        stage_lists<kW>(p.cols, at + staged_list_bytes(p.rows));
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      p.rows = rows;
+      p.cols = cols;
+    }
+    __syncthreads();
+  }
+  squarem_block<T, kForm != kDeviceForm, false, kW, kForm == kStagedForm,
+                kCohortUnroll<kForm, kW>>(p, s, iterations + blockIdx.x,
+                                          nullptr, smem, s_fold);
 }
 
 // ---- The sharded form (K13): one EM update over read-group shards.
@@ -554,10 +749,10 @@ sharded_tail_kernel(int stage, int32_t* state, Vecs<T> v, Problem<T> p,
   for (int e = tid; e < ec; e += kThreads)
     v.per_len[e] = v.count[e] / v.ec_len[e];
   __syncthreads();
-  normalize(v.per_len, ec, stage == 1 ? v.x2 : v.x1, &s_fold[0]);
-  if (stage == 1) extrapolate(v, ec, p.min_alpha, s_fold);
+  normalize<kThreads>(v.per_len, ec, stage == 1 ? v.x2 : v.x1, &s_fold[0]);
+  if (stage == 1) extrapolate<kThreads>(v, ec, p.min_alpha, s_fold);
   if (stage != 2) return;
-  const T diff = l1_change(v, ec, s_fold);
+  const T diff = l1_change<kThreads>(v, ec, s_fold);
   if (tid == 0) {
     int t = state[0];
     if (diff < (T)1e-5 && t < p.max_iterations - 2) t = p.max_iterations - 2;
@@ -568,14 +763,8 @@ sharded_tail_kernel(int stage, int32_t* state, Vecs<T> v, Problem<T> p,
   __syncthreads();
   if (s_mask) {
     v.x0 = v.x1;  // the next round's x0
-    mask_reset(p, s, v);
+    mask_reset<kThreads>(p, s, v);
   }
-}
-
-// Dynamic shared memory of the kShared form for one problem.
-template <typename T>
-size_t shared_bytes(int64_t rg_cnt, int64_t ec_cnt) {
-  return (2 * (size_t)rg_cnt + 7 * (size_t)ec_cnt) * sizeof(T);
 }
 
 // Raises the kernel's dynamic shared-memory cap to `bytes` (per
@@ -605,14 +794,17 @@ int launch_as(const Problem<T>& p, const Scratch<T>& s, int32_t* iterations,
 // scratch buffers in the order of its `scratch`.
 constexpr int kIns = 17, kScratch = 11;
 // A cohort's per-cell host row: ec_cnt, rg_cnt, the rows' and the
-// columns' slot counts, then the cell's element offset into each of the
-// kIns inputs and the kScratch buffers.
-constexpr int kCellDims = 4, kCellCols = kCellDims + kIns + kScratch;
+// columns' slot counts, the rows' and the columns' stream lengths, then
+// the cell's element offset into each of the kIns inputs and the
+// kScratch buffers.
+constexpr int kCellDims = 6, kCellCols = kCellDims + kIns + kScratch;
 
 // One pass's lists at element offsets off[0..3] of in[0..3].
-Lists lists_at(const void* const* in, const int64_t* off, int64_t slots) {
+Lists lists_at(const void* const* in, const int64_t* off, int64_t slots,
+               int64_t stream_len = 0) {
   Lists l;
   l.slots = (int32_t)slots;
+  l.stream_len = (int32_t)stream_len;
   l.sched = static_cast<const int32_t*>(in[0]) + off[0];
   l.len = static_cast<const int32_t*>(in[1]) + off[1];
   l.base = static_cast<const int64_t*>(in[2]) + off[2];
@@ -634,8 +826,8 @@ Problem<T> problem_at(const void* const* in, const int64_t* cell,
   p.gene_cnt = (int32_t)common[1];
   p.major_cnt = (int32_t)common[2];
   p.max_iterations = (int32_t)common[3];
-  p.rows = lists_at(in, off, cell[2]);
-  p.cols = lists_at(in + 4, off + 4, cell[3]);
+  p.rows = lists_at(in, off, cell[2], cell[4]);
+  p.cols = lists_at(in + 4, off + 4, cell[3], cell[5]);
   p.rg_counts = static_cast<const T*>(in[8]) + off[8];
   p.ec_off = static_cast<const int64_t*>(in[9]) + off[9];
   p.ec_alleles = static_cast<const int32_t*>(in[10]) + off[10];
@@ -665,7 +857,7 @@ template <typename T>
 int launch(const void* const* in, void* const* scratch, const int64_t* dims,
            double filter_frac, double min_alpha, bool shared,
            void* iterations, void* cycles, void* stream) {
-  int64_t cell[kCellCols] = {dims[0], dims[4], dims[6], dims[7]};
+  int64_t cell[kCellCols] = {dims[0], dims[4], dims[6], dims[7], 0, 0};
   const int64_t common[4] = {dims[1], dims[2], dims[3], dims[5]};
   const Problem<T> p =
       problem_at<T>(in, cell, common, filter_frac, min_alpha);
@@ -695,24 +887,71 @@ void cells_at(int n_cells, const void* const* in, void* const* scratch,
   }
 }
 
+// f(kernel, kW) for the cohort kernel of one Form and `width` threads
+// (kW from 32 up); another form or width gives cudaErrorInvalidValue.
+template <typename T, int kW = 32, typename F>
+int on_width(int form, int width, F&& f) {
+  if (width == kW) {
+    switch (form) {
+      case kDeviceForm:
+        return f(squarem_batched_kernel<T, kDeviceForm, kW>, kW);
+      case kSharedForm:
+        return f(squarem_batched_kernel<T, kSharedForm, kW>, kW);
+      case kStagedForm:
+        return f(squarem_batched_kernel<T, kStagedForm, kW>, kW);
+    }
+    return (int)cudaErrorInvalidValue;
+  }
+  if constexpr (kW < kThreads)
+    return on_width<T, 2 * kW>(form, width, f);
+  else
+    return (int)cudaErrorInvalidValue;
+}
+
 template <typename T>
-int launch_batched(int n_cells, const void* structs, int shared,
-                   int64_t bytes, int max_iterations, double filter_frac,
-                   double min_alpha, void* iterations, void* stream) {
+int launch_batched(int n_cells, const void* structs, int form,
+                   int64_t bytes, int width, int max_iterations,
+                   double filter_frac, double min_alpha, void* iterations,
+                   void* stream) {
   const auto* ps = static_cast<const Problem<T>*>(structs);
   const auto* ss = reinterpret_cast<const Scratch<T>*>(ps + n_cells);
   auto* it = static_cast<int32_t*>(iterations);
   auto st = static_cast<cudaStream_t>(stream);
-  if (shared) {
-    auto kernel = squarem_batched_kernel<T, true>;
-    if (const int err = allow_shared(kernel, (size_t)bytes)) return err;
-    kernel<<<n_cells, kThreads, (size_t)bytes, st>>>(
+  const size_t dynamic = form == kDeviceForm ? 0 : (size_t)bytes;
+  return on_width<T>(form, width, [&](auto kernel, int threads) {
+    if (dynamic)
+      if (const int err = allow_shared(kernel, dynamic)) return err;
+    kernel<<<n_cells, threads, dynamic, st>>>(
         ps, ss, it, max_iterations, (T)filter_frac, (T)min_alpha);
-  } else {
-    squarem_batched_kernel<T, false><<<n_cells, kThreads, 0, st>>>(
-        ps, ss, it, max_iterations, (T)filter_frac, (T)min_alpha);
-  }
-  return (int)cudaGetLastError();
+    return (int)cudaGetLastError();
+  });
+}
+
+// out: the cohort kernel's registers a thread, local (stack and spill)
+// bytes a thread, static shared bytes, and resident blocks an SM at
+// `bytes` of dynamic shared memory.
+template <typename T>
+int batched_attrs(int form, int width, int64_t bytes, int32_t* out) {
+  const size_t dynamic = form == kDeviceForm ? 0 : (size_t)bytes;
+  return on_width<T>(form, width, [&](auto kernel, int threads) {
+    if (dynamic)
+      if (const int err = allow_shared(kernel, dynamic)) return err;
+    cudaFuncAttributes a;
+    int blocks = 0;
+    cudaError_t err = cudaFuncGetAttributes(&a, kernel);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, kernel, threads, dynamic);
+    if (err != cudaSuccess) {
+      cudaGetLastError();
+      return (int)err;
+    }
+    out[0] = a.numRegs;
+    out[1] = (int32_t)a.localSizeBytes;
+    out[2] = (int32_t)a.sharedSizeBytes;
+    out[3] = blocks;
+    return 0;
+  });
 }
 
 template <typename T>
@@ -741,7 +980,7 @@ int launch_tail(int stage, void* const* vecs, const void* const* tables,
   Vecs<T> v;
   T** fields[6] = {&v.x0, &v.x1, &v.x2, &v.x3, &v.count, &v.per_len};
   for (int k = 0; k < 6; ++k) *fields[k] = static_cast<T*>(vecs[k]);
-  v.grp = nullptr;
+  v.grp = v.terms = nullptr;
   v.ec_len = static_cast<const T*>(vecs[6]);
   Problem<T> p = {};
   p.ec_cnt = (int32_t)dims[0];
@@ -847,11 +1086,11 @@ extern "C" int t1k_em_squarem(const void* const* in, void* const* scratch,
 // caller to upload once.  in and scratch: the bases of the cohort's
 // concatenations of t1k_em_squarem's 17 inputs (the shared tables
 // allele_gene, allele_major, maj_off and maj_alleles once) and 11
-// buffers.  cells: host int64, n_cells rows of 32: ec_cnt, rg_cnt, the
-// rows' and the columns' slot counts, then the cell's element offset
-// into each of the 17 inputs and 11 buffers (a cell's list values and
-// ec_off count from its own 0).  common: allele_cnt, gene_cnt,
-// major_cnt.
+// buffers.  cells: host int64, n_cells rows of 34: ec_cnt, rg_cnt, the
+// rows' and the columns' slot counts and stream lengths, then the cell's
+// element offset into each of the 17 inputs and 11 buffers (a cell's
+// list values and ec_off count from its own 0).  common: allele_cnt,
+// gene_cnt, major_cnt.
 extern "C" void t1k_em_squarem_cells(int n_cells, const void* const* in,
                                      void* const* scratch,
                                      const int64_t* cells,
@@ -870,25 +1109,40 @@ extern "C" int64_t t1k_em_squarem_cell_bytes(int double_prec) {
                        : sizeof(Problem<float>) + sizeof(Scratch<float>));
 }
 
-// One launch of the cohort form: n_cells blocks, block b on cell b of
-// `structs` (t1k_em_squarem_cells' bytes, on the device).  shared
-// selects the shared-memory form for every cell, with `bytes` of dynamic
-// shared memory (the largest cell's; the caller sends cells past the
-// limit to a launch of the device-memory form).  iterations: n_cells
-// device int32.  Returns the launch's CUDA error code.
+// One launch of the cohort form: n_cells blocks of `width` threads (32,
+// 64, ..., 1024; the lists of each cell dealt by the host at that many
+// threads), block b on cell b of `structs` (t1k_em_squarem_cells' bytes,
+// on the device).  form, one for every cell: 0 vectors and lists in
+// device memory, 1 the vectors in shared memory, 2 the lists too; forms
+// 1 and 2 take `bytes` of dynamic shared memory (the largest cell's:
+// ops/em.py::em_shared_bytes, then staged_bytes).  iterations: n_cells
+// device int32.  Returns the launch's CUDA error code
+// (cudaErrorInvalidValue for another form or width).
 extern "C" int t1k_em_squarem_batched(int n_cells, const void* structs,
-                                      int shared, int64_t bytes,
+                                      int form, int64_t bytes, int width,
                                       int max_iterations,
                                       double filter_frac, double min_alpha,
                                       int double_prec, void* iterations,
                                       void* stream) {
   return double_prec
-             ? launch_batched<double>(n_cells, structs, shared, bytes,
+             ? launch_batched<double>(n_cells, structs, form, bytes, width,
                                       max_iterations, filter_frac,
                                       min_alpha, iterations, stream)
-             : launch_batched<float>(n_cells, structs, shared, bytes,
+             : launch_batched<float>(n_cells, structs, form, bytes, width,
                                      max_iterations, filter_frac, min_alpha,
                                      iterations, stream);
+}
+
+// The cohort kernel of one form and width, as t1k_em_squarem_batched
+// would launch it with `bytes` of dynamic shared memory: out (4 int32)
+// its registers a thread, local bytes a thread (stack frame, spills
+// included), static shared bytes and resident blocks an SM.  Returns the
+// CUDA error code.
+extern "C" int t1k_em_squarem_batched_attrs(int double_prec, int form,
+                                            int width, int64_t bytes,
+                                            int32_t* out) {
+  return double_prec ? batched_attrs<double>(form, width, bytes, out)
+                     : batched_attrs<float>(form, width, bytes, out);
 }
 
 // One pass of a shard's E-step (the sharded form).  in: the rows' sched,

@@ -22,9 +22,12 @@ CPU tensors run ``squarem_plain``, the same order in PyTorch ops
 (bit-exact in f64 on the CPU, whose cumsum is a sequential sum).  A
 cohort of cells (``em_quantify_batched``, the counterpart of
 ``em_quantify_jax_batched``) runs the kernel's cohort form, one block per
-cell in at most two launches, or ``squarem_batched_plain`` on the CPU;
-every cell gets the native loop's bits; with a device list
-(``devices``) the cells are dealt to the devices in contiguous blocks.
+cell of the cohort's share of the card's threads (``cohort_width``), its
+lists staged in shared memory where they fit, one launch per (form,
+width) class the cohort holds (``cohort_classes``), or
+``squarem_batched_plain`` on the CPU; every cell gets the native loop's
+bits; with a device list (``devices``) the cells are dealt to the
+devices in contiguous blocks.
 The host deals the kernel's read-group and EC lists to its threads
 (``list_schedule``) in a warp-interleaved layout (``warp_lists``) and
 lists each major allele's alleles (``major_lists``).
@@ -56,6 +59,14 @@ MASK_ROUND = 10
 # opt-in bytes, less room for the kernel's static shared scalars.
 EM_THREADS = 1024
 EM_SHARED_LIMIT = 232_448 - 1_024
+# The cohort form's block widths (squarem_batched_kernel's kW) and its
+# cell forms (em_squarem.cu Form): vectors and lists in device memory,
+# the vectors in shared memory, the lists there too (staged)
+COHORT_WIDTHS = (32, 64, 128, 256, 512, 1024)
+DEVICE_FORM, SHARED_FORM, STAGED_FORM = 0, 1, 2
+# Threads an SM holds of the shared-memory forms (64 registers a thread)
+# and the widest block cohort_width gives; an H100's SMs
+COHORT_SM_THREADS, COHORT_MAX_WIDTH, H100_SMS = 1024, 512, 132
 # The profiled kernel's clock counts: these phases, then the total.
 EM_PHASES = ("csr", "csc", "norm", "alpha", "diff", "mask")
 
@@ -67,9 +78,9 @@ ESTEP_THREADS = 256
 launch_counts = {"em_squarem": 0, "em_squarem_batched": 0, "em_sharded": 0,
                  "em_sharded_tail": 0}
 # The cohort form's per-cell row (t1k_em_squarem_cells): ec_cnt, rg_cnt,
-# the rows' and the columns' slot counts, then the cell's offsets into
-# the kernel's 17 inputs and 11 scratch buffers.
-_CELL_DIMS, _INS, _SCRATCH = 4, 17, 11
+# the rows' and the columns' slot counts and stream lengths, then the
+# cell's offsets into the kernel's 17 inputs and 11 scratch buffers.
+_CELL_DIMS, _INS, _SCRATCH = 6, 17, 11
 
 
 def em_shared_bytes(rg_cnt: int, ec_cnt: int, itemsize: int) -> int:
@@ -77,6 +88,34 @@ def em_shared_bytes(rg_cnt: int, ec_cnt: int, itemsize: int) -> int:
     group its psum and count, per EC x0-x3, count, per_len and the
     shortest effective length."""
     return (2 * rg_cnt + 7 * ec_cnt) * itemsize
+
+
+def staged_bytes(rg_cnt: int, ec_cnt: int, itemsize: int, rows: dict,
+                 cols: dict) -> int:
+    """Dynamic shared memory of the cohort form's staged form: the
+    vectors (em_shared_bytes, to a multiple of 8), then per pass its
+    warp_lists' base, sched, len and stream, each pass to a multiple of
+    8 (em_squarem.cu staged_list_bytes), then a CSC term per position of
+    the columns' stream."""
+    def align8(n):
+        return -(-n // 8) * 8
+    return align8(em_shared_bytes(rg_cnt, ec_cnt, itemsize)) + sum(
+        align8(8 * len(l["base"]) + 4 * (2 * len(l["sched"])
+                                         + len(l["stream"])))
+        for l in (rows, cols)) + itemsize * len(cols["stream"])
+
+
+def cohort_width(n_cells: int, sms: int = H100_SMS) -> int:
+    """The cohort form's block for each cell of a cohort of `n_cells`:
+    the cell's share of the threads the card holds at once
+    (COHORT_SM_THREADS on each of `sms` SMs), rounded down to a power of
+    two from 32 to COHORT_MAX_WIDTH.  A cell's round is a chain of
+    latencies that more threads shorten (the CSC terms' divides, the CSR
+    turns), so a cohort that fits the card in one wave gives each cell
+    all it can: on an H100, 384 cells of 600 x 48 ran fastest at 256-512
+    threads and slowest at 32-64 (PERF.md), 96 small cells at 512."""
+    share = COHORT_SM_THREADS * sms // max(n_cells, 1)
+    return min(COHORT_MAX_WIDTH, max(32, 1 << max(share.bit_length() - 1, 0)))
 
 
 def list_schedule(off, threads: int = EM_THREADS) -> np.ndarray:
@@ -346,8 +385,12 @@ def _kernel_lib() -> ctypes.CDLL:
     lib.t1k_em_squarem_batched.restype = ctypes.c_int
     lib.t1k_em_squarem_batched.argtypes = [
         ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
-        ctypes.c_int, ctypes.c_double, ctypes.c_double, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_void_p]
+        ctypes.c_int, ctypes.c_int, ctypes.c_double, ctypes.c_double,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    lib.t1k_em_squarem_batched_attrs.restype = ctypes.c_int
+    lib.t1k_em_squarem_batched_attrs.argtypes = [
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int64,
+        ctypes.c_void_p]
     lib.t1k_em_sharded_estep.restype = ctypes.c_int
     lib.t1k_em_sharded_estep.argtypes = [
         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
@@ -471,16 +514,25 @@ def squarem_batched_plain(cells: List[dict], filter_frac: float,
                           dtype=dtype) for t in cells]
 
 
-def batched_tables(cells: List[dict], itemsize: int) -> dict:
+def batched_tables(cells: List[dict], itemsize: int, width=None,
+                   stage: bool = True, sms: int = H100_SMS) -> dict:
     """Host half of the kernel's cohort form, for a cohort of EM problems
     (each cell's em_tables; one reference).  Each of the kernel's 17
     inputs concatenated over the cells (`ins`; the reference tables
     allele_gene, allele_major and the major -> alleles lists once),
     `rows`: per cell its ec_cnt, rg_cnt, the rows' and the columns' slot
-    counts and its offsets into the 17 inputs and the 11 scratch buffers
-    (t1k_em_squarem_cells' layout), `scratch`: each buffer's length, and
-    `shared`: per cell, whether it takes the shared-memory form (its
-    em_shared_bytes fits EM_SHARED_LIMIT)."""
+    counts and stream lengths and its offsets into the 17 inputs and the
+    11 scratch buffers (t1k_em_squarem_cells' layout), `scratch`: each
+    buffer's length, `width`: per cell its block, cohort_width of the
+    cohort on `sms` SMs or the forced `width` (one of COHORT_WIDTHS), at
+    which both its passes' lists are dealt, and per cell its `form` and
+    the shared `bytes` that
+    form takes: STAGED_FORM where staged_bytes fits EM_SHARED_LIMIT
+    (unless `stage` is False), else SHARED_FORM where em_shared_bytes
+    does, else DEVICE_FORM (0 bytes)."""
+    if width is not None and width not in COHORT_WIDTHS:
+        raise ValueError(f"cohort width {width} is not one of "
+                         f"{COHORT_WIDTHS}")
     ref = cells[0]
     for t in cells[1:]:
         if not (np.array_equal(t["allele_gene"], ref["allele_gene"])
@@ -497,27 +549,38 @@ def batched_tables(cells: List[dict], itemsize: int) -> dict:
     filled = np.zeros(_INS, np.int64)
     sizes = np.zeros((len(cells), _SCRATCH), np.int64)
     rows = np.zeros((len(cells), _CELL_DIMS + _INS + _SCRATCH), np.int64)
-    forms = np.zeros(len(cells), bool)
+    forms = np.zeros(len(cells), np.int64)
+    nbytes = np.zeros(len(cells), np.int64)
+    widths = np.full(len(cells), width or cohort_width(len(cells), sms),
+                     np.int64)
     for b, t in enumerate(cells):
         ec_cnt, rg_cnt = len(t["ec_len"]), len(t["rg_counts"])
-        forms[b] = em_shared_bytes(rg_cnt, ec_cnt,
-                                   itemsize) <= EM_SHARED_LIMIT
-        csr = warp_lists(t["rg_off"], t["rg_ecs"], EM_THREADS)
-        csc = warp_lists(t["col_off"], t["col_rgs"], EM_THREADS)
+        csr = warp_lists(t["rg_off"], t["rg_ecs"], int(widths[b]))
+        csc = warp_lists(t["col_off"], t["col_rgs"], int(widths[b]))
+        for form, n in ((STAGED_FORM, staged_bytes(rg_cnt, ec_cnt, itemsize,
+                                                   csr, csc) if stage
+                         else EM_SHARED_LIMIT + 1),
+                        (SHARED_FORM, em_shared_bytes(rg_cnt, ec_cnt,
+                                                      itemsize)),
+                        (DEVICE_FORM, 0)):
+            if n <= EM_SHARED_LIMIT:
+                forms[b], nbytes[b] = form, n
+                break
         own = [lists[k] for lists in (csr, csc)
                for k in ("sched", "len", "base", "stream")]
         own += [t["rg_counts"], t["ec_off"], t["ec_alleles"], t["ec_len"],
                 None, None, None, None, t["init_x"]]
         rows[b, :_CELL_DIMS] = (ec_cnt, rg_cnt, len(csr["sched"]),
-                                len(csc["sched"]))
+                                len(csc["sched"]), len(csr["stream"]),
+                                len(csc["stream"]))
         for k, a in enumerate(own):
             if a is not None:
                 rows[b, _CELL_DIMS + k] = filled[k]
                 filled[k] += len(a)
                 parts[k].append(a)
-        # the shared form keeps x0-x3, the (psum, count) pairs and per_len
+        # the shared forms keep x0-x3, the (psum, count) pairs and per_len
         # on the chip
-        vec = 0 if forms[b] else 1
+        vec = int(forms[b] == DEVICE_FORM)
         sizes[b] = [vec * ec_cnt] * 4 + [ec_cnt, vec * 2 * rg_cnt,
                                          vec * ec_cnt, allele_cnt,
                                          allele_cnt, major_cnt, gene_cnt]
@@ -525,21 +588,38 @@ def batched_tables(cells: List[dict], itemsize: int) -> dict:
     return dict(
         ins=[common[k] if k in common else np.concatenate(parts[k])
              for k in range(_INS)],
-        rows=rows, scratch=sizes.sum(axis=0), shared=forms,
+        rows=rows, scratch=sizes.sum(axis=0), form=forms, bytes=nbytes,
+        width=widths,
         common=np.array([allele_cnt, gene_cnt, major_cnt], np.int64))
 
 
-def squarem_batched_device(cells: List[dict], device, dtype) -> dict:
+def cohort_classes(host: dict) -> List[Tuple[int, int, np.ndarray]]:
+    """The launches of a cohort from batched_tables: per (form, width)
+    class its form, width and cells (ascending), widest first and, at
+    one width, the device-memory form first."""
+    keys = sorted({(int(w), int(f)) for w, f in zip(host["width"],
+                                                    host["form"])},
+                  key=lambda k: (-k[0], k[1]))
+    return [(f, w, np.nonzero((host["width"] == w) & (host["form"] == f))[0])
+            for w, f in keys]
+
+
+def squarem_batched_device(cells: List[dict], device, dtype, width=None,
+                           stage: bool = True) -> dict:
     """A cohort of EM problems on a CUDA device for the cohort form of
     csrc/em_squarem.cu: batched_tables' concatenations uploaded once per
     kind of array, the scratch allocated once per kind, and per launch
-    (at most two: the shared-memory form's cells, then the device-memory
-    form's) the per-cell structs t1k_em_squarem_cells builds from the
-    cells' offsets, uploaded at once."""
+    (one per cohort_classes class) the per-cell structs
+    t1k_em_squarem_cells builds from the cells' offsets, uploaded at once,
+    and a stream of its own.  `width` forces one block width on every
+    cell and `stage` False keeps every cell's lists in device memory
+    (tests and measurements)."""
     if dtype not in (torch.float32, torch.float64):
         raise ValueError(f"unsupported EM dtype {dtype}")
     itemsize = torch.finfo(dtype).bits // 8
-    host = batched_tables(cells, itemsize)
+    host = batched_tables(
+        cells, itemsize, width, stage,
+        torch.cuda.get_device_properties(device).multi_processor_count)
     i32, i64 = torch.int32, torch.int64
     in_types = [i32, i32, i64, i32] * 2 + [dtype, i64, i32, dtype, i32, i32,
                                            i64, i32, dtype]
@@ -558,21 +638,17 @@ def squarem_batched_device(cells: List[dict], device, dtype) -> dict:
     scratch_ptrs = (ctypes.c_void_p * _SCRATCH)(
         *[t.data_ptr() for t in scratch])
     launches = []
-    for form in (True, False):
-        idx = np.nonzero(host["shared"] == form)[0]
-        if not len(idx):
-            continue
+    for form, w, idx in cohort_classes(host):
         rows = np.ascontiguousarray(host["rows"][idx])
         structs = np.empty(len(idx) * cell_bytes, np.uint8)
         lib.t1k_em_squarem_cells(
             len(idx), in_ptrs, scratch_ptrs, rows.ctypes.data,
             host["common"].ctypes.data, double, structs.ctypes.data)
         launches.append(dict(
-            cells=idx, shared=form,
-            bytes=max(em_shared_bytes(int(r[1]), int(r[0]), itemsize)
-                      for r in rows) if form else 0,
+            cells=idx, form=form, width=w, bytes=int(host["bytes"][idx].max()),
             structs=torch.from_numpy(structs).to(device),
-            iterations=torch.zeros(len(idx), dtype=i32, device=device)))
+            iterations=torch.zeros(len(idx), dtype=i32, device=device),
+            stream=torch.cuda.Stream(device)))
     # the structs point into ins and scratch, which stay referenced here
     return dict(ins=ins, scratch=scratch, launches=launches, dtype=dtype,
                 device=torch.device(device), ec_cnt=host["rows"][:, 0],
@@ -583,23 +659,48 @@ def squarem_batched_launch(batch_dev: dict, filter_frac: float,
                            min_squarem_alpha: float,
                            max_iterations: int) -> None:
     """Launch the cohort form of csrc/em_squarem.cu on a cohort from
-    squarem_batched_device (one launch per form it holds), on the current
-    stream, without waiting; squarem_batched_results reads the result."""
+    squarem_batched_device, one launch per class it holds, widest first,
+    each on its class's stream forked from the current stream by an event
+    and joined back to it by another; without waiting:
+    squarem_batched_results reads the result on the current stream."""
     lib = _kernel_lib()
     dev = batch_dev["device"]
     double = int(batch_dev["dtype"] == torch.float64)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+        current = torch.cuda.current_stream(dev)
+        fork = torch.cuda.Event()
+        fork.record(current)
         for g in batch_dev["launches"]:
+            g["stream"].wait_event(fork)
             rc = lib.t1k_em_squarem_batched(
-                len(g["cells"]), g["structs"].data_ptr(), int(g["shared"]),
-                g["bytes"], int(max_iterations), float(filter_frac),
-                float(min_squarem_alpha), double, g["iterations"].data_ptr(),
-                stream)
+                len(g["cells"]), g["structs"].data_ptr(), g["form"],
+                g["bytes"], g["width"], int(max_iterations),
+                float(filter_frac), float(min_squarem_alpha), double,
+                g["iterations"].data_ptr(), g["stream"].cuda_stream)
             if rc != 0:
                 raise RuntimeError("em_squarem batched kernel launch "
-                                   f"failed: CUDA error {rc}")
+                                   f"failed (width {g['width']}): CUDA "
+                                   f"error {rc}")
             launch_counts["em_squarem_batched"] += 1
+            current.wait_event(g["stream"].record_event())
+
+
+def batched_kernel_attrs(dtype, form: int, width: int,
+                         shared_bytes: int) -> dict:
+    """The cohort kernel of one form and width on the current CUDA
+    device, as a launch with `shared_bytes` of dynamic shared memory
+    would run it: registers a thread, local bytes a thread (its stack
+    frame, spills included), static shared bytes and resident blocks an
+    SM."""
+    out = (ctypes.c_int32 * 4)()
+    rc = _kernel_lib().t1k_em_squarem_batched_attrs(
+        int(dtype == torch.float64), int(form), int(width),
+        int(shared_bytes), out)
+    if rc != 0:
+        raise RuntimeError(f"em_squarem batched kernel attributes (width "
+                           f"{width}): CUDA error {rc}")
+    return dict(zip(("registers", "local_bytes", "static_shared",
+                     "blocks_per_sm"), out))
 
 
 def squarem_batched_results(batch_dev: dict) -> List[Tuple[int, torch.Tensor]]:
