@@ -189,9 +189,15 @@ Phases, in order; any failure raises and the exit code is non-zero:
                    processes (two under Gloo sharing the card, one alone
                    under NCCL), equal to the in-process runs; then the
                    solves in turns with the single-problem kernel (alone
-                   and through em_quantify_gpu) and the native loop, one
-                   update's row passes, column chain and tail alone, the
-                   E-step against its plain version and torch.sparse;
+                   and through em_quantify_gpu) and the native loop, at
+                   one shard the loop in turns with the first design's
+                   fused column pass, one update's row passes, column
+                   chain and tail alone; at one shard the E-step and the
+                   column pass in turns with the fused pass (fused,
+                   split, split, fused), the term pass and the fold
+                   alone, the kernels bit for bit against the plain split
+                   on the card, the independent plain column pass and
+                   the fused pass; on the HLA problem torch.sparse;
                    then parallel/dryrun.py's dryrun_multichip (the band
                    kernel and FragWeight on a 1,024-pair batch, the sharded
                    SQUAREM in f32 and f64 against the native loop) and
@@ -216,9 +222,12 @@ cohort form also the cells' chains over the SMs' resident warps, a warp
 a chain; the batched EM timed on set (b), with set (b) forced to 1,024
 threads, with its lists left in device memory and forced to each width,
 and set (a)'s times and bound; em_sharded, the sharded form's E-step on
-the HLA problem at one shard, with its launches over the sharded_em phase's
-six solves, the tail's beside them, and its library_ms two torch.sparse
-CSR products; cand_census and device_candidates, K10's census kernel
+the HLA problem at one shard (row pass, term pass, fold), with its
+launches over the sharded_em phase's six solves (each kernel's and the
+tail's beside them), the fused column pass's times from the same call,
+the tail's bound (its ec_cnt-long fold at the add latency), the 2M
+problem's under `large`, and its library_ms two torch.sparse CSR
+products; cand_census and device_candidates, K10's census kernel
 and bucket chain on the genotyper cell's chunk with the most hits (their
 launches in the pruned genotyper run, their bounds the work: the
 postings read and the seeds and buckets written; the chained seeds in
@@ -3500,6 +3509,22 @@ def multihost_children(work: str, dev, rg: int, ec: int) -> list:
     return procs
 
 
+@contextlib.contextmanager
+def fused_columns():
+    """ops.em's column pass as the first design's fused kernel (no term
+    pass; estep_cols_fused_cuda for the fold), to time the sharded loop in
+    turns with it."""
+    from t1k_tpu_torch.ops import em
+
+    saved = em.estep_terms, em.estep_fold
+    em.estep_terms = lambda est, x: None
+    em.estep_fold = em.estep_cols_fused_cuda
+    try:
+        yield
+    finally:
+        em.estep_terms, em.estep_fold = saved
+
+
 def sparse_estep(dev, est_tables: dict, x):
     """The E-step as two torch.sparse CSR products (not em.cc's order; the
     counts per read group):
@@ -3571,7 +3596,8 @@ def dryrun_scaling(dev, sizes: dict, info: dict) -> dict:
     step = sb.bench_full_step(mesh_of)
     dry = {key: d[key] for d, key in ((ab.launch_counts, "band_stats_warp"),
                                       (em.launch_counts, "em_squarem"),
-                                      (em.launch_counts, "em_sharded"))}
+                                      *((em.launch_counts, k)
+                                        for k in em.ESTEP_KERNELS))}
     if dev.type == "cuda" and min(dry.values()) <= 0:
         raise AssertionError(f"a dry-run kernel never launched: {dry}")
     em_scaling = sb.bench_em(mesh_of, sb.scaling_problem(*sizes["scaling"]))
@@ -3613,7 +3639,8 @@ def phase_sharded_em(dev, hla: dict, plate_em: str, sizes: dict, work: str,
         [dev] * n, *args, **opts, single_dispatch=False)
         for name, (args, opts, _) in cases.items() for n in SHARDS}
     launches = dict(em.launch_counts)
-    if cuda and not (launches["em_sharded"] and launches["em_sharded_tail"]):
+    if cuda and not all(launches[k] for k in (*em.ESTEP_KERNELS,
+                                              "em_sharded_tail")):
         raise AssertionError(f"sharded EM kernels not launched: {launches}")
     for (name, n), (it, count) in solved.items():
         it_n, count_n = cases[name][2]
@@ -3681,18 +3708,20 @@ def phase_sharded_em(dev, hla: dict, plate_em: str, sizes: dict, work: str,
         info[f"{backend}{rank}_hand_off_ms"] = \
             f"{ranks[backend, rank]['hand_off_ms']:.4f}"
     info["multihost_ranks"] = len(ranks)
-    info["multihost_estep_launches"] = sum(r["em_sharded"]
-                                           for r in ranks.values())
+    info["multihost_estep_launches"] = sum(r[k] for r in ranks.values()
+                                           for k in em.ESTEP_KERNELS)
     dry = dryrun_scaling(dev, sizes, info)
 
     # timings: the solves in turns with K5 and the native loop; then one
-    # update's pieces on a built problem
+    # update's pieces on a built problem; at n = 1 the E-step and the
+    # column pass in turns with the first design's fused column pass
+    # (fused, split, split, fused), the term pass and the fold alone
     add_ns = 4.0
     if cuda:
         _, add_ms = em_clock_probe(dev, 0, 1 << 22)
         add_ns = add_ms * 1e6 / (1 << 22)
     info["f64_add_ns"] = f"{add_ns:.4f}"
-    extras = {}
+    extras, ab = {}, {}
     for name, (args, opts, _) in cases.items():
         problem = problems[name]
         tables = em.em_tables(**{k: v for k, v in problem.items() if k not in
@@ -3721,11 +3750,26 @@ def phase_sharded_em(dev, hla: dict, plate_em: str, sizes: dict, work: str,
                         [dev] * n, *args, **opts, single_dispatch=False)))
                 sh = sharded_state([dev] * n, args, opts)
                 ms[f"loop_n{n}"].append(host(sh.squarem))
+        if cuda:   # one shard's loop with the fused column pass, in turns
+            ms.update(loop_fused_n1=[], loop_split_n1=[])
+            sh = sharded_state([dev], args, opts)   # squarem starts anew
+            for key in ("loop_fused_n1", "loop_split_n1", "loop_split_n1",
+                        "loop_fused_n1"):
+                out = []
+                with (fused_columns() if key == "loop_fused_n1"
+                      else contextlib.nullcontext()):
+                    ms[key].append(host(lambda: out.append(sh.squarem())))
+                it, count = out[0]
+                if (it, count.cpu().numpy().tobytes()) != (
+                        cases[name][2][0], cases[name][2][1].tobytes()):
+                    raise AssertionError(f"sharded EM {name}: {key} "
+                                         "differs from the native loop")
         for k, v in ms.items():
             info[f"{name}_{k}_ms"] = " ".join(f"{t:.3f}" for t in v)
         it = cases[name][2][0]
         chain_ms = em_chain_adds(tables, it) * add_ns / 1e6
         info[f"{name}_solve_chain_bound_ms"] = f"{chain_ms:.4f}"
+        reps = 20 if cuda else 1
         for n in SHARDS:
             sh = sharded_state([dev] * n, args, opts)
             x, count = sh.td["x"][0], sh.td["count"]
@@ -3734,60 +3778,109 @@ def phase_sharded_em(dev, hla: dict, plate_em: str, sizes: dict, work: str,
                 for est in sh.shards:
                     em.estep_rows(est, x)
 
-            def cols(sh=sh, x=x, count=count):
+            def cols(sh=sh, x=x, count=count):   # as ShardedEM.estep
+                for est in sh.shards:
+                    em.estep_terms(est, x)
                 for s, est in enumerate(sh.shards):
-                    em.estep_cols(est, x, count, s > 0)
-            reps = 20 if cuda else 1
+                    em.estep_fold(est, x, count, s > 0)
             for key, fn in (("rows", rows), ("cols", cols),
                             ("tail", lambda sh=sh: em.tail(sh.td, 0))):
                 info[f"{name}_n{n}_{key}_ms"] = \
                     f"{time_ms(fn, reps, dev):.4f}"
+        # one shard's E-step alone: its set-up, the split against the
+        # fused pass in turns, every form bit for bit
+        seg_rg, seg_ec, counts, rg_cnt = args[:4]
+        t0 = time.perf_counter()
+        t = em.shard_tables(seg_rg, seg_ec, counts[seg_rg], rg_cnt,
+                            len(args[4]))
+        t1 = time.perf_counter()
+        em.column_stream(t)
+        t2 = time.perf_counter()
+        est = em.estep_device(t, dev, f64)
+        sync()
+        info[f"{name}_setup_s"] = (
+            f"shard_tables {t1 - t0:.4f} column_stream {t2 - t1:.4f} "
+            f"estep_device {time.perf_counter() - t2:.4f}")
+        x = torch.as_tensor(em.ec_tables(*args[4:])["init_x"], dtype=f64,
+                            device=dev)
+        count = torch.empty_like(x)
+
+        def split():
+            em.estep_terms(est, x)
+            em.estep_fold(est, x, count, False)
+
+        def fused():
+            em.estep_cols_fused_cuda(est, x, count, False)
+        pieces = {"estep": lambda: (em.estep_rows(est, x), split()),
+                  "estep_fused": lambda: (em.estep_rows(est, x), fused()),
+                  "cols": split, "cols_fused": fused,
+                  "terms": lambda: em.estep_terms(est, x),
+                  "fold": lambda: em.estep_fold(est, x, count, False)}
+        order = ("estep_fused", "estep", "estep", "estep_fused",
+                 "cols_fused", "cols", "cols", "cols_fused", "terms",
+                 "fold") if cuda else ("estep", "cols", "terms", "fold")
+        turns = {key: [] for key in order}
+        em.estep_rows(est, x)   # psum for the column passes alone
+        for key in order:
+            turns[key].append(time_ms(pieces[key], reps, dev))
+        for key, v in turns.items():
+            info[f"{name}_ab_{key}_ms"] = " ".join(f"{ms:.4f}" for ms in v)
+        ab[name] = {f"{key}_ms": float(np.mean(v)) for key, v in
+                    turns.items()}
+        ab[name]["tail_ms"] = float(info[f"{name}_n1_tail_ms"])
+        ab[name]["tail_bound_ms"] = t["ec_cnt"] * add_ns / 1e6
+        xz = x.clone()
+        xz[::7] = 0
+        pest = em.estep_device(t, dev, f64, plain=True)
+        local, plain, independent = (torch.empty_like(x) for _ in range(3))
+
+        def plain_split():
+            em.estep_rows_plain(pest, xz)
+            em.estep_terms_plain(pest, xz)
+            em.estep_fold_plain(pest, xz, plain, False)
+        ab[name]["plain_ms"] = time_ms(plain_split, 2, dev)
+        em.estep_cols_plain(pest, xz, independent, False)
+        em.estep_rows(est, xz)
+        em.estep_terms(est, xz)
+        em.estep_fold(est, xz, local, False)
+        forms = {"plain split": plain, "estep_cols_plain": independent}
+        if cuda:
+            forms["fused pass"] = torch.empty_like(x)
+            em.estep_cols_fused_cuda(est, xz, forms["fused pass"], False)
+        for what, other in forms.items():
+            if local.cpu().numpy().tobytes() != other.cpu().numpy().tobytes():
+                raise AssertionError(f"sharded E-step {name}: the kernels "
+                                     f"differ from the {what}")
         if name != "hla":
             continue
         # the kernel record: one update's E-step on the HLA problem, one
-        # shard, against its plain version on the card and torch.sparse
-        sh = sharded_state([dev], args, opts)
-        x = sh.td["x"][0]
-        est = sh.shards[0]
-        seg_rg, seg_ec, counts, rg_cnt = args[:4]
-        t = em.shard_tables(seg_rg, seg_ec, counts[seg_rg], rg_cnt,
-                            len(args[4]))
-        plain_est = em.plain_estep_tables(t, dev, f64)
-        local = torch.empty_like(x)
-        plain = torch.empty_like(x)
-
-        def kernel():
-            em.estep_rows(est, x)
-            em.estep_cols(est, x, local, False)
-
-        def plain_estep():
-            em.estep_rows_plain(plain_est, x)
-            em.estep_cols_plain(plain_est, x, plain, False)
-        kernel_ms = time_ms(kernel, 20, dev)
-        plain_ms = time_ms(plain_estep, 2, dev)
-        kernel()
-        plain_estep()
-        err = float((local - plain).abs().max())
-        if err != 0:
-            raise AssertionError(f"sharded E-step differs from plain by {err}")
+        # shard, against its plain split on the card and torch.sparse
+        em.estep_rows(est, x)
+        split()
         lib = sparse_estep(dev, t, x)
-        lib_ms = time_ms(lib, 20, dev)
-        lib_err = float(((lib() - local).abs() / local.abs().clamp_min(
+        # its first call also sets up cuSPARSE: checked, then timed
+        lib_err = float(((lib() - count).abs() / count.abs().clamp_min(
             1e-300)).max())
+        lib_ms = time_ms(lib, 20, dev)
         info["hla_estep_library_rel_err"] = f"{lib_err:.3e}"
-        timed = (kernel_ms, plain_ms, estep_bound(t, add_ns))
-        extras = dict(library_ms=lib_ms, max_abs_err=err)
+        timed = (ab[name]["estep_ms"], ab[name]["plain_ms"],
+                 estep_bound(t, add_ns))
+        extras = dict(library_ms=lib_ms,
+                      max_abs_err=float((local - plain).abs().max()),
+                      **{k: v for k, v in ab[name].items() if k not in
+                         ("estep_ms", "plain_ms")})
     extras.update(
         launches_dryrun=dry,
         solve_bound_ms=float(info["hla_solve_chain_bound_ms"]),
-        launches_tail=launches["em_sharded_tail"],
+        **{f"launches_{k[len('em_sharded_'):]}": launches[k]
+           for k in (*em.ESTEP_KERNELS, "em_sharded_tail")},
         launches_multihost=info["multihost_estep_launches"],
-        tail_ms=float(info["hla_n1_tail_ms"]),
+        large=ab["large"],
         solve_ms={f"{k}_n{n}": float(np.mean([float(v) for v in info[
             f"{k}_solve_n{n}_ms"].split()])) for k in cases for n in SHARDS},
         loop_ms={f"{k}_n{n}": float(np.mean([float(v) for v in info[
             f"{k}_loop_n{n}_ms"].split()])) for k in cases for n in SHARDS})
-    return timed, launches["em_sharded"], extras
+    return timed, sum(launches[k] for k in em.ESTEP_KERNELS), extras
 
 
 SOURCES = ("band_stats", "em_squarem", "align_full", "phase_a_probe",
@@ -3806,7 +3899,7 @@ def run(dev, sizes: dict) -> list:
     """Every phase after `card` on `dev`; returns the kernels' records."""
     import torch
 
-    from t1k_tpu_torch.ops import _build
+    from t1k_tpu_torch.ops import _build, em
 
     checks = {name: Checker() for name in KERNELS}
     times = {}  # kernel -> (kernel ms, plain ms, (bound ms, bound by))
@@ -3920,7 +4013,8 @@ def run(dev, sizes: dict) -> list:
                for name in KERNELS]
     records[list(KERNELS).index("align_full")].update(v1_extras)
     records[list(KERNELS).index("em_sharded")].update(
-        sharded_extras, launches_dryrun=dry_launches["em_sharded"])
+        sharded_extras, launches_dryrun=sum(
+            dry_launches[k] for k in em.ESTEP_KERNELS))
     records[list(KERNELS).index("em_squarem_batched")].update(batched_extras)
     records[list(KERNELS).index("band_stats_warp")][
         "launches_dryrun"] = dry_launches["band_stats_warp"]

@@ -79,19 +79,38 @@
 //
 // The sharded form (parallel/mesh.py, multihost.py) cuts the read groups
 // into contiguous shards, one per device or rank, and the host drives the
-// rounds.  Per EM update each shard runs estep_rows_kernel (a thread per
-// read group) and estep_cols_kernel (a thread per EC), on grids that span
-// the SMs, with the lists of list_fold's layout in device memory; the
-// column passes run in shard order, each going on from the previous
-// shard's partial counts, so every EC's count is em.cc's one chain and
-// any shard count gives the native loop's bits (summing independent
-// partials, as the reference's psum does, regroups that chain and moves
-// SQUAREM's trajectory).  sharded_tail_kernel, one block, then runs the
-// round's serial folds with the single-problem form's device functions.
-// What bounds it: each column's chain of terms, a dependent index load,
-// a psum gather and a divide per term with kUnroll terms in flight, on
-// the few SMs that an EC count of one to ten thousand threads fills; and
-// the tail's ec_cnt-long folds.
+// rounds.  Per EM update each shard runs three kernels with the lists of
+// list_fold's layout in device memory: estep_rows_kernel (a thread per
+// read group: psum), estep_terms_kernel (a grid-stride loop over the
+// column stream's positions, up to a full wave of the SMs: every entry's
+// term count * (x / psum), computed once, written at its stream
+// position) and estep_fold_kernel (a thread per EC, in blocks of one
+// warp: its terms added in list order, adds only).  Only the folds run
+// in shard order, each going on from the previous shard's partial
+// counts, so every EC's count is em.cc's one chain and any shard count
+// gives the native loop's bits (summing independent partials, as the
+// reference's psum does, regroups that chain and moves SQUAREM's
+// trajectory); every shard's rows and terms need only its own psum and
+// go first.  sharded_tail_kernel, one
+// block, then runs the round's serial folds with the single-problem
+// form's device functions.
+// What bounds it: em.cc's order makes each EC's count a chain of
+// dependent adds, so an update's E-step is at least the longest row's
+// chain plus the longest column's (chip_smoke.py's estep_bound).  The
+// first design (estep_fused_kernel, kept for A/B timing) paid a
+// dependent index load, a psum gather and a correctly rounded divide per
+// term inside that chain, with kUnroll terms in flight, on the few SMs
+// that one to ten thousand EC threads fill.  Now the divides spread over
+// the card: the term pass is bound by the bytes it streams (per position
+// its EC, row and count in, its term out: 24 bytes in f64) on a large
+// shard, and by one wave's latency on the HLA problem's.  The fold only
+// adds: its terms come from L2, where the term pass left them, through
+// a ring in shared memory that cp.async keeps kFoldStages - 1 batches
+// ahead of the chain, in blocks of one warp, so that each warp's copies
+// have an SM to themselves.  On an H100 its time is the launch and the
+// longest column's chain at about twice the 4.1 ns of an add.  The row
+// pass keeps its fused form (its terms are x gathers, no divides), and
+// the tail its ec_cnt-long folds.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -667,33 +686,74 @@ squarem_batched_kernel(const Problem<T>* problems, const Scratch<T>* scratch,
 // ---- The sharded form (K13): one EM update over read-group shards.
 // Each shard's E-step runs on grids that span the SMs.  The shards hold
 // contiguous read groups, and each EC's count is em.cc's one chain over
-// them in ascending order: shard s's column pass continues the chain
+// them in ascending order: shard s's column fold continues the chain
 // from shard s-1's partial (carry), so any shard count gives the native
 // loop's bits.  The round's tail (the normalizer, the extrapolation, the
 // L1 change, the mask) runs on one block.
 
 constexpr int kEstepThreads = 256;
+// Stream positions a thread of the term pass takes at once (a grid
+// stride apart), their loads issued before any of their terms.
+constexpr int kTermUnroll = 4;
+// Terms a batch of the column fold's chain, and the batches of its ring
+// in shared memory, filled by cp.async: kFoldStages - 1 batches are in
+// flight while the chain adds one.
+constexpr int kChainUnroll = 32;
+constexpr int kFoldStages = 4;
+static_assert(kFoldStages > 1, "the fold's ring needs a stage in flight");
+// The fold's block: its warps each read 256 bytes a load, so blocks of
+// one warp spread those loads over as many SMs as there are warps.
+constexpr int kFoldThreads = 32;
 
-// start + cts[j] * (xe / psum[rows[j]]) summed over a thread's CSC list
-// in list order (element j of the lane's list at 32 j, as list_fold):
-// each entry has its own count.  kUnroll terms are computed before their
-// adds; past the list's end a term (of element 0) is computed but not
-// added.
+// *dst = *src (sizeof(T) bytes), global to shared, asynchronously: the
+// copy lands by the issuing thread's next cp.async.wait_group that
+// covers its group.
 template <typename T>
-__device__ __forceinline__ T entry_fold(const int32_t* rows, const T* cts,
-                                        int n, T xe, const T* psum,
-                                        T start) {
-  T sum = start;
-  for (int j = 0; j < n; j += kUnroll) {
-    T t[kUnroll];
+__device__ __forceinline__ void copy_async(T* dst, const T* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src), "n"(sizeof(T))
+               : "memory");
+}
+__device__ __forceinline__ void async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+template <int kN>
+__device__ __forceinline__ void async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(kN) : "memory");
+}
+
+// start + a[0] + a[32] + ... + a[32 (n - 1)] (a lane's list of
+// precomputed terms), left to right, the terms copied ahead into the
+// lane's column of a ring of kS stages of kU rows (ring: kS * kU * 32
+// elements of shared memory a warp, each lane reading only what it
+// copied), so that kS - 1 batches are in flight while the chain adds
+// one.
+template <typename T, int kU, int kS>
+__device__ __forceinline__ T staged_chain(const T* a, int n, T sum,
+                                          T* ring) {
+  const int lane = threadIdx.x & 31;
+  const int batches = (n + kU - 1) / kU;
+  auto issue = [&](int b) {   // batch b into stage b % kS (a group each)
+    if (b < batches) {
+      T* s = ring + (b % kS) * kU * 32 + lane;
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int i = j + u < n ? j + u : 0;
-      t[u] = cts[32 * i] * (xe / psum[__ldg(rows + 32 * i)]);
+      for (int u = 0; u < kU; ++u)
+        if (b * kU + u < n) copy_async(s + 32 * u, a + 32 * (b * kU + u));
     }
+    async_commit();
+  };
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u)
-      if (j + u < n) sum += t[u];
+  for (int b = 0; b < kS - 1; ++b) issue(b);
+  for (int b = 0; b < batches; ++b) {
+    // the stage batch b + kS - 1 takes is batch b - 1's, whose reads
+    // the previous iteration's adds have waited for
+    issue(b + kS - 1);
+    async_wait<kS - 1>();   // batch b has landed
+    const T* s = ring + (b % kS) * kU * 32 + lane;
+#pragma unroll
+    for (int u = 0; u < kU; ++u)
+      if (b * kU + u < n) sum += s[32 * u];
   }
   return sum;
 }
@@ -713,15 +773,92 @@ estep_rows_kernel(Lists rows, const T* x, T* psum) {
   psum[i] = sum == 0 ? (T)1 : sum;
 }
 
-// CSC pass of a shard: thread k folds the entries of the EC in slot k,
-// read groups ascending (em.cc's scatter order), onto count[e]: from 0,
-// or with `carry` from the previous shard's partial there.  An EC whose
-// x is 0 adds only zeros, so its count stays as it is, without the
-// divides (as in em_update).
+// Term pass of a shard's columns, a grid-stride loop over the column
+// stream's positions, kTermUnroll a stride apart at once: at each real
+// entry (ecs[q], its EC, is -1 past a list's end) of an EC whose x is
+// not 0, terms[q] = cts[q] * (x[e] / psum[rows[q]]), the fused pass's
+// operations.  Padding positions and the terms of an EC whose x is 0
+// are not written: the fold reads neither.
 template <typename T>
 __global__ void __launch_bounds__(kEstepThreads)
-estep_cols_kernel(Lists cols, const T* cts, const T* x, const T* psum,
-                  T* count, bool carry) {
+estep_terms_kernel(int64_t n, const int32_t* ecs, const int32_t* rows,
+                   const T* cts, const T* x, const T* psum, T* terms) {
+  const int64_t stride = (int64_t)gridDim.x * kEstepThreads;
+  for (int64_t q0 = (int64_t)blockIdx.x * kEstepThreads + threadIdx.x;
+       q0 < n; q0 += kTermUnroll * stride) {
+    int32_t e[kTermUnroll], r[kTermUnroll];
+    T c[kTermUnroll], xe[kTermUnroll], p[kTermUnroll];
+#pragma unroll
+    for (int u = 0; u < kTermUnroll; ++u) {
+      const int64_t q = q0 + u * stride;
+      e[u] = q < n ? __ldg(ecs + q) : -1;
+      r[u] = q < n ? __ldg(rows + q) : 0;
+      c[u] = q < n ? __ldg(cts + q) : (T)0;
+    }
+#pragma unroll
+    for (int u = 0; u < kTermUnroll; ++u) {
+      xe[u] = e[u] >= 0 ? x[e[u]] : (T)0;
+      p[u] = e[u] >= 0 ? psum[r[u]] : (T)1;
+    }
+#pragma unroll
+    for (int u = 0; u < kTermUnroll; ++u)
+      if (xe[u] != 0) terms[q0 + u * stride] = c[u] * (xe[u] / p[u]);
+  }
+}
+
+// Column fold of a shard: thread k adds the terms of the EC in slot k in
+// list order (read groups ascending, em.cc's scatter order) onto
+// count[e]: from 0, or with `carry` from the previous shard's partial
+// there.  Adds only: the terms are the term pass's.  An EC whose x is 0
+// adds only zeros, so its count stays as it is (as in em_update).
+template <typename T>
+__global__ void __launch_bounds__(kFoldThreads)
+estep_fold_kernel(Lists cols, const T* terms, const T* x, T* count,
+                  bool carry) {
+  __shared__ T ring[kFoldThreads / 32][kFoldStages * kChainUnroll * 32];
+  const int64_t k = (int64_t)blockIdx.x * kFoldThreads + threadIdx.x;
+  if (k >= cols.slots) return;
+  const int e = cols.sched[k];
+  if (e < 0) return;
+  const T start = carry ? count[e] : (T)0;
+  if (x[e] == 0) {
+    count[e] = start;
+    return;
+  }
+  count[e] = staged_chain<T, kChainUnroll, kFoldStages>(
+      terms + cols.base[k >> 5] + (threadIdx.x & 31), cols.len[k], start,
+      ring[threadIdx.x >> 5]);
+}
+
+// The first design's column pass, kept for A/B timing only:
+// thread k computes and adds the terms of the EC in slot k, kUnroll terms
+// computed before their adds, each a dependent index load, a psum gather
+// and a divide; past the list's end a term (of element 0) is computed
+// but not added.  The same terms in the same order as the term pass and
+// the fold, so the same bits.
+template <typename T>
+__device__ __forceinline__ T entry_fold(const int32_t* rows, const T* cts,
+                                        int n, T xe, const T* psum,
+                                        T start) {
+  T sum = start;
+  for (int j = 0; j < n; j += kUnroll) {
+    T t[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int i = j + u < n ? j + u : 0;
+      t[u] = cts[32 * i] * (xe / psum[__ldg(rows + 32 * i)]);
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u)
+      if (j + u < n) sum += t[u];
+  }
+  return sum;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kEstepThreads)
+estep_fused_kernel(Lists cols, const T* cts, const T* x, const T* psum,
+                   T* count, bool carry) {
   const int64_t k = (int64_t)blockIdx.x * kEstepThreads + threadIdx.x;
   if (k >= cols.slots) return;
   const int e = cols.sched[k];
@@ -956,19 +1093,57 @@ int batched_attrs(int form, int width, int64_t bytes, int32_t* out) {
 
 template <typename T>
 int launch_estep(int pass, const void* const* in, const int64_t* dims,
-                 int carry, void* psum, void* count, void* stream) {
+                 int carry, void* psum, void* terms, void* count,
+                 void* stream) {
   const int64_t zero[4] = {0, 0, 0, 0};
-  const int64_t slots = dims[pass];
-  const int blocks = (int)(slots / kEstepThreads);
   auto st = static_cast<cudaStream_t>(stream);
-  const auto* x = static_cast<const T*>(in[9]);
-  if (pass == 0)
-    estep_rows_kernel<T><<<blocks, kEstepThreads, 0, st>>>(
-        lists_at(in, zero, slots), x, static_cast<T*>(psum));
-  else
-    estep_cols_kernel<T><<<blocks, kEstepThreads, 0, st>>>(
-        lists_at(in + 4, zero, slots), static_cast<const T*>(in[8]), x,
-        static_cast<const T*>(psum), static_cast<T*>(count), carry != 0);
+  const auto* x = static_cast<const T*>(in[10]);
+  const auto* cts = static_cast<const T*>(in[8]);
+  if (pass == 0) {
+    estep_rows_kernel<T><<<(int)(dims[0] / kEstepThreads), kEstepThreads, 0,
+                           st>>>(lists_at(in, zero, dims[0]), x,
+                                 static_cast<T*>(psum));
+    return (int)cudaGetLastError();
+  }
+  const Lists cols = lists_at(in + 4, zero, dims[1], dims[2]);
+  const int blocks = (int)(dims[1] / kEstepThreads);
+  if (pass == 1) {
+    int dev = 0, sms = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                   dev);
+    if (err != cudaSuccess) {
+      cudaGetLastError();
+      return (int)err;
+    }
+    // up to a full wave of resident blocks, kTermUnroll positions a
+    // thread a turn
+    int per_sm = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, estep_terms_kernel<T>, kEstepThreads, 0);
+    if (err != cudaSuccess) {
+      cudaGetLastError();
+      return (int)err;
+    }
+    const int64_t need = (dims[2] + kEstepThreads - 1) / kEstepThreads;
+    const int64_t wave = (int64_t)per_sm * sms;
+    estep_terms_kernel<T><<<(int)(need < wave ? need : wave), kEstepThreads,
+                            0, st>>>(
+        dims[2], static_cast<const int32_t*>(in[9]), cols.stream, cts, x,
+        static_cast<const T*>(psum), static_cast<T*>(terms));
+  } else if (pass == 2) {
+    estep_fold_kernel<T><<<(int)(dims[1] / kFoldThreads), kFoldThreads, 0,
+                           st>>>(
+        cols, static_cast<const T*>(terms), x, static_cast<T*>(count),
+        carry != 0);
+  } else if (pass == 3) {
+    estep_fused_kernel<T><<<blocks, kEstepThreads, 0, st>>>(
+        cols, cts, x, static_cast<const T*>(psum), static_cast<T*>(count),
+        carry != 0);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }
 
@@ -1148,20 +1323,24 @@ extern "C" int t1k_em_squarem_batched_attrs(int double_prec, int form,
 // One pass of a shard's E-step (the sharded form).  in: the rows' sched,
 // len, base and stream (read group -> ECs), the columns' four (EC -> the
 // shard's read-group rows, ascending), the columns' count stream (double
-// or float, laid out as their index stream), then x.  dims: the rows'
-// and the columns' slot counts (multiples of 256, from
-// ops/em.py::warp_lists at that many threads).  pass 0: the rows, into
-// psum (one element per row); pass 1: the columns, onto count (ec_cnt
-// elements: from 0, or with carry from what count holds).  Returns the
+// or float, laid out as their index stream) and EC stream (each
+// position's EC, -1 past a list's end), then x.  dims: the rows' and
+// the columns' slot counts (multiples of 256, from ops/em.py::warp_lists
+// at that many threads) and the columns' stream length.  pass 0: the
+// rows, into psum (one element per row); 1: the columns' terms, into
+// terms (one element per stream position); 2: the columns' fold of
+// those terms onto count (ec_cnt elements: from 0, or with carry from
+// what count holds); 3: the first design's fused column pass (terms and
+// adds in one thread per EC) onto count, for A/B timing.  Returns the
 // CUDA error code.
 extern "C" int t1k_em_sharded_estep(int pass, const void* const* in,
                                     const int64_t* dims, int double_prec,
-                                    int carry, void* psum, void* count,
-                                    void* stream) {
+                                    int carry, void* psum, void* terms,
+                                    void* count, void* stream) {
   return double_prec ? launch_estep<double>(pass, in, dims, carry, psum,
-                                            count, stream)
+                                            terms, count, stream)
                      : launch_estep<float>(pass, in, dims, carry, psum,
-                                           count, stream);
+                                           terms, count, stream);
 }
 
 // The sharded form's round tail (sharded_tail_kernel) on one block.

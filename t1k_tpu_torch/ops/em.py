@@ -35,10 +35,11 @@ lists each major allele's alleles (``major_lists``).
 The sharded form (K13, driven by ``parallel/mesh.py`` and
 ``parallel/multihost.py``): ``shard_tables`` builds one read-group
 shard's lists with a count per entry, ``estep_device`` puts them on a
-device, ``estep_rows`` and ``estep_cols`` run its E-step passes (the
-columns going on from the previous shard's partial counts), and
-``tail_device`` / ``tail`` hold and run the round's tail; each wrapper
-runs its plain version on CPU tensors.
+device, ``estep_rows``, ``estep_terms`` and ``estep_fold`` run its
+E-step passes (every entry's term at its column stream position, then
+each EC's terms added in list order, going on from the previous shard's
+partial counts), and ``tail_device`` / ``tail`` hold and run the round's
+tail; each wrapper runs its plain version on CPU tensors.
 """
 
 from __future__ import annotations
@@ -74,9 +75,18 @@ EM_PHASES = ("csr", "csc", "norm", "alpha", "diff", "mask")
 # lists are dealt in one turn of this many threads, rounded up.
 ESTEP_THREADS = 256
 
-# Kernel launches, counted by the CUDA wrappers where they launch.
-launch_counts = {"em_squarem": 0, "em_squarem_batched": 0, "em_sharded": 0,
-                 "em_sharded_tail": 0}
+# Kernel launches, counted by the CUDA wrappers where they launch: the
+# single-problem and cohort forms, and the sharded form's row pass, term
+# pass, column fold and round tail.
+launch_counts = {"em_squarem": 0, "em_squarem_batched": 0,
+                 "em_sharded_rows": 0, "em_sharded_terms": 0,
+                 "em_sharded_fold": 0, "em_sharded_tail": 0}
+# The sharded E-step's kernels on the main path (parallel/mesh.py,
+# multihost.py), one update's launches per shard.
+ESTEP_KERNELS = ("em_sharded_rows", "em_sharded_terms", "em_sharded_fold")
+# Launches of the first design's fused column pass alone
+# (`estep_cols_fused_cuda`, for A/B timing), kept apart from the path's.
+fused_launches = {"em_sharded_fused": 0}
 # The cohort form's per-cell row (t1k_em_squarem_cells): ec_cnt, rg_cnt,
 # the rows' and the columns' slot counts and stream lengths, then the
 # cell's offsets into the kernel's 17 inputs and 11 scratch buffers.
@@ -370,7 +380,12 @@ def squarem_plain(rg_off, rg_ecs, rg_counts, col_off, col_rgs, ec_off,
 def _kernel_lib() -> ctypes.CDLL:
     from ._build import load
 
-    lib = load("em_squarem")
+    return bind_kernel_lib(load("em_squarem"))
+
+
+def bind_kernel_lib(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """`lib` (a build of csrc/em_squarem.cu) with its C interface's
+    argument and result types set."""
     lib.t1k_em_squarem.restype = ctypes.c_int
     lib.t1k_em_squarem.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_double,
@@ -394,7 +409,8 @@ def _kernel_lib() -> ctypes.CDLL:
     lib.t1k_em_sharded_estep.restype = ctypes.c_int
     lib.t1k_em_sharded_estep.argtypes = [
         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p]
     lib.t1k_em_sharded_tail.restype = ctypes.c_int
     lib.t1k_em_sharded_tail.argtypes = [
         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -766,17 +782,40 @@ def shard_tables(seg_rg, seg_ec, counts, rg_cnt: int, ec_cnt: int,
                 col_cts=ct[perm], ec_cnt=ec_cnt)
 
 
-def estep_device(tables: dict, device, dtype) -> dict:
-    """A shard's shard_tables on `device` for its E-step: on a CUDA device
-    the kernel's warp_lists of both passes, dealt in one turn over a grid
-    of ESTEP_THREADS-thread blocks, with the columns' counts laid out as
-    their read-group stream; on the CPU the plain version's padded index
-    matrices."""
+def column_stream(tables: dict) -> dict:
+    """A shard's columns as the sharded form's column kernels walk them:
+    shard_tables' CSC lists in warp_lists' layout, dealt in one turn over
+    a grid of ESTEP_THREADS-thread blocks, each stream position holding
+    its entry's row (`stream`), count (`cts`) and EC (`ecs`); unread
+    positions (past a list's end) hold row 0, count 0 and EC -1."""
+    ec_cnt, nnz = tables["ec_cnt"], len(tables["col_rows"])
+    turn = ESTEP_THREADS
+    # entry numbers from 1, so an unread position's 0 is no entry
+    cols = warp_lists(tables["col_off"],
+                      np.arange(1, nnz + 1, dtype=np.int32),
+                      max(turn, -(-ec_cnt // turn) * turn))
+    at = cols["stream"]
+    col_ecs = np.repeat(np.arange(ec_cnt, dtype=np.int32),
+                        np.diff(tables["col_off"]))
+    cols["stream"] = np.append(np.int32(0), tables["col_rows"])[at].astype(
+        np.int32)
+    cols["cts"] = np.append(0.0, tables["col_cts"])[at]
+    cols["ecs"] = np.append(np.int32(-1), col_ecs)[at]
+    return cols
+
+
+def estep_device(tables: dict, device, dtype, plain: bool = False) -> dict:
+    """A shard's shard_tables on `device` for its E-step: the columns'
+    column_stream (`cols`), its entry count (`nnz`), a psum per row and a
+    term per stream position (`terms`); on a CUDA device the row kernel's
+    warp_lists too, dealt like the columns; on the CPU (or with `plain`,
+    on any device) the plain row pass's padded index matrix and
+    estep_cols_plain's (plain_estep_tables)."""
     if dtype not in (torch.float32, torch.float64):
         raise ValueError(f"unsupported EM dtype {dtype}")
     dev = torch.device(device)
-    if dev.type == "cpu":
-        return plain_estep_tables(tables, dev, dtype)
+    if dev.type == "cuda" and dev.index is None:   # as the tensors name it
+        dev = torch.device("cuda", torch.cuda.current_device())
     ec_cnt, n_rows = tables["ec_cnt"], len(tables["row_off"]) - 1
 
     def put(x, dt):
@@ -784,22 +823,26 @@ def estep_device(tables: dict, device, dtype) -> dict:
             device=dev, dtype=dt).contiguous()
 
     i32, i64 = torch.int32, torch.int64
-    est = dict(device=dev, dtype=dtype, ec_cnt=ec_cnt, n_rows=n_rows)
+    cols = column_stream(tables)
+    est = dict(device=dev, dtype=dtype, ec_cnt=ec_cnt, n_rows=n_rows,
+               nnz=len(tables["col_rows"]),
+               cols={k: put(cols[k], dt) for k, dt in (
+                   ("sched", i32), ("len", i32), ("base", i64),
+                   ("stream", i32), ("cts", dtype), ("ecs", i32))},
+               terms=torch.empty(len(cols["stream"]), dtype=dtype,
+                                 device=dev))
+    if plain or dev.type == "cpu":
+        est.update(plain_estep_tables(tables, dev, dtype))
+        return est
     turn = ESTEP_THREADS
     rows = warp_lists(tables["row_off"], tables["row_ecs"],
                       max(turn, -(-n_rows // turn) * turn))
-    nnz = len(tables["col_rows"])
-    cols = warp_lists(tables["col_off"], np.arange(nnz, dtype=np.int32),
-                      max(turn, -(-ec_cnt // turn) * turn))
-    # the columns' stream holds entry numbers: each takes its entry's row,
-    # and a stream of counts beside it (unread positions, entry 0 or past
-    # an empty shard's end, take a valid 0)
-    at = cols["stream"]
-    cols["stream"] = np.append(tables["col_rows"], 0)[at]
-    est["ins"] = [put(lists[k], dt) for lists in (rows, cols) for k, dt in (
-        ("sched", i32), ("len", i32), ("base", i64), ("stream", i32))]
-    est["ins"].append(put(np.append(tables["col_cts"], 0.0)[at], dtype))
-    est["dims"] = (ctypes.c_int64 * 2)(len(rows["sched"]), len(cols["sched"]))
+    c = est["cols"]
+    est["ins"] = [put(rows[k], dt) for k, dt in (
+        ("sched", i32), ("len", i32), ("base", i64), ("stream", i32))] + [
+        c["sched"], c["len"], c["base"], c["stream"], c["cts"], c["ecs"]]
+    est["dims"] = (ctypes.c_int64 * 3)(len(rows["sched"]), len(c["sched"]),
+                                       len(cols["stream"]))
     est["psum"] = torch.empty(max(n_rows, 1), dtype=dtype, device=dev)
     return est
 
@@ -852,6 +895,40 @@ def estep_cols_plain(est: dict, x: torch.Tensor, count: torch.Tensor,
     count.copy_(total)
 
 
+def estep_terms_plain(est: dict, x: torch.Tensor) -> None:
+    """Plain PyTorch version of the sharded E-step's term pass, from the
+    same layout: at each stream position of a real entry (its EC e >= 0)
+    whose x[e] is not 0, count * (x[e] / psum[row]) into est["terms"];
+    0 elsewhere (the fold reads none of those)."""
+    c = est["cols"]
+    e = c["ecs"].long()
+    xe = torch.where(e >= 0, x[e.clamp_min(0)], 0.0)
+    psum = torch.cat([est["psum"][:est["n_rows"]], torch.ones(
+        1, dtype=est["dtype"], device=est["device"])])[
+        torch.where(e >= 0, c["stream"].long(), est["n_rows"])]
+    est["terms"].copy_(torch.where(xe != 0, c["cts"] * (xe / psum), 0.0))
+
+
+def estep_fold_plain(est: dict, x: torch.Tensor, count: torch.Tensor,
+                     carry: bool) -> None:
+    """Plain PyTorch version of the sharded E-step's column fold: per EC
+    (the slot that holds it) its terms added in list order onto `count`
+    (from 0, or with `carry` from what it holds); an EC whose x is 0
+    keeps that start."""
+    c = est["cols"]
+    slot = torch.nonzero(c["sched"] >= 0).flatten()
+    e = c["sched"][slot].long()
+    n = c["len"][slot].long()
+    at = c["base"][slot // 32] + slot % 32
+    live = x[e] != 0
+    total = count[e] if carry else torch.zeros_like(count[e])
+    for j in range(int(n.max()) if len(n) else 0):
+        add = live & (j < n)
+        term = est["terms"][torch.where(add, at + 32 * j, 0)]
+        total = torch.where(add, total + term, total)
+    count[e] = total
+
+
 def _estep_launch(est: dict, pass_: int, x: torch.Tensor, count,
                   carry: bool) -> None:
     if not (x.is_contiguous() and x.dtype == est["dtype"]
@@ -869,12 +946,11 @@ def _estep_launch(est: dict, pass_: int, x: torch.Tensor, count,
         rc = _kernel_lib().t1k_em_sharded_estep(
             pass_, (ctypes.c_void_p * len(ins))(*[t.data_ptr() for t in ins]),
             est["dims"], int(est["dtype"] == torch.float64), int(carry),
-            est["psum"].data_ptr(),
+            est["psum"].data_ptr(), est["terms"].data_ptr(),
             None if count is None else count.data_ptr(),
             torch.cuda.current_stream(est["device"]).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"sharded E-step launch failed: CUDA error {rc}")
-    launch_counts["em_sharded"] += 1
 
 
 def estep_rows(est: dict, x: torch.Tensor) -> None:
@@ -883,20 +959,50 @@ def estep_rows(est: dict, x: torch.Tensor) -> None:
     the CPU."""
     if x.device.type == "cpu":
         estep_rows_plain(est, x)
-    else:
+        return
+    if est["n_rows"]:   # a shard without entries has no read group
         _estep_launch(est, 0, x, None, False)
+        launch_counts["em_sharded_rows"] += 1
 
 
-def estep_cols(est: dict, x: torch.Tensor, count: torch.Tensor,
-               carry: bool) -> None:
-    """A shard's column pass of x onto `count` (ec_cnt elements on its
-    device; with `carry` the chain goes on from the partial count holds),
-    after its row pass: its kernel on a CUDA device, on the current stream
-    without waiting; estep_cols_plain on the CPU."""
+def estep_terms(est: dict, x: torch.Tensor) -> None:
+    """A shard's term pass of x, after its row pass: every entry's term
+    at its column stream position, across the card (its kernel on a CUDA
+    device, on the current stream without waiting; estep_terms_plain on
+    the CPU).  Needs only this shard's psum, so every shard's may run
+    before the first fold."""
+    if not est["nnz"]:   # a shard without entries has no term to compute
+        return
     if x.device.type == "cpu":
-        estep_cols_plain(est, x, count, carry)
-    else:
-        _estep_launch(est, 1, x, count, carry)
+        estep_terms_plain(est, x)
+        return
+    _estep_launch(est, 1, x, None, False)
+    launch_counts["em_sharded_terms"] += 1
+
+
+def estep_fold(est: dict, x: torch.Tensor, count: torch.Tensor,
+               carry: bool) -> None:
+    """A shard's column fold onto `count` (ec_cnt elements on its device;
+    with `carry` the chain goes on from the partial count holds), after
+    its term pass: adds only, its kernel on a CUDA device, on the current
+    stream without waiting; estep_fold_plain on the CPU."""
+    if x.device.type == "cpu":
+        estep_fold_plain(est, x, count, carry)
+        return
+    _estep_launch(est, 2, x, count, carry)
+    launch_counts["em_sharded_fold"] += 1
+
+
+def estep_cols_fused_cuda(est: dict, x: torch.Tensor, count: torch.Tensor,
+                          carry: bool) -> None:
+    """The first design's column pass (one thread per EC computes and
+    adds its terms) on a CUDA shard, for A/B timing against estep_terms
+    and estep_fold: the same bits; counted in `fused_launches`, on no
+    path."""
+    if x.device.type != "cuda":
+        raise ValueError("the fused column pass runs on a CUDA device")
+    _estep_launch(est, 3, x, count, carry)
+    fused_launches["em_sharded_fused"] += 1
 
 
 def tail_device(ec_len, init_x, device, dtype, filter_frac: float = 0.15,

@@ -6,21 +6,21 @@ once, so ``[cuda:0] * n`` runs n shards on one card, as the reference's
 tests run a virtual CPU mesh.  The incidence is cut into whole read
 groups per shard (``partition_read_groups``, copied); the EC tables and
 x are replicated.  Each EM update runs every shard's row pass (its read
-groups' normalizers), then the shards' column passes in shard order, and
-the round's tail (normalizer, extrapolation, L1 change, mask) on the
-first shard's device; x then goes back to every shard.  The passes are
-the sharded form of ``csrc/em_squarem.cu``, or its plain version on the
-CPU.
+groups' normalizers) and term pass (each entry's share), then the
+shards' column folds in shard order, and the round's tail (normalizer,
+extrapolation, L1 change, mask) on the first shard's device; x then
+goes back to every shard.  The passes are the sharded form of
+``csrc/em_squarem.cu``, or its plain version on the CPU.
 
 The order contract.  em.cc sums each EC's count over the read groups in
 ascending order, one chain.  The reference sums per-shard partials (a
 psum), which regroups that chain; on the HLA problem two shards then
 move counts by 1e-4, and on a 2M-incidence problem they converge a
 round later to other counts (PERF.md, the sharded EM's findings).
-Here shard s's column pass goes on from shard s-1's partial instead,
-so every shard count gives the native loop's bits; the row passes stay
-independent.  The loop is driven from the host with one sync a round,
-for t.
+Here shard s's column fold goes on from shard s-1's partial instead,
+so every shard count gives the native loop's bits; the row and term
+passes stay independent.  The loop is driven from the host with one
+sync a round, for t.
 """
 
 from __future__ import annotations
@@ -178,15 +178,17 @@ class ShardedEM:
 
     def estep(self, src: int) -> None:
         """The E-step of the tail's x[src] into td["count"]: every shard's
-        row pass, then the column passes in shard order, each going on
-        from the previous shard's partial (em.cc's chain)."""
+        row pass and term pass (each needs only its own psum), then the
+        column folds in shard order, each going on from the previous
+        shard's partial (em.cc's chain)."""
         xs = replicate(self.mesh, self.td["x"][src])
         for est, x in zip(self.shards, xs):
             em.estep_rows(est, x)
+            em.estep_terms(est, x)
         for s, (est, x) in enumerate(zip(self.shards, xs)):
             if s and self.counts[s] is not self.counts[s - 1]:
                 self.counts[s].copy_(self.counts[s - 1])
-            em.estep_cols(est, x, self.counts[s], carry=s > 0)
+            em.estep_fold(est, x, self.counts[s], carry=s > 0)
         if self.counts[-1] is not self.td["count"]:
             self.td["count"].copy_(self.counts[-1])
 

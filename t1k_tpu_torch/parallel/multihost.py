@@ -4,11 +4,12 @@ Counterpart of ``t1k_tpu/parallel/multihost.py``: one process (rank) per
 shard, joined by ``initialize_from_env``; every rank calls
 ``em_quantify_multihost`` with the FULL incidence problem and builds the
 E-step lists of its own read-group shard (``parallel/mesh.py``'s cut).
-Each EM update is every rank's row pass, then the column passes in rank
-order, each rank going on from the partial counts the rank before it
-sends (em.cc's one chain per EC, as parallel/mesh.py runs it in one
-process), a broadcast of the last rank's counts, and the update's tail
-on every rank from those same counts.  The result is replicated and has
+Each EM update is every rank's row pass and term pass, then the column
+folds in rank order, each rank going on from the partial counts the rank
+before it sends (em.cc's one chain per EC, as parallel/mesh.py runs it
+in one process; only the fold waits for the hand-off), a broadcast of
+the last rank's counts, and the update's tail on every rank from those
+same counts.  The result is replicated and has
 the one-shard bits at any rank count.
 
 Backends: NCCL on the cards (one card per rank) and Gloo on the CPU.
@@ -83,7 +84,7 @@ def _wire(t: torch.Tensor) -> torch.Tensor:
 
 
 def receive_partial(count: torch.Tensor, mesh, pos: int) -> None:
-    """Before the column pass of the rank at place `pos` of `mesh`: the
+    """Before the column fold of the rank at place `pos` of `mesh`: the
     previous rank's partial counts into `count` (the first rank starts
     from 0 and receives none)."""
     if pos:
@@ -94,7 +95,7 @@ def receive_partial(count: torch.Tensor, mesh, pos: int) -> None:
 
 
 def pass_on(count: torch.Tensor, mesh, pos: int) -> None:
-    """After that column pass: `count` to the next rank, then the last
+    """After that column fold: `count` to the next rank, then the last
     rank's counts, the update's, broadcast to every rank."""
     if pos < len(mesh) - 1:
         dist.send(_wire(count), dst=mesh[pos + 1])
@@ -138,8 +139,9 @@ def em_quantify_multihost(
     x = td["x"]
     for _ in range(iterations):
         em.estep_rows(est, x[0])
+        em.estep_terms(est, x[0])
         receive_partial(td["count"], mesh, pos)
-        em.estep_cols(est, x[0], td["count"], carry=pos > 0)
+        em.estep_fold(est, x[0], td["count"], carry=pos > 0)
         pass_on(td["count"], mesh, pos)
         em.tail(td, 0)
         x[0], x[1] = x[1], x[0]

@@ -292,7 +292,8 @@ def test_shard_tables_lists():
              [1 * (0.125 / psum[0]), 3 * (0.125 / psum[0]),
               5 * (0.125 / psum[1])], []]
     for carry, start in ((False, 0.0), (True, 7.0)):
-        tem.estep_cols(est, x, count, carry)
+        tem.estep_terms(est, x)
+        tem.estep_fold(est, x, count, carry)
         want = []
         for ts in terms:   # one chain per EC, in list order from `start`
             total = start
@@ -301,6 +302,177 @@ def test_shard_tables_lists():
             want.append(total)
         assert count.tolist() == want
         count.fill_(7.0)
+
+
+def _shard_cases():
+    """Per case, shard_tables of every shard: em_inputs and the graft
+    problem at 1, 2, 3 and 8 shards with 3 ECs no entry names (empty
+    columns), and 5 read groups over 8 shards (shards without entries)."""
+    cases = {}
+    for problem in sorted(PROBLEMS):
+        a = PROBLEMS[problem]()
+        seg_rg, seg_ec, counts, rg_cnt, ec_to_alleles = _sharded_args(a)[:5]
+        for n in (1, 2, 3, 8):
+            out = tmesh.partition_read_groups(seg_rg, seg_ec, counts[seg_rg],
+                                              rg_cnt, n)
+            cases[f"{problem}_n{n}"] = [
+                tem.shard_tables(out[0][s], out[1][s], out[2][s], rg_cnt,
+                                 len(ec_to_alleles) + 3) for s in range(n)]
+    a = _em_inputs()
+    seg_rg, seg_ec, counts, _, ec_to_alleles = _sharded_args(a)[:5]
+    few = seg_rg < 5
+    out = tmesh.partition_read_groups(seg_rg[few], seg_ec[few],
+                                      counts[seg_rg[few]], 5, 8)
+    cases["five_groups_n8"] = [
+        tem.shard_tables(out[0][s], out[1][s], out[2][s], 5,
+                         len(ec_to_alleles)) for s in range(8)]
+    return cases
+
+
+SHARD_CASES = sorted(_shard_cases())
+
+
+def _term_positions(cols) -> dict:
+    """Stream position -> EC of every position the term pass writes, as
+    estep_terms_kernel decides it (the position's EC is not -1)."""
+    return {q: int(e) for q, e in enumerate(cols["ecs"]) if e >= 0}
+
+
+def _fold_reads(cols) -> dict:
+    """Stream position -> (slot, element) of every term the fold adds
+    (estep_fold_kernel's term_chain: element j of slot k at base[k / 32]
+    + 32 j + k % 32)."""
+    out = {}
+    for k, e in enumerate(cols["sched"]):
+        if e >= 0:
+            for j in range(cols["len"][k]):
+                q = int(cols["base"][k // 32]) + 32 * j + k % 32
+                assert q not in out
+                out[q] = (k, j)
+    return out
+
+
+@pytest.mark.parametrize("case", SHARD_CASES)
+def test_column_stream_reaches_every_entry_once_where_the_fold_reads(case):
+    """Every real entry of every column is written by the term pass once,
+    at the stream position where the fold reads it, holding its own row
+    and count in list order; no padding position is written or read."""
+    for t in _shard_cases()[case]:
+        cols = tem.column_stream(t)
+        ec_cnt = t["ec_cnt"]
+        assert len(cols["sched"]) % tem.ESTEP_THREADS == 0
+        assert len(cols["stream"]) == len(cols["cts"]) == len(cols["ecs"])
+        slots = cols["sched"][cols["sched"] >= 0]
+        assert sorted(slots.tolist()) == list(range(ec_cnt))
+        written, read = _term_positions(cols), _fold_reads(cols)
+        assert sorted(written) == sorted(read)
+        assert len(written) == len(t["col_rows"])
+        for q, (k, j) in read.items():
+            e = cols["sched"][k]
+            assert written[q] == e
+            assert cols["len"][k] == t["col_off"][e + 1] - t["col_off"][e]
+            entry = t["col_off"][e] + j
+            assert cols["stream"][q] == t["col_rows"][entry]
+            assert cols["cts"][q] == t["col_cts"][entry]
+    if case == "five_groups_n8":
+        assert any(len(t["col_rows"]) == 0 for t in _shard_cases()[case])
+
+
+@pytest.mark.parametrize("carry", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("case", SHARD_CASES)
+def test_split_plain_equals_the_fused_plain_column_pass(case, dtype, carry):
+    """estep_terms_plain then estep_fold_plain, bit for bit
+    estep_cols_plain (the independent form), x zero on every 7th EC;
+    with the unread positions of the term buffer poisoned (NaN), which
+    the fold never adds."""
+    for s, t in enumerate(_shard_cases()[case]):
+        ec_cnt = t["ec_cnt"]
+        rng = np.random.default_rng(2 + s)
+        x = torch.as_tensor(rng.random(ec_cnt), dtype=dtype)
+        x[::7] = 0
+        start = torch.as_tensor(rng.random(ec_cnt), dtype=dtype)
+        est = tem.estep_device(t, CPU, dtype)
+        tem.estep_rows_plain(est, x)
+        want = start.clone()
+        tem.estep_cols_plain(est, x, want, carry)
+        tem.estep_terms_plain(est, x)
+        real = list(_term_positions(tem.column_stream(t)))
+        terms = est["terms"].clone()
+        est["terms"].fill_(float("nan"))
+        est["terms"][real] = terms[real]
+        got = start.clone()
+        tem.estep_fold_plain(est, x, got, carry)
+        assert got.numpy().tobytes() == want.numpy().tobytes()
+        if carry:   # an EC whose x is 0 keeps its start exactly
+            assert got[::7].numpy().tobytes() == start[::7].numpy().tobytes()
+
+
+def _record(monkeypatch, module, name, calls, what):
+    """module.name, wrapped to append what(*its positional arguments) to
+    `calls`."""
+    fn = getattr(module, name)
+
+    def wrapped(*args, **kw):
+        calls.append(what(*args))
+        return fn(*args, **kw)
+    monkeypatch.setattr(module, name, wrapped)
+
+
+def test_sharded_update_runs_terms_before_the_folds(monkeypatch):
+    """ShardedEM.estep: every shard's row and term pass before the first
+    fold, the folds in shard order; the CPU's host loop runs the split,
+    not estep_cols_plain, and keeps the native bits."""
+    a = _em_inputs()
+    args = _sharded_args(a)
+    calls = []
+    for name in ("estep_rows", "estep_terms", "estep_fold"):
+        _record(monkeypatch, tem, name, calls,
+                lambda est, *_, _n=name: (_n, est["n_rows"]))
+
+    def refuse(*_):
+        raise AssertionError("the host loop ran the fused plain pass")
+    monkeypatch.setattr(tem, "estep_cols_plain", refuse)
+    it, count = tmesh.em_quantify_sharded_squarem([CPU] * 3, *args)
+    it_n, count_n = em_quantify(**a)
+    assert it == it_n and count.tobytes() == count_n.tobytes()
+    first = calls[:9]
+    assert [c[0] for c in first[:6]] == ["estep_rows", "estep_terms"] * 3
+    assert [c[0] for c in first[6:]] == ["estep_fold"] * 3
+    assert [c[1] for c in first[6:]] == [c[1] for c in first[:6:2]]
+
+
+def test_multihost_term_pass_runs_before_the_hand_off(monkeypatch):
+    """em_quantify_multihost on a one-rank Gloo group: each update's term
+    pass before receive_partial, the fold after it; the in-process
+    one-shard bits."""
+    import socket
+
+    import torch.distributed as dist
+
+    from t1k_tpu_torch.parallel import multihost
+
+    seg_rg, seg_ec, counts, rg_cnt, ec_len, init = _plain_em_problem()
+    calls = []
+    for module, name in ((tem, "estep_terms"), (tem, "estep_fold"),
+                         (multihost, "receive_partial")):
+        _record(monkeypatch, module, name, calls, lambda *_, _n=name: _n)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=1, rank=0)
+    try:
+        x = multihost.em_quantify_multihost(
+            seg_rg, seg_ec, counts, rg_cnt, ec_len, init, iterations=3,
+            device="cpu", dtype=torch.float64)
+    finally:
+        dist.destroy_process_group()
+    assert calls == ["estep_terms", "receive_partial", "estep_fold"] * 3
+    want = tmesh.em_quantify_sharded([CPU], seg_rg, seg_ec, counts, rg_cnt,
+                                     ec_len, init, iterations=3,
+                                     dtype=torch.float64)
+    assert x.tobytes() == want.tobytes()
 
 
 def test_per_read_group_form_refuses_a_repeated_pair():
@@ -413,7 +585,8 @@ def test_sharded_estep_on_card_matches_plain(problem, dtype):
                 xd = torch.as_tensor(x, dtype=dtype, device=d)
                 count = torch.as_tensor(start, dtype=dtype, device=d)
                 tem.estep_rows(est, xd)
-                tem.estep_cols(est, xd, count, carry)
+                tem.estep_terms(est, xd)
+                tem.estep_fold(est, xd, count, carry)
                 got.append(count.cpu().numpy().tobytes())
             assert got[0] == got[1]
 
@@ -429,10 +602,12 @@ def test_sharded_squarem_on_card(problem):
     args = _sharded_args(a)
     it_n, count_n = em_quantify(**a)
     launches = dict(tem.launch_counts)
+    fused = dict(tem.fused_launches)
     it, count = tmesh.em_quantify_sharded_squarem([dev], *args,
                                                   single_dispatch=False)
-    assert tem.launch_counts["em_sharded"] > launches["em_sharded"]
-    assert tem.launch_counts["em_sharded_tail"] > launches["em_sharded_tail"]
+    for key in (*tem.ESTEP_KERNELS, "em_sharded_tail"):
+        assert tem.launch_counts[key] > launches[key]
+    assert tem.fused_launches == fused
     assert it == it_n and count.tobytes() == count_n.tobytes()
     it1, count1 = tmesh.em_quantify_sharded_squarem([dev], *args)
     assert tem.launch_counts["em_squarem"] == launches["em_squarem"] + 1
@@ -442,6 +617,60 @@ def test_sharded_squarem_on_card(problem):
         want = tmesh.em_quantify_sharded_squarem([CPU] * n, *args)
         assert got[0] == want[0] == it_n
         assert got[1].tobytes() == want[1].tobytes()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("case", SHARD_CASES)
+def test_split_estep_on_card_matches_plain_and_the_fused_pass(case, dtype):
+    """Each shard's row pass, term pass and fold on the card: psum and
+    every term the kernel writes bit for bit the plain split's on the
+    card's tensors, and the counts bit for bit the plain split's and the
+    first design's fused column pass's (forced), from 0 and with carry,
+    x zero on every 7th EC."""
+    dev = _card()
+    for s, t in enumerate(_shard_cases()[case]):
+        rng = np.random.default_rng(2 + s)
+        x = torch.as_tensor(rng.random(t["ec_cnt"]), dtype=dtype)
+        x[::7] = 0
+        start = torch.as_tensor(rng.random(t["ec_cnt"]), dtype=dtype,
+                                device=dev)
+        xd = x.to(dev)
+        est = tem.estep_device(t, dev, dtype)
+        plain = tem.estep_device(t, dev, dtype, plain=True)
+        tem.estep_rows(est, xd)
+        tem.estep_rows_plain(plain, xd)
+        n_rows = est["n_rows"]
+        assert (est["psum"][:n_rows].cpu().numpy().tobytes()
+                == plain["psum"].cpu().numpy().tobytes())
+        tem.estep_terms(est, xd)
+        tem.estep_terms_plain(plain, xd)
+        cols = tem.column_stream(t)
+        live = [q for q, e in _term_positions(cols).items() if x[e] != 0]
+        assert (est["terms"][live].cpu().numpy().tobytes()
+                == plain["terms"][live].cpu().numpy().tobytes())
+        for carry in (False, True):
+            got, want, fused = start.clone(), start.clone(), start.clone()
+            tem.estep_fold(est, xd, got, carry)
+            tem.estep_fold_plain(plain, xd, want, carry)
+            tem.estep_cols_fused_cuda(est, xd, fused, carry)
+            assert got.cpu().numpy().tobytes() == want.cpu().numpy().tobytes()
+            assert got.cpu().numpy().tobytes() == fused.cpu().numpy().tobytes()
+
+
+@pytest.mark.cuda
+def test_more_shards_than_read_groups_on_card():
+    """Shards of one card without entries launch no row or term pass and
+    pass the chain on: the native bits."""
+    dev = _card()
+    a = _em_inputs()
+    rg_off, rg_ecs = a["rg_ecs_csr"]
+    a["rg_ecs_csr"] = (rg_off[:6], rg_ecs[:rg_off[5]])
+    a["rg_counts"] = a["rg_counts"][:5]
+    it_n, count_n = em_quantify(**a)
+    it, count = tmesh.em_quantify_sharded_squarem([dev] * 8,
+                                                  *_sharded_args(a))
+    assert it == it_n and count.tobytes() == count_n.tobytes()
 
 
 @pytest.mark.cuda
