@@ -5,7 +5,7 @@
 
 Phases, in order; any failure raises and the exit code is non-zero:
   1. card          nvidia-smi name and power limit, torch and CUDA versions
-  2. build         nvcc builds the five sources of csrc/ for sm_90a, one
+  2. build         nvcc builds the seven sources of csrc/ for sm_90a, one
                    process per source, all at once, and loads them
   3. kernel        both band kernels vs their plain PyTorch version on the
                    card, exact: the thread kernel (windows of at most 32
@@ -62,8 +62,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
                    end, or it fails) and set_candidates timed;
                    t1k_tpu_torch.cli.genotype
                    --backend gpu --emBackend gpu --outputReadAssignment in
-                   child processes without, with, with and without
-                   --deviceCandidates (launch counts set to 0 before each
+                   child processes without, then with
+                   --deviceCandidates (cut from four runs in turns for
+                   the time limit; launch counts set to 0 before each
                    and printed after it): the pruned run's outputs equal
                    main's native route's and its _assign.tsv the unpruned
                    run's, probe, census, bucket chain, band and EM
@@ -87,24 +88,33 @@ Phases, in order; any failure raises and the exit code is non-zero:
                    the measured f64 add latency and divide-term rate, the
                    add-chain bound, and the profiled instantiation's
                    per-phase cycle shares; the plain version on the HLA
-                   problem
- 10. timing        thread kernel, warp kernel and plain version, in turns,
+                   problem; the segment EM (K7, em_quantify_segment,
+                   tensor code) on the same three problems, its rounds
+                   and largest difference from the native loop printed,
+                   its loop in turns with K5
+ 10. composite     parallel/dryrun.py's entry() (the single-device
+                   composite of __graft_entry__.entry(): band kernel,
+                   FragWeight, one round of the dense int8 EM in float32)
+                   on the card against its CPU run: match equal, x2 within
+                   rtol 1e-4, atol 1e-8; timed
+ 11. timing        thread kernel, warp kernel and plain version, in turns,
                    on the largest deferred-item batch one engine chunk of
                    the main path sends, with the chunk's shape (p_len and
                    |t_len - p_len| quantiles, row use of the sorted launch,
                    slot counts of its warps)
- 11. extract       the FASTQ extraction stage on the same panel (k = 13,
-                   hashed table): 200,000 read pairs of 2 x 100 bp
-                   (4,000 simulated on-panel pairs, 16,000 near-miss
-                   pairs, 180,000 random pairs, shuffled) through
+ 12. extract       the FASTQ extraction stage on the same panel (k = 13,
+                   hashed table): 100,000 read pairs of 2 x 100 bp
+                   (2,000 simulated on-panel pairs, 8,000 near-miss
+                   pairs, 90,000 random pairs, shuffled; cut from 200,000
+                   to keep the smoke inside its time limit) through
                    t1k_tpu_torch.cli.extract --backend gpu in this process
                    (its stage time is a warm one), byte-compared with
                    t1k_tpu.cli.extract --backend native run in a child
                    process; both phase-A kernels must launch and the
                    device must decide a share of the screened reads
- 12. screen_timing probe and chain kernels vs their plain versions, in
+ 13. screen_timing probe and chain kernels vs their plain versions, in
                    turns, on one full 1024-row chunk of the extract inputs
- 13. run           the run-t1k chain (extract -> genotype -> analyze) on
+ 14. run           the run-t1k chain (extract -> genotype -> analyze) on
                    the same panel: 250,000 read pairs built as extract's
                    (10,000 simulated, 40,000 near-miss, 200,000 random),
                    the simulated pairs of two genes drawn from copies of
@@ -121,7 +131,17 @@ Phases, in order; any failure raises and the exit code is non-zero:
                    analyzer's read assignment must launch; each route's
                    process wall and stage seconds (between the lines of
                    its log that open and close each stage) are printed
- 14. bam_run       the run-t1k chain on a BAM (-b, with -c the coordinate
+ 15. kmer          K11 (ops/kmer.py, csrc/kmer_classify.cu): the table of
+                   the panel at k = 11, 13, 14 (bitmaps) and 15, 16
+                   (hashed), build seconds printed, and the kernel exact
+                   against classify_plain on the card's tensors on the run
+                   phase's 250,000 mate-1 reads and on edge reads (lengths
+                   0, k - 1, k, k + 1, N at the first, a middle and the
+                   last base, a reverse complement, all-T, all-A); a batch
+                   narrower than k gives zeros; at the extractor's k the
+                   kernel and the screen's probe kernel on those reads in
+                   turns, reads/s, and the bound (bytes and gathers)
+ 16. bam_run       the run-t1k chain on a BAM (-b, with -c the coordinate
                    fasta: every panel allele on its gene's interval of
                    chr6): 250,000 pairs of 2 x 100 bp (BAM_PAIRS:
                    10,000 on-panel pairs in their gene's interval, 1,000
@@ -139,13 +159,13 @@ Phases, in order; any failure raises and the exit code is non-zero:
                    then the port's extraction alone in this process, its
                    screen on the host engine, then on the card, each run
                    timed and its outputs equal to the chain's
- 15. run_profile   the port's analyzer alone on the run's genotyper
+ 17. run_profile   the port's analyzer alone on the run's genotyper
                    outputs under torch.profiler: the same VCF, and the
                    card's busy and idle share of each analyzer stage; its
                    largest batch of deferred items is kept
- 16. analyzer_timing  the thread band kernels vs their plain version on
+ 18. analyzer_timing  the thread band kernels vs their plain version on
                    that batch, exact and in turns, with its shape
- 17. smartseq      one SMART-seq2 plate of one donor: 96 cells of 4,000
+ 19. smartseq      one SMART-seq2 plate of one donor: 96 cells of 4,000
                    pairs of 2 x 100 bp (800 simulated from the donor's
                    two alleles of 6 of 8 panel genes, drawn per cell, at
                    a ratio drawn from [0.1, 0.9]; 800 near-miss and 2,400
@@ -161,7 +181,7 @@ Phases, in order; any failure raises and the exit code is non-zero:
                    chain, band and the batched EM must launch; each
                    route's wall and pass walls, and a spawn pool's
                    start-up
- 18. cohort_em_timing  the EM kernel's cohort form alone on (a) the 96
+ 20. cohort_em_timing  the EM kernel's cohort form alone on (a) the 96
                    problems the port's second pass solved and (b) 384
                    cells of benchmarks/cohort_em.py's default shape: the
                    batched launches at the cells' widths, the same cells
@@ -172,7 +192,7 @@ Phases, in order; any failure raises and the exit code is non-zero:
                    native loop; per launch its kernel's registers, local
                    bytes, resident blocks an SM and waves (local bytes in
                    a launch at the cells' widths fail)
- 19. sharded_em    the sharded EM (t1k_tpu_torch/parallel/mesh.py and
+ 21. sharded_em    the sharded EM (t1k_tpu_torch/parallel/mesh.py and
                    multihost.py; the sharded form of em_squarem.cu) on
                    one card: em_quantify_sharded_squarem over [card] x n,
                    n = 1, 2, 4, on the main phase's HLA problem and the
@@ -235,7 +255,10 @@ and the keep set out) with the forced and largest-read census times,
 the chunk's, the keep set's and the tile route's, generate's and
 set_candidates' seconds, host waits a chunk, the decided share and each
 run's read_assignment seconds; launches_dryrun on band_stats_warp and
-em_sharded over the dry runs; no single PyTorch call computes the
+em_sharded over the dry runs; kmer_classify, K11 at the extractor's k
+on the run phase's reads, its launches the run chain's (no stage calls
+it: 0) beside launches_kmer_phase, and replaces_direct, the bitmap
+program it also replaces; no single PyTorch call computes the
 others, so their library_ms is null), and
 {"ok": true, "device": {...}} as the last line.  Work files go to a
 temporary directory that is removed at exit.
@@ -268,7 +291,7 @@ V1_PAIRS = 65_536
 # inside its time limit as phases are added)
 EXTRACT_PAIRS = (10_000, 40_000, 200_000)   # simulated, near-miss, random
 # the extract phase's depth: the run phase extracts EXTRACT_PAIRS
-EXTRACT_SMOKE_PAIRS = (4_000, 16_000, 180_000)
+EXTRACT_SMOKE_PAIRS = (2_000, 8_000, 90_000)
 SNP_GENES = 2                    # genes whose reads carry seeded SNPs
 SNP_POSITIONS = (300, 700, 1100)  # 0-based, in each such allele's copy
 READ_LEN = 100
@@ -876,6 +899,94 @@ def em_case(dev, name: str, problem: dict, reps: int, probe, info: dict):
     return float(np.mean(kernel_ms)), b, tables, opts
 
 
+def segment_case(dev, name: str, problem: dict, tables: dict, opts: dict,
+                 info: dict) -> None:
+    """The segment EM (K7, em_quantify_segment: tensor code) on one
+    problem through its entry point: finite counts, its rounds and
+    largest difference from the native loop printed.  No tolerance is
+    held here: each sum is a cumsum difference, which carries the
+    rounding of the whole prefix into small psums, and SQUAREM carries it
+    on, so the counts depend on the scan's order.  On the CPU (a
+    sequential scan) the microcell comes within 7e-8 of the native loop,
+    while the JAX package's own segment loop takes 42 rounds to its 29 and
+    ends 4.22 reads off; on the card the port's came 3.28 reads off.  The
+    `cuda` tests of tests/test_torch_em.py hold it on their problems.
+    Then its loop (tables on the device; host clock, it reads each
+    round's change) in turns with K5 (the kernel alone, CUDA events):
+    segment, K5, K5, segment."""
+    import torch
+
+    from t1k_tpu_torch.native import em_quantify
+    from t1k_tpu_torch.ops import em
+
+    cuda = dev.type == "cuda"
+    f64 = torch.float64
+    it_n, c_n = em_quantify(**problem)
+    it_s, c_s = em.em_quantify_segment(**problem, device=dev)
+    err = np.abs(c_s - c_n)
+    if c_s.shape != c_n.shape or not np.isfinite(c_s).all():
+        raise AssertionError(f"segment EM {name}: counts not finite")
+    seg = em.segment_device(em.segment_tables(**{
+        k: v for k, v in problem.items() if k not in ("allele_missing",
+                                                      *opts)}), dev, f64)
+    if cuda:
+        k5_dev = em.squarem_device(**tables, device=dev, dtype=f64)
+
+        def k5():
+            em.squarem_launch(k5_dev, **opts)
+    else:  # CPU rehearsal: the plain version stands in
+        def k5():
+            em.squarem_plain(**tables, **opts, device=dev, dtype=f64)
+
+    def loop_ms():
+        t0 = time.perf_counter()
+        em.segment_loop(seg, **opts)
+        return (time.perf_counter() - t0) * 1e3
+
+    seg_ms = [loop_ms()]
+    k5_ms = [time_ms(k5, 3 if cuda else 1, dev) for _ in range(2)]
+    seg_ms.append(loop_ms())
+    pre = f"{name}_segment_"
+    info[pre + "iterations"] = f"{it_s}/{it_n}"
+    info[pre + "max_diff"] = f"{err.max():.3e}"
+    info[pre + "sums"] = f"{c_s.sum():.6f}/{c_n.sum():.6f}"
+    info[pre + "loop_ms"] = " ".join(f"{t:.3f}" for t in seg_ms)
+    info[pre + "k5_ms"] = " ".join(f"{t:.4f}" for t in k5_ms)
+
+
+def phase_composite(dev, info: dict) -> None:
+    """parallel/dryrun.py's entry(): the single-device composite of
+    __graft_entry__.entry() (band kernel, FragWeight, the dense int8 EM
+    round) on the card against its CPU run: match equal, x2 within the
+    float32 tolerance its CPU test holds against the JAX composite (rtol
+    1e-4, atol 1e-8); the band kernel's launches counted; the entry timed
+    on the host clock (it returns numpy arrays)."""
+    from t1k_tpu_torch.ops import align_band
+    from t1k_tpu_torch.parallel import dryrun
+
+    before = dict(align_band.launch_counts)
+    match, x2 = dryrun.entry(dev)
+    band = {k: v - before[k] for k, v in align_band.launch_counts.items()
+            if v != before[k]}
+    t0 = time.perf_counter()
+    want_match, want_x2 = dryrun.entry("cpu")
+    cpu_s = time.perf_counter() - t0
+    if not np.array_equal(match, want_match):
+        raise AssertionError("composite match differs from the CPU run's")
+    err = np.abs(x2 - want_x2)
+    if not np.all(err <= 1e-8 + 1e-4 * np.abs(want_x2)):
+        raise AssertionError(f"composite x2 off the CPU run's by up to "
+                             f"{err.max()}")
+    ms = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        dryrun.entry(dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    info.update(match_sum=int(match.sum()), x2_max_diff=f"{err.max():.3e}",
+                band_launches=band, entry_ms=" ".join(f"{t:.2f}" for t in ms),
+                cpu_entry_s=f"{cpu_s:.2f}")
+
+
 def phase_em_timing(dev, hla: dict, sizes: dict, info: dict):
     """The EM kernel at the main path's shape: the HLA problem the `main`
     phase's genotyper passed to em_quantify_gpu, the microcell and a
@@ -903,6 +1014,7 @@ def phase_em_timing(dev, hla: dict, sizes: dict, info: dict):
             ("hla", hla, 20), ("micro", em_microcell(*sizes["em"]), 20),
             ("large", em_large(*sizes["em_large"]), 3)):
         ms, b, tables, opts = em_case(dev, name, problem, reps, probe, info)
+        segment_case(dev, name, problem, tables, opts, info)
         if name == "large" and cuda and em.em_shared_bytes(
                 len(tables["rg_counts"]), len(tables["ec_len"]), 8) \
                 <= em.EM_SHARED_LIMIT:
@@ -1284,14 +1396,12 @@ def phase_candidates(dev, work: str, info: dict) -> dict:
         set_s.append(time.perf_counter() - t0)
     info["set_candidates_s"] = " ".join(f"{t:.3f}" for t in set_s)
 
-    # end to end: the genotyper with and without pruning, in turns; every
-    # output of the pruned run equal to the native route's and to the
-    # unpruned port run's
+    # end to end: the genotyper without, then with pruning; every output
+    # of the pruned run equal to the native route's and to the unpruned
+    # port run's
     runs = {}
     for name, flags in (("cand_plain_a", []),
-                        ("cand_pruned_a", ["--deviceCandidates"]),
-                        ("cand_pruned_b", ["--deviceCandidates"]),
-                        ("cand_plain_b", [])):
+                        ("cand_pruned_a", ["--deviceCandidates"])):
         runs[name] = genotype_child(dev, work, name, flags)
     pruned, launches, metrics, _ = runs["cand_pruned_a"]
     plain = runs["cand_plain_a"][0]
@@ -2324,6 +2434,158 @@ def phase_screen_timing(dev, check_probe: Checker,
                  for (km, pm), b in zip(out, bounds))
 
 
+# ------------------------------------------------------------ k-mer prefilter
+
+# K11's table lengths: direct (bitmap) up to 14, hashed above
+KMER_KS = (11, 13, 14, 15, 16)
+# int32 operations per window and strand counted for K11's bound: the
+# rolled key (shift, or, and), its N count (add, compare), the bitmap
+# word's address and the bit (two shifts, two ands, a compare) and the
+# count (add)
+KMER_OPS_PER_WINDOW = 11
+
+
+def fastq_codes(path: str, n: int):
+    """The first `n` reads of a FASTQ as (codes int8 [n, L], lens)."""
+    seqs = read_fastq_seqs(path, n)
+    if len({len(s) for s in seqs}) != 1:
+        return pad_reads([s.decode() for s in seqs])
+    codes = _LUT[np.frombuffer(b"".join(seqs), np.uint8)].reshape(
+        len(seqs), -1)
+    return codes, np.full(len(seqs), codes.shape[1], np.int32)
+
+
+def kmer_edge_reads(allele: np.ndarray, k: int, rng, L: int = 48):
+    """Reads cut from `allele` at K11's edges: lengths 0, k - 1, k, k + 1
+    and L; an N at the first, a middle and the last base; a reverse
+    complemented slice; all-T (at k = 16 the hashed table's empty marker)
+    and all-A reads; random bases past each read's end."""
+    rows = [allele[o:o + n] for n, o in zip(
+        (0, k - 1, k, k + 1, L), rng.integers(0, len(allele) - L, 5))]
+    for pos in (0, L // 2, L - 1):
+        r = allele[100:100 + L].copy()
+        r[pos] = 4
+        rows.append(r)
+    rows.append(_COMP[allele[200:200 + L][::-1]])
+    rows += [np.full(L, 3, np.int8), np.full(L, 0, np.int8),
+             np.full(k, 3, np.int8)]
+    codes = rng.integers(0, 5, (len(rows), L)).astype(np.int8)
+    lens = np.array([len(r) for r in rows], np.int32)
+    for i, r in enumerate(rows):
+        codes[i, :len(r)] = r
+    return codes, lens
+
+
+def kmer_bound(table, codes, lens):
+    """(bytes, gathers, bound) of one K11 launch.  Bytes: codes and lens
+    in, the two counts out, and each table word the batch's windows touch
+    read once (direct: the bitmap word of each window's key; hashed: each
+    key's first slot).  Operations: KMER_OPS_PER_WINDOW int32 for each
+    window and strand looked up (a window in its read, without an N), one
+    table gather each."""
+    import torch
+
+    from t1k_tpu_torch.ops import kmer
+
+    fwd, fwd_ok, rc, rc_ok = kmer.window_keys(codes, lens, table.k)
+    keys = torch.cat([fwd[fwd_ok], rc[rc_ok]])
+    slots = (keys >> 5 if table.direct
+             else kmer.hash_slots(keys, table.size - 1))
+    R, L = codes.shape
+    n_bytes = R * L + 12 * R + 4 * int(torch.unique(slots).numel())
+    gathers = int(keys.numel())
+    return n_bytes, gathers, bound(n_bytes, KMER_OPS_PER_WINDOW * gathers,
+                                   int32_per_s())
+
+
+def phase_kmer(dev, check: Checker, work: str, prefix: str, n_reads: int,
+               info: dict):
+    """K11 (ops/kmer.py, csrc/kmer_classify.cu) on the HLA-scale panel:
+    the table built at each of KMER_KS (build seconds printed) and the
+    kernel held exactly against classify_plain on the card's tensors, on
+    the first `n_reads` mate-1 reads of `prefix` and on edge reads; a
+    batch narrower than k gives zeros without a launch.  Then at the
+    extractor's k, on those reads, the kernel and the screen's probe
+    kernel in turns (kmer, probe, probe, kmer) between two plain runs,
+    and the bound.  Returns ((ms, plain ms, bound), launches in this
+    phase)."""
+    import torch
+
+    from t1k_tpu_torch.core import extractor as tx
+    from t1k_tpu_torch.ops import kmer
+    from t1k_tpu_torch.ops import phase_a as pa
+
+    cuda = dev.type == "cuda"
+    classify = kmer.classify_cuda if cuda else kmer.classify_plain
+    rs = tx.RefSet(digit_units=-1, delimiter="")
+    for name, comment, seq in read_fasta(os.path.join(work, "panel.fa")):
+        rs.add_allele(name, seq, comment)
+    packed = rs.packed()
+    allele = packed.seq_codes[int(packed.seq_starts[0]):][
+        :int(packed.seq_lens[0])]
+    codes, lens = fastq_codes(prefix + "_1.fq", n_reads)
+    put = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+    codes_d, lens_d = put(codes), put(lens)
+    rng = np.random.default_rng(21)
+    launches0 = kmer.launch_counts["kmer_classify"]
+    k_screen = max(tx.EXTRACTOR_KMER_LENGTH, rs.infer_kmer_length())
+    tables = {}
+    for k in KMER_KS:
+        t0 = time.perf_counter()
+        table = kmer.DeviceKmerTable.build(packed, k, device=dev)
+        info[f"k{k}_build_s"] = f"{time.perf_counter() - t0:.3f}"
+        info[f"k{k}_words"] = table.size
+        edges = kmer_edge_reads(allele, k, rng)
+        for what, c, n in (("reads", codes_d, lens_d),
+                           ("edges", put(edges[0]), put(edges[1]))):
+            got = classify(table, c, n)
+            want = kmer.classify_plain(table, c, n)
+            check(got[0], want[0], f"kmer k={k} {what} fwd")
+            check(got[1], want[1], f"kmer k={k} {what} rc")
+            if what == "reads":
+                info[f"k{k}_hit_reads"] = int(((got[0] + got[1]) > 0).sum())
+        narrow = kmer.classify(table, codes_d[:, :k - 1].contiguous(),
+                               lens_d)
+        if bool(narrow[0].any() or narrow[1].any()):
+            raise AssertionError(f"kmer k={k}: a batch narrower than k "
+                                 "counted windows")
+        if k == k_screen:
+            tables[k] = table
+    table = tables.get(k_screen) or kmer.DeviceKmerTable.build(
+        packed, k_screen, device=dev)
+    index = pa.PhaseAIndex.build(packed, k_screen, dev)
+    probe = pa.probe_cuda if cuda else pa.probe_plain
+
+    def run_kmer():
+        return classify(table, codes_d, lens_d)
+
+    def run_probe():
+        return probe(codes_d, lens_d, index)
+
+    def run_plain():
+        return kmer.classify_plain(table, codes_d, lens_d)
+
+    reps = 10 if cuda else 1
+    plain_ms = [time_ms(run_plain, 1, dev)]
+    kmer_ms, probe_ms = [time_ms(run_kmer, reps, dev)], []
+    probe_ms += [time_ms(run_probe, reps, dev), time_ms(run_probe, reps, dev)]
+    kmer_ms.append(time_ms(run_kmer, reps, dev))
+    plain_ms.append(time_ms(run_plain, 1, dev))
+    if cuda:
+        info["kmer_kernel_us"] = kernel_us(run_kmer, "classify_kernel", 10)
+    n_bytes, gathers, b = kmer_bound(table, codes_d, lens_d)
+    info.update(reads=len(lens), k=k_screen, direct=table.direct,
+                kmer_ms=" ".join(f"{t:.4f}" for t in kmer_ms),
+                probe_ms=" ".join(f"{t:.4f}" for t in probe_ms),
+                plain_ms=" ".join(f"{t:.2f}" for t in plain_ms),
+                kmer_reads_per_s=f"{len(lens) / np.mean(kmer_ms) * 1e3:.4g}",
+                probe_reads_per_s=f"{len(lens) / np.mean(probe_ms) * 1e3:.4g}",
+                bound_bytes=n_bytes, bound_gathers=gathers,
+                bound_ms=f"{b[0]:.4f}", bound_by=b[1])
+    launches = kmer.launch_counts["kmer_classify"] - launches0
+    return (float(np.mean(kmer_ms)), float(np.mean(plain_ms)), b), launches
+
+
 # ------------------------------------------------------------ run-t1k chain
 
 CHAIN_OUTPUTS = ("_candidate_1.fq", "_candidate_2.fq", "_candidate_bc.fa",
@@ -2342,9 +2604,9 @@ STAGE_MARKS = (("extraction", "Start to extract candidate reads",
 # counts set to 0 just before it and printed as the last line after it
 PORT_RUN = ("import json, sys\n"
             "from t1k_tpu_torch.cli import run\n"
-            "from t1k_tpu_torch.ops import align_band, em, phase_a\n"
+            "from t1k_tpu_torch.ops import align_band, em, kmer, phase_a\n"
             "counts = (align_band.launch_counts, em.launch_counts,\n"
-            "          phase_a.launch_counts)\n"
+            "          kmer.launch_counts, phase_a.launch_counts)\n"
             "for c in counts:\n"
             "    c.update(dict.fromkeys(c, 0))\n"
             "rc = run.main(sys.argv[1:])\n"
@@ -3884,7 +4146,7 @@ def phase_sharded_em(dev, hla: dict, plate_em: str, sizes: dict, work: str,
 
 
 SOURCES = ("band_stats", "em_squarem", "align_full", "phase_a_probe",
-           "phase_a_chain", "cand_census")
+           "phase_a_chain", "cand_census", "kmer_classify")
 # kernel record -> its source under t1k_tpu_torch/csrc/
 KERNELS = {"band_stats": "band_stats", "band_stats_analyzer": "band_stats",
            "band_stats_warp": "band_stats",
@@ -3892,7 +4154,8 @@ KERNELS = {"band_stats": "band_stats", "band_stats_analyzer": "band_stats",
            "em_sharded": "em_squarem",
            "align_full": "align_full",
            "phase_a_probe": "phase_a_probe", "phase_a_chain": "phase_a_chain",
-           "cand_census": "cand_census", "device_candidates": "phase_a_chain"}
+           "cand_census": "cand_census", "device_candidates": "phase_a_chain",
+           "kmer_classify": "kmer_classify"}
 
 
 def run(dev, sizes: dict) -> list:
@@ -3941,6 +4204,8 @@ def run(dev, sizes: dict) -> list:
         with phase("em_timing") as info:
             *times["em_squarem"], em_err = phase_em_timing(
                 dev, em_problems[0], sizes, info)
+        with phase("composite") as info:
+            phase_composite(dev, info)
         with phase("timing") as info:
             times["band_stats"], times["band_stats_warp"] = phase_timing(
                 dev, checks["band_stats"], checks["band_stats_warp"], work,
@@ -3954,6 +4219,10 @@ def run(dev, sizes: dict) -> list:
                                     info)
         with phase("run") as info:
             run_launches = phase_run(dev, work, info, sizes["run"])
+        with phase("kmer") as info:
+            times["kmer_classify"], kmer_launches = phase_kmer(
+                dev, checks["kmer_classify"], work, os.path.join(work, "run"),
+                sum(sizes["run"]), info)
         with phase("bam_run") as info:
             bam_launches = phase_bam_run(dev, work, info, sizes["bam"])
         with phase("run_profile") as info:
@@ -3990,7 +4259,8 @@ def run(dev, sizes: dict) -> list:
                 "phase_a_probe": "t1k_tpu/ops/phase_a.py:343",
                 "phase_a_chain": "t1k_tpu/ops/phase_a.py:457",
                 "cand_census": "t1k_tpu/ops/phase_a.py:754",
-                "device_candidates": "t1k_tpu/ops/phase_a.py:803"}
+                "device_candidates": "t1k_tpu/ops/phase_a.py:803",
+                "kmer_classify": "t1k_tpu/ops/kmer.py:110"}
     errs = {name: checks[name].max_err for name in KERNELS}
     errs["em_squarem"] = em_err
     errs["em_squarem_batched"] = batched_err
@@ -4020,6 +4290,10 @@ def run(dev, sizes: dict) -> list:
         "launches_dryrun"] = dry_launches["band_stats_warp"]
     for name, (_, _, extras) in cand.items():
         records[list(KERNELS).index(name)].update(extras)
+    # K11 has no caller on any stage: its launches are the run chain's (0)
+    records[list(KERNELS).index("kmer_classify")].update(
+        replaces_direct="t1k_tpu/ops/kmer.py:144",
+        launches_kmer_phase=kmer_launches)
     return records
 
 

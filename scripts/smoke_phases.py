@@ -2,14 +2,15 @@
 """Some of chip_smoke.py's phases alone, on one CUDA card.
 
   python3 scripts/smoke_phases.py [v1] [main] [candidates] [em_timing]
-                                  [smartseq] [cohort_em_timing]
-                                  [sharded_em]
+                                  [composite] [kmer] [smartseq]
+                                  [cohort_em_timing] [sharded_em]
 
 Builds the kernels (the smoke's `build` phase, with the compiler's
 register and spill lines), then runs the named phases in the smoke's
 order at its full sizes, each as chip_smoke.run runs it: candidates and
 em_timing take main's panel, reads and outputs (em_timing its EM
-problem) and run main first; cohort_em_timing takes smartseq's
+problem) and run main first; kmer takes the run phase's reads, which it
+writes as that phase does (without running the chains); cohort_em_timing takes smartseq's
 problems and runs smartseq first; sharded_em takes both and runs both
 (its multi-process ranks in child processes); without main, the
 HLA-scale panel is
@@ -30,8 +31,8 @@ sys.path.insert(0, ROOT)
 
 import chip_smoke as cs  # noqa: E402
 
-PHASES = ("v1", "main", "candidates", "em_timing", "smartseq",
-          "cohort_em_timing", "sharded_em")
+PHASES = ("v1", "main", "candidates", "em_timing", "composite", "kmer",
+          "smartseq", "cohort_em_timing", "sharded_em")
 
 
 def main(argv) -> int:
@@ -60,7 +61,7 @@ def main(argv) -> int:
         t0 = time.perf_counter()
         _build.build_all(cs.SOURCES)
         info["all_s"] = f"{time.perf_counter() - t0:.2f}"
-        for name in ("em_squarem", "align_full"):
+        for name in ("em_squarem", "align_full", "kmer_classify"):
             with open(os.path.join(_build.BUILD_DIR, f"{name}.log")) as f:
                 for line in f:
                     if "registers" in line or "spill" in line:
@@ -92,6 +93,20 @@ def main(argv) -> int:
         if "em_timing" in wanted:
             with cs.phase("em_timing") as info:
                 cs.phase_em_timing(dev, em_problems[0], sizes, info)
+        if "composite" in wanted:
+            with cs.phase("composite") as info:
+                cs.phase_composite(dev, info)
+        if "kmer" in wanted:
+            prefix = cs.extract_inputs(
+                work, os.path.join(work, "panel.fa"), sizes["run"],
+                tag="run", snp_genes=cs.SNP_GENES, barcodes=True)
+            with cs.phase("kmer") as info:
+                timed, launches = cs.phase_kmer(
+                    dev, cs.Checker(), work, prefix, sum(sizes["run"]), info)
+            print(json.dumps({"kmer_classify": dict(
+                ms=timed[0], plain_ms=timed[1], bound_ms=timed[2][0],
+                bound_by=timed[2][1], launches_kmer_phase=launches)}),
+                flush=True)
         if "smartseq" in wanted:
             with cs.phase("smartseq") as info:
                 launches, plate_em = cs.phase_smartseq(dev, work, info,

@@ -31,10 +31,11 @@ from ..constants import (
 from ..device import resolve_backend
 from ..io.refset import parse_allele_name
 from ..native import em_quantify
-from ..ops.em import em_quantify_gpu
+from ..ops.em import DENSE_EM_MAX_CELLS, em_quantify_gpu
 
-# "auto" sends the EM to the card only past this many dense cells: the
-# JAX package's gate, kept until it is measured again on the card.
+# "auto" sends the EM to the card only from this many dense cells up to
+# DENSE_EM_MAX_CELLS: both bounds are the JAX package's gate, kept until
+# they are measured again on the card.
 EM_DEVICE_MIN_CELLS = 5e7
 
 
@@ -399,14 +400,17 @@ class Genotyper:
         """"auto" EM routing.  T1K_EM_BACKEND (native | gpu) decides
         outright; otherwise "auto" runs on `device` as the alignment
         backend's "auto" does (a CUDA device without a card raises), and
-        below EM_DEVICE_MIN_CELLS dense [read group, EC] cells it takes
-        the native f64 loop, which is bit-identical."""
+        below EM_DEVICE_MIN_CELLS or past DENSE_EM_MAX_CELLS dense [read
+        group, EC] cells it takes the native f64 loop, which is
+        bit-identical (past the upper bound the reference's device
+        formulation never beat the native loop)."""
         env = os.environ.get("T1K_EM_BACKEND", "")
         if env in ("native", "gpu"):
             return env
         if resolve_backend("auto", device) == "native":
             return "native"
-        if rg_cnt * max(ec_cnt, 1) < EM_DEVICE_MIN_CELLS:
+        cells = rg_cnt * max(ec_cnt, 1)
+        if cells < EM_DEVICE_MIN_CELLS or cells > DENSE_EM_MAX_CELLS:
             return "native"
         return "gpu"
 

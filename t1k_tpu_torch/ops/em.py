@@ -40,6 +40,11 @@ E-step passes (every entry's term at its column stream position, then
 each EC's terms added in list order, going on from the previous shard's
 partial counts), and ``tail_device`` / ``tail`` hold and run the round's
 tail; each wrapper runs its plain version on CPU tensors.
+
+The segment EM (K7, ``em_quantify_segment``) is the JAX package's
+``_em_loop`` as tensor code: each E-step sum a cumsum difference over a
+sorted incidence list.  It regroups em.cc's sums, so it is reached only
+by name, never from ``auto`` or ``--emBackend``.
 """
 
 from __future__ import annotations
@@ -55,6 +60,10 @@ import torch
 from ..device import resolve_device
 
 MASK_ROUND = 10
+# The reference's dense-incidence budget (t1k_tpu/ops/em.py
+# DENSE_EM_MAX_BYTES: int8 cells): past it the genotyper's "auto" EM
+# takes the native loop.
+DENSE_EM_MAX_CELLS = 4 << 30
 # The kernel's block (em_squarem.cu kThreads) and the dynamic shared
 # memory its shared-memory form may ask for: an H100 block's 232,448
 # opt-in bytes, less room for the kernel's static shared scalars.
@@ -1138,6 +1147,182 @@ def em_quantify_gpu(
                        max_iterations=max_iterations, device=dev,
                        dtype=dtype)
     return iters, count.cpu().numpy().astype(np.float64)
+
+
+def segment_bounds(seg_sorted: np.ndarray, n: int):
+    """(starts, ends) of each segment id in a SORTED segment array: the
+    host half of sorted_segment_sum (t1k_tpu/ops/em.py:84-89, copied)."""
+    b = np.searchsorted(seg_sorted, np.arange(n + 1)).astype(np.int32)
+    return b[:-1], b[1:]
+
+
+def sorted_segment_sum(vals: torch.Tensor, starts: torch.Tensor,
+                       ends: torch.Tensor) -> torch.Tensor:
+    """Segment sums of `vals` whose segment ids are sorted, as prefix-sum
+    differences: a cumsum and two gathers, no scatter."""
+    c = torch.cat([torch.zeros(1, dtype=vals.dtype, device=vals.device),
+                   torch.cumsum(vals, 0)])
+    return c[ends] - c[starts]
+
+
+def segment_tables(ec_to_alleles, rg_ecs_csr, rg_counts, allele_eff_len,
+                   allele_weight, allele_gene, allele_major, n_genes: int,
+                   n_majors: int) -> dict:
+    """Host tables of the segment EM, as em_quantify_jax builds them for
+    _em_loop: the incidence in read-group order (its EC per entry) and in
+    stable EC order (EC, read group and count per entry), each order's
+    segment bounds, and _pack_ec_tables' EC and allele tables (an allele
+    in several ECs takes the last one's)."""
+    ec = ec_tables(ec_to_alleles, allele_eff_len, allele_weight, allele_gene,
+                   allele_major, n_genes, n_majors)
+    ec_cnt = len(ec_to_alleles)
+    rg_off, rg_ecs = rg_ecs_csr
+    rg_cnt = len(rg_counts)
+    seg_rg = np.repeat(np.arange(rg_cnt), np.diff(rg_off)).astype(np.int64)
+    seg_ec = np.asarray(rg_ecs, np.int64)
+    ec_perm = np.argsort(seg_ec, kind="stable")
+    sec_sorted = seg_ec[ec_perm]
+    sizes = np.diff(ec["ec_off"])
+    allele_ec = np.zeros(len(ec["allele_gene"]), np.int64)
+    allele_ec[ec["ec_alleles"]] = np.repeat(np.arange(ec_cnt), sizes)
+    allele_valid = np.zeros(len(allele_ec), bool)
+    allele_valid[ec["ec_alleles"]] = True
+    return dict(
+        seg_ec=seg_ec, sec_sorted=sec_sorted, srg_ecorder=seg_rg[ec_perm],
+        cts_ecorder=np.asarray(rg_counts, np.float64)[seg_rg][ec_perm],
+        rg_bounds=segment_bounds(seg_rg, rg_cnt),
+        ec_bounds=segment_bounds(sec_sorted, ec_cnt),
+        ec_len=ec["ec_len"], ec_size=sizes.astype(np.float64),
+        ec_first=ec["ec_alleles"][ec["ec_off"][:-1]].astype(np.int64),
+        allele_ec=allele_ec, allele_valid=allele_valid,
+        allele_gene=ec["allele_gene"], allele_major=ec["allele_major"],
+        init_x=ec["init_x"], gene_cnt=n_genes, major_cnt=n_majors)
+
+
+def segment_mask(t: dict, filter_frac: float):
+    """_make_mask_reset of the JAX package: count -> the next x0, the
+    major sums a scatter-add and each gene's maximum over its valid
+    alleles (every-MASK_ROUND abundance mask, Genotyper.hpp:1292-1313)."""
+    ec_len, ec_size = t["ec_len"], t["ec_size"]
+    allele_ec, allele_valid = t["allele_ec"], t["allele_valid"]
+    allele_gene, allele_major = t["allele_gene"], t["allele_major"]
+
+    def mask_reset(count):
+        ec_abund = count / ec_len * 1000.0
+        allele_abund = torch.where(
+            allele_valid, ec_abund[allele_ec] / ec_size[allele_ec], 0.0)
+        major_abund = torch.zeros(t["major_cnt"], dtype=count.dtype,
+                                  device=count.device)
+        major_abund.index_add_(0, allele_major, allele_abund)
+        per_allele_major = major_abund[allele_major]
+        gene_max = torch.full((t["gene_cnt"],), -torch.inf,
+                              dtype=count.dtype, device=count.device)
+        gene_max = gene_max.scatter_reduce(
+            0, allele_gene, torch.where(allele_valid, per_allele_major, 0.0),
+            "amax")
+        masked = per_allele_major < filter_frac * 0.5 * gene_max[allele_gene]
+        return torch.where(masked[t["ec_first"]], 0.0, ec_abund)
+
+    return mask_reset
+
+
+def em_quantify_segment(
+    ec_to_alleles: List[List[int]],
+    rg_ecs_csr: Tuple[np.ndarray, np.ndarray],
+    rg_counts: np.ndarray,
+    allele_eff_len: np.ndarray,
+    allele_missing: np.ndarray,
+    allele_weight: np.ndarray,
+    allele_gene: np.ndarray,
+    allele_major: np.ndarray,
+    n_genes: int,
+    n_majors: int,
+    filter_frac: float = 0.15,
+    min_squarem_alpha: float = 0.0,
+    max_iterations: int = 1000,
+    device="cuda",
+    dtype=torch.float64,
+) -> Tuple[int, np.ndarray]:
+    """The segment EM (K7): the JAX package's _em_loop with _squarem_while
+    (t1k_tpu/ops/em.py:107-200), the route em_quantify_jax takes past its
+    dense budget, as tensor code on `device`; em_quantify_gpu's signature
+    and return value.
+
+    Each E-step sum is a cumsum difference over the incidence sorted by
+    read group (psum) and by EC (counts), which regroups em.cc's sums: the
+    counts are the native loop's to rounding, not bit for bit, so no
+    "auto" route and no --emBackend value reaches this function, and K5
+    (em_quantify_gpu) runs every size in em.cc's order.  The host reads
+    each round's L1 change, as the reference's while_loop condition."""
+    if len(ec_to_alleles) == 0:
+        return 0, np.zeros(0)
+    host = segment_tables(ec_to_alleles, rg_ecs_csr, rg_counts,
+                          allele_eff_len, allele_weight, allele_gene,
+                          allele_major, n_genes, n_majors)
+    iters, count = segment_loop(segment_device(host, device, dtype),
+                                filter_frac, min_squarem_alpha,
+                                max_iterations)
+    return iters, count.cpu().numpy().astype(np.float64)
+
+
+def segment_device(host: dict, device, dtype) -> dict:
+    """segment_tables' tables on `device`: floats in `dtype`, indices as
+    int64."""
+    dev = resolve_device(device)
+
+    def put(x):
+        x = torch.as_tensor(np.asarray(x)).to(dev)
+        if x.is_floating_point():
+            return x.to(dtype)
+        return x if x.dtype == torch.bool else x.long()
+
+    return {k: (tuple(put(b) for b in v) if isinstance(v, tuple)
+                else v if isinstance(v, int) else put(v))
+            for k, v in host.items()}
+
+
+def segment_loop(t: dict, filter_frac: float = 0.15,
+                 min_squarem_alpha: float = 0.0,
+                 max_iterations: int = 1000) -> Tuple[int, torch.Tensor]:
+    """The segment EM's SQUAREM loop on segment_device's tables: (rounds,
+    per-EC counts on the tables' device)."""
+    seg_ec, sec_sorted, srg = t["seg_ec"], t["sec_sorted"], t["srg_ecorder"]
+    cts, ec_len = t["cts_ecorder"], t["ec_len"]
+
+    def em_update(x):
+        psum = sorted_segment_sum(x[seg_ec], *t["rg_bounds"])
+        psum = torch.where(psum == 0, 1.0, psum)
+        contrib = cts * x[sec_sorted] / psum[srg]
+        count = sorted_segment_sum(contrib, *t["ec_bounds"])
+        per_len = count / ec_len
+        return per_len / per_len.sum(), count
+
+    mask_reset = segment_mask(t, filter_frac)
+    x0 = t["init_x"]
+    count = torch.zeros_like(x0)
+    step = iters = 0
+    while step < max_iterations:
+        iters += 1
+        x1, _ = em_update(x0)
+        x2, _ = em_update(x1)
+        r = x1 - x0
+        v = x2 - 2 * x1 + x0
+        sum_r, sum_v = (r * r).sum(), (v * v).sum()
+        alpha = torch.where(sum_v == 0, -1.0,
+                            -torch.sqrt(sum_r) / torch.sqrt(sum_v))
+        if min_squarem_alpha < 0:
+            alpha = torch.where(alpha < min_squarem_alpha,
+                                min_squarem_alpha, alpha)
+        x3 = x0 - 2 * alpha * r + alpha * alpha * v
+        x1b, count = em_update(x3)
+        diff = float(torch.abs(x1b - x0).sum())  # the round's host sync
+        x0 = x1b
+        if diff < 1e-5 and step < max_iterations - 2:
+            step = max_iterations - 2
+        if step > 0 and step % MASK_ROUND == 0:
+            x0 = mask_reset(count)
+        step += 1
+    return iters, count
 
 
 def em_quantify_batched(

@@ -22,13 +22,20 @@ n`` runs n shards on one card):
    the sharded E-step's chained column passes give at any shard count.
 
 The batch and the incidence are the reference's, seed for seed, and a
-shard holds whole 128-pair slabs as there.  The single-device composite
-of ``__graft_entry__.entry()`` (its dense int8 EM round) is not ported.
+shard holds whole 128-pair slabs as there.
+
+``entry(device)`` is the single-device composite of
+``__graft_entry__.entry()``: the band kernel on the 1,024-pair batch,
+FragWeight, the dense int8 [2,048, 512] incidence scatter-added on the
+device, and one SQUAREM round of the dense EM in float32 (two updates,
+the extrapolation, a third update); it returns the composite's (match,
+x2).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import sys
 import time
 from typing import Optional, Sequence
@@ -44,6 +51,7 @@ from .mesh import _device, data_mesh, em_quantify_sharded_squarem
 # reference windows, 512 ECs, four pairs per read group
 B, LT, LP = 1024, 112, 100
 EC_CNT, FANOUT = 512, 4
+RG_CNT = 2048           # the composite's read groups
 REF_SIM = 0.8           # default -s
 LANES = 128             # the JAX band kernel's pairs per slab
 ML = 5 + 5              # covers |t_len - p_len| <= 5 extra
@@ -62,6 +70,18 @@ def example_batch(b: int, Lt: int, Lp: int, seed: int = 7):
     tl = np.full(b, Lt, np.int32)
     pl = np.full(b, Lp, np.int32)
     return tc, tl, pc, pl
+
+
+def example_em(rg_cnt: int, ec_cnt: int, seed: int = 11):
+    """`_example_em` of __graft_entry__.py, copied: (seg_rg, seg_ec, counts,
+    ec_len, x0), FANOUT ECs drawn with replacement per read group."""
+    rng = np.random.default_rng(seed)
+    seg_rg = np.repeat(np.arange(rg_cnt), FANOUT).astype(np.int32)
+    seg_ec = rng.integers(0, ec_cnt, rg_cnt * FANOUT).astype(np.int32)
+    counts = rng.integers(1, 4, rg_cnt).astype(np.float32)
+    ec_len = rng.integers(900, 1500, ec_cnt).astype(np.float32)
+    x0 = (np.ones(ec_cnt) / ec_cnt).astype(np.float32)
+    return seg_rg, seg_ec, counts, ec_len, x0
 
 
 def shard_pairs(n_shards: int) -> int:
@@ -198,6 +218,69 @@ def dryrun_multichip(n_devices: int, device="cuda",
     return dict(pairs=b, read_groups=p["rg_cnt"], it_f32=it_32,
                 it_native=it_native, align_s=t1 - t0, em_f32_s=t2 - t1,
                 em_f64_s=t3 - t2)
+
+
+@contextlib.contextmanager
+def _full_f32_matmul():
+    """float32 products in full float32 (TF32 off) on the card, as the
+    reference's f32 dot; the setting is restored after."""
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+
+
+def entry(device="cuda"):
+    """The single-device composite of __graft_entry__.entry() on its
+    seeded inputs: band-stats alignment -> FragWeight -> one SQUAREM round
+    of the dense int8 EM in float32.  Returns (match int32 [B], x2 float32
+    [EC_CNT]) as numpy arrays."""
+    dev = _device(device)
+    tc, tl, pc, pl = example_batch(B, LT, LP)
+    srg, sec, cts, elen, x = (
+        torch.from_numpy(a).to(dev) for a in example_em(RG_CNT, EC_CNT))
+    _, match, _, _ = banded_stats_band(tc, tl, pc, pl, ml=ML, w=W,
+                                       device=dev)
+    put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    w = frag_weights(put(match), put(tl), put(pl))
+    # The reference's step, kept as it is: B // RG_CNT is 0, so the test
+    # fails, rg_w is all ones and the band weights never reach the EM.
+    rg_w = (w.reshape(RG_CNT, -1).mean(dim=1)
+            if w.shape[0] == RG_CNT * (B // RG_CNT)
+            else torch.ones(RG_CNT, dtype=torch.float32, device=dev))
+    cts_w = cts * rg_w
+    # the incidence scatter-added on the device; a cell may hold 2 (ECs
+    # are drawn with replacement).  Accumulated in int32, which every
+    # device's index_put_ takes, then stored int8 as the reference's.
+    A = torch.zeros((RG_CNT, EC_CNT), dtype=torch.int32, device=dev)
+    A.index_put_((srg.long(), sec.long()),
+                 torch.ones(len(srg), dtype=torch.int32, device=dev),
+                 accumulate=True)
+    A = A.to(torch.int8)
+    Af = A.float()  # _mv / _vm: int8 A, float32 products
+
+    def em_update(xk):
+        psum = Af @ xk
+        psum = torch.where(psum == 0, 1.0, psum)
+        count = xk * ((cts_w / psum) @ Af)
+        per_len = count / elen
+        return per_len / per_len.sum()
+
+    with _full_f32_matmul():
+        x1 = em_update(x)
+        x2 = em_update(x1)
+        # SQUAREM extrapolation (Genotyper.hpp:424-437), as the step
+        r = x1 - x
+        v = x2 - x1 - r
+        alpha = -torch.sqrt(torch.sum(r * r)
+                            / torch.clamp(torch.sum(v * v), min=1e-30))
+        xs = x - 2 * alpha * r + alpha * alpha * v
+        xs = torch.clamp(xs, min=0)
+        xs = xs / xs.sum()
+        out = em_update(xs)
+    return match.astype(np.int32), out.cpu().numpy()
 
 
 def main(argv=None) -> int:

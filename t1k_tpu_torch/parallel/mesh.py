@@ -32,6 +32,7 @@ import torch
 
 from ..device import NoCardError, resolve_device
 from ..ops import em
+from ..ops.em import segment_bounds
 
 
 # em.ec_tables' entries that the round tail's mask reads
@@ -81,14 +82,6 @@ def replicate(mesh, arr) -> List[torch.Tensor]:
     shared by the shards already there)."""
     t = torch.as_tensor(arr)
     return [t.to(_device(d)) for d in mesh]
-
-
-def segment_bounds(seg_sorted: np.ndarray, n: int):
-    """(starts, ends) of each segment id in a SORTED segment array
-    (t1k_tpu/ops/em.py's, copied)."""
-    ids = np.arange(n + 1)
-    b = np.searchsorted(seg_sorted, ids).astype(np.int32)
-    return b[:-1], b[1:]
 
 
 def partition_read_groups(seg_rg: np.ndarray, seg_ec: np.ndarray,

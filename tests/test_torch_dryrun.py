@@ -82,6 +82,43 @@ def test_phase_one_weights_equal_the_jax_composite(mutated):
     assert len(np.unique(got)) == (4 if mutated else 1)
 
 
+def test_entry_equals_the_jax_composite():
+    """entry("cpu") against __graft_entry__.entry()'s forward, jitted on the
+    CPU (the Pallas band kernel in interpret mode): match equal; x2 within
+    atol 1e-8 and rtol 1e-4 in float32.  x2 sums to 1 (entries up to
+    0.011, 12 of 512 exactly 0 in both); the two float32 products sum
+    their 2,048 and 512 terms in different orders, and the extrapolation's
+    cancellation carries that to 5.6e-9 at most, 3.2e-5 of the smallest
+    nonzero entries (1.5e-5)."""
+    import jax
+
+    import __graft_entry__ as graft
+
+    fn, args = graft.entry()
+    want_match, want_x2 = (np.asarray(a) for a in jax.jit(fn)(*args))
+    match, x2 = dryrun.entry(device="cpu")
+    assert match.dtype == want_match.dtype == np.int32
+    assert np.array_equal(match, want_match)
+    assert x2.dtype == want_x2.dtype == np.float32
+    assert np.array_equal(x2 == 0, want_x2 == 0)
+    np.testing.assert_allclose(x2, want_x2, rtol=1e-4, atol=1e-8)
+    assert abs(float(x2.sum()) - 1) < 1e-5
+
+
+def test_entry_inputs_are_the_references():
+    """example_em equals _example_em seed for seed, and the composite's
+    incidence holds the cells that two draws of one EC give."""
+    import __graft_entry__ as graft
+
+    for mine, theirs in zip(dryrun.example_em(dryrun.RG_CNT, dryrun.EC_CNT),
+                            graft._example_em(graft.RG_CNT, graft.EC_CNT)):
+        assert mine.dtype == theirs.dtype and np.array_equal(mine, theirs)
+    assert (dryrun.B, dryrun.RG_CNT, dryrun.EC_CNT, dryrun.FANOUT) == (
+        graft.B, graft.RG_CNT, graft.EC_CNT, graft.FANOUT)
+    srg, sec = dryrun.example_em(dryrun.RG_CNT, dryrun.EC_CNT)[:2]
+    assert len(set(zip(srg.tolist(), sec.tolist()))) < len(srg)
+
+
 def _small_problem(make=scaling_bench.scaling_problem):
     return make(rg_cnt=3000, ec_cnt=256, seed=11)
 
@@ -139,3 +176,13 @@ def test_cuda_dryrun_and_phase_one(cuda_device, n):
     batch = dryrun.example_batch(b, dryrun.LT, dryrun.LP)
     assert np.array_equal(dryrun.align_step([cuda_device] * n, *batch),
                           dryrun.align_step([CPU] * n, *batch))
+
+
+@pytest.mark.cuda
+def test_cuda_entry_equals_cpu(cuda_device):
+    """The composite on the card against its CPU run: match equal, x2 at
+    test_entry_equals_the_jax_composite's float32 tolerance."""
+    match, x2 = dryrun.entry(cuda_device)
+    want_match, want_x2 = dryrun.entry(CPU)
+    assert np.array_equal(match, want_match)
+    np.testing.assert_allclose(x2, want_x2, rtol=1e-4, atol=1e-8)

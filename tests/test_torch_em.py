@@ -365,3 +365,120 @@ def test_kernel_forms_on_card_match_native(problem, shared):
     np.testing.assert_array_equal(em_dev["count"].cpu().numpy(), count_native)
     c = cycles.cpu().numpy()
     assert (c[:-1] >= 0).all() and 0 < c[:-1].sum() <= c[-1]
+
+
+# ------------------------------------------------------------ segment EM (K7)
+
+def _jax_segment_em(args, **opts):
+    """em_quantify_jax on its segment loop (_em_loop): DENSE_EM_MAX_ELEMS
+    set to 0 forces it, as tests/test_device_ops.py does, in f64 under
+    jax_enable_x64; both restored after."""
+    import jax
+
+    from t1k_tpu.ops import em as jem
+
+    old = jem.DENSE_EM_MAX_ELEMS
+    jax.config.update("jax_enable_x64", True)
+    jem.DENSE_EM_MAX_ELEMS = 0
+    try:
+        return jem.em_quantify_jax(**args, **opts)
+    finally:
+        jem.DENSE_EM_MAX_ELEMS = old
+        jax.config.update("jax_enable_x64", False)
+
+
+SEGMENT_CASES = {name: (make, {}) for name, make in PROBLEMS.items()}
+SEGMENT_CASES["alpha_floor"] = (
+    lambda: _routing_inputs(rg_cnt=800, ec_cnt=40, seed=7),
+    {"min_squarem_alpha": -1.5})
+
+
+@pytest.mark.parametrize("case", sorted(SEGMENT_CASES))
+def test_segment_em_matches_jax_em_loop(case):
+    """The port's segment EM against the JAX _em_loop, both in f64: the
+    same iteration count, and counts within atol 1e-6 reads (rtol 1e-9).
+    Both take each sum as a cumsum difference, XLA's CPU cumsum and
+    torch's grouping the adds differently; the largest difference seen is
+    5.2e-7 reads, on the skewed problem (25 rounds over 33,000 entries),
+    about 2e-16 of its prefix sums per round carried by SQUAREM."""
+    make, opts = SEGMENT_CASES[case]
+    args = make()
+    it_jax, count_jax = _jax_segment_em(args, **opts)
+    it, count = tem.em_quantify_segment(**args, **opts, device="cpu")
+    assert it == it_jax
+    assert count.dtype == np.float64 and count.shape == count_jax.shape
+    np.testing.assert_allclose(count, count_jax, rtol=1e-9, atol=1e-6)
+
+
+@pytest.mark.parametrize("case", sorted(SEGMENT_CASES))
+def test_segment_em_matches_native_at_the_reference_tolerance(case):
+    """Against the native loop at the reference's own tolerance for its
+    segment path (tests/test_device_ops.py: rtol 2e-3, atol 1e-3)."""
+    make, opts = SEGMENT_CASES[case]
+    args = make()
+    it_native, count_native = em_quantify(**args, **opts)
+    it, count = tem.em_quantify_segment(**args, **opts, device="cpu")
+    assert it == it_native
+    np.testing.assert_allclose(count, count_native, rtol=2e-3, atol=1e-3)
+
+
+def test_segment_tables_are_the_jax_loops():
+    """The host tables em_quantify_jax hands _em_loop: sorted orders,
+    their bounds, and an allele in two ECs taking the later one."""
+    from t1k_tpu.ops import em as jem
+
+    args = _small_inputs()
+    args["ec_to_alleles"][3] = args["ec_to_alleles"][3] + [0]
+    t = tem.segment_tables(
+        args["ec_to_alleles"], args["rg_ecs_csr"], args["rg_counts"],
+        args["allele_eff_len"], args["allele_weight"], args["allele_gene"],
+        args["allele_major"], args["n_genes"], args["n_majors"])
+    rg_off, rg_ecs = args["rg_ecs_csr"]
+    seg_rg = np.repeat(np.arange(len(args["rg_counts"])), np.diff(rg_off))
+    perm = np.argsort(rg_ecs, kind="stable")
+    assert np.array_equal(t["sec_sorted"], rg_ecs[perm])
+    assert np.array_equal(t["srg_ecorder"], seg_rg[perm])
+    for mine, theirs in zip(t["ec_bounds"], jem.segment_bounds(
+            rg_ecs[perm], len(args["ec_to_alleles"]))):
+        assert mine.dtype == theirs.dtype and np.array_equal(mine, theirs)
+    ec_len, ec_size, ec_first, allele_ec, allele_valid, init_x = \
+        jem._pack_ec_tables(args["ec_to_alleles"], args["allele_eff_len"],
+                            args["allele_weight"])
+    for name, want in (("ec_len", ec_len), ("ec_size", ec_size),
+                       ("ec_first", ec_first), ("allele_ec", allele_ec),
+                       ("allele_valid", allele_valid), ("init_x", init_x)):
+        assert np.array_equal(t[name], want), name
+
+
+def test_segment_em_is_reached_only_by_name():
+    """No module of the port but ops/em.py names em_quantify_segment: no
+    "auto" route and no --emBackend value reaches it."""
+    import os
+
+    import t1k_tpu_torch
+
+    pkg = os.path.dirname(t1k_tpu_torch.__file__)
+    named = []
+    for root, _, files in os.walk(pkg):
+        for f in files:
+            if f.endswith(".py"):
+                with open(os.path.join(root, f)) as fh:
+                    if "em_quantify_segment" in fh.read():
+                        named.append(os.path.relpath(os.path.join(root, f),
+                                                     pkg))
+    assert named == [os.path.join("ops", "em.py")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(SEGMENT_CASES))
+def test_segment_em_on_card_matches_native(case):
+    """The segment EM on the card's tensors: the native loop's rounds and
+    counts at the reference's tolerance, as on the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (real device)")
+    make, opts = SEGMENT_CASES[case]
+    args = make()
+    it_native, count_native = em_quantify(**args, **opts)
+    it, count = tem.em_quantify_segment(**args, **opts, device="cuda")
+    assert it == it_native
+    np.testing.assert_allclose(count, count_native, rtol=2e-3, atol=1e-3)

@@ -195,6 +195,8 @@ def test_em_auto_routes_on_presence_and_size(monkeypatch):
     assert Genotyper._resolve_em_backend(1000, 100) == "native"
     # >= 5e7 cells with a card present: device EM
     assert Genotyper._resolve_em_backend(100_000, 1000) == "gpu"
+    # past the reference's 4 << 30 dense cells: the native loop again
+    assert Genotyper._resolve_em_backend(70_000, 70_000) == "native"
     monkeypatch.setenv("T1K_GPU_PRESENT", "0")
     with pytest.raises(tdev.NoCardError):  # no card: an error, not native
         Genotyper._resolve_em_backend(100_000, 1000)

@@ -58,7 +58,8 @@ def test_every_port_module_imports_without_the_jax_package():
             "t1k_tpu_torch.tools.extract_sam_hits",
             "t1k_tpu_torch.tools.simulate",
             "t1k_tpu_torch.parallel.mesh",
-            "t1k_tpu_torch.parallel.multihost"} <= set(names)
+            "t1k_tpu_torch.parallel.multihost",
+            "t1k_tpu_torch.ops.kmer"} <= set(names)
     code = "".join(f"import {n}\n" for n in names) + _CHECK_MODULES
     proc = _run(code)
     assert proc.returncode == 0, proc.stderr[-3000:]
