@@ -48,7 +48,24 @@ Phases, in order; any failure raises and the exit code is non-zero:
                    gpu, byte-compared with the native route of t1k_tpu;
                    both kernels' launch counts over the run must be > 0;
                    the EM problem its genotyper solves is kept
-  8. candidates    DeviceCandidates (K10: probe, census kernel, bucket
+  8. db            the port's database build into its genotyper: an
+                   IPD-shaped .dat (tests/test_db_scale.py's generator,
+                   copied: 24 genes x 125 records, ~8.9 MB, exon-only and
+                   block-dropped partials, duplicates) and a GTF that puts
+                   the 24 genes on chr6, through python -m
+                   t1k_tpu_torch.db.build -d -g (rna, dna and both
+                   coordinate fastas; each coordinate header checked),
+                   then 4,000 pairs simulated from two alleles of every
+                   gene of the built rna fasta through
+                   t1k_tpu_torch.cli.genotype --backend gpu --emBackend
+                   gpu and --backend native --emBackend native (both
+                   --outputReadAssignment), each in a child process
+                   (launch counts set to 0 before and printed after);
+                   every output byte-identical, the band and EM kernels
+                   launched by the first and not by the second; build
+                   seconds, each route's wall (split at its first and
+                   last stage lines) and stages
+  9. candidates    DeviceCandidates (K10: probe, census kernel, bucket
                    chain) on the card against its plain version on the
                    CPU, array for array, and every decided read's keep set
                    against the native engine's overlap buckets: seeded
@@ -80,7 +97,7 @@ Phases, in order; any failure raises and the exit code is non-zero:
                    census, the census of the chunk's largest read alone,
                    the chain, the keep set, the chunk and the tile route
                    timed, the plain census and chain once
-  9. em_timing     the EM kernel on that HLA problem, the microcell and a
+ 10. em_timing     the EM kernel on that HLA problem, the microcell and a
                    seeded problem with ~10x its incidences (the
                    device-memory instantiation): kernel alone (tables on
                    the card), the em_quantify_gpu wrapper and the native
@@ -92,17 +109,17 @@ Phases, in order; any failure raises and the exit code is non-zero:
                    tensor code) on the same three problems, its rounds
                    and largest difference from the native loop printed,
                    its loop in turns with K5
- 10. composite     parallel/dryrun.py's entry() (the single-device
+ 11. composite     parallel/dryrun.py's entry() (the single-device
                    composite of __graft_entry__.entry(): band kernel,
                    FragWeight, one round of the dense int8 EM in float32)
                    on the card against its CPU run: match equal, x2 within
                    rtol 1e-4, atol 1e-8; timed
- 11. timing        thread kernel, warp kernel and plain version, in turns,
+ 12. timing        thread kernel, warp kernel and plain version, in turns,
                    on the largest deferred-item batch one engine chunk of
                    the main path sends, with the chunk's shape (p_len and
                    |t_len - p_len| quantiles, row use of the sorted launch,
                    slot counts of its warps)
- 12. extract       the FASTQ extraction stage on the same panel (k = 13,
+ 13. extract       the FASTQ extraction stage on the same panel (k = 13,
                    hashed table): 100,000 read pairs of 2 x 100 bp
                    (2,000 simulated on-panel pairs, 8,000 near-miss
                    pairs, 90,000 random pairs, shuffled; cut from 200,000
@@ -112,9 +129,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
                    t1k_tpu.cli.extract --backend native run in a child
                    process; both phase-A kernels must launch and the
                    device must decide a share of the screened reads
- 13. screen_timing probe and chain kernels vs their plain versions, in
+ 14. screen_timing probe and chain kernels vs their plain versions, in
                    turns, on one full 1024-row chunk of the extract inputs
- 14. run           the run-t1k chain (extract -> genotype -> analyze) on
+ 15. run           the run-t1k chain (extract -> genotype -> analyze) on
                    the same panel: 250,000 read pairs built as extract's
                    (10,000 simulated, 40,000 near-miss, 200,000 random),
                    the simulated pairs of two genes drawn from copies of
@@ -131,7 +148,7 @@ Phases, in order; any failure raises and the exit code is non-zero:
                    analyzer's read assignment must launch; each route's
                    process wall and stage seconds (between the lines of
                    its log that open and close each stage) are printed
- 15. kmer          K11 (ops/kmer.py, csrc/kmer_classify.cu): the table of
+ 16. kmer          K11 (ops/kmer.py, csrc/kmer_classify.cu): the table of
                    the panel at k = 11, 13, 14 (bitmaps) and 15, 16
                    (hashed), build seconds printed, and the kernel exact
                    against classify_plain on the card's tensors on the run
@@ -141,7 +158,7 @@ Phases, in order; any failure raises and the exit code is non-zero:
                    narrower than k gives zeros; at the extractor's k the
                    kernel and the screen's probe kernel on those reads in
                    turns, reads/s, and the bound (bytes and gathers)
- 16. bam_run       the run-t1k chain on a BAM (-b, with -c the coordinate
+ 17. bam_run       the run-t1k chain on a BAM (-b, with -c the coordinate
                    fasta: every panel allele on its gene's interval of
                    chr6): 250,000 pairs of 2 x 100 bp (BAM_PAIRS:
                    10,000 on-panel pairs in their gene's interval, 1,000
@@ -159,13 +176,13 @@ Phases, in order; any failure raises and the exit code is non-zero:
                    then the port's extraction alone in this process, its
                    screen on the host engine, then on the card, each run
                    timed and its outputs equal to the chain's
- 17. run_profile   the port's analyzer alone on the run's genotyper
+ 18. run_profile   the port's analyzer alone on the run's genotyper
                    outputs under torch.profiler: the same VCF, and the
                    card's busy and idle share of each analyzer stage; its
                    largest batch of deferred items is kept
- 18. analyzer_timing  the thread band kernels vs their plain version on
+ 19. analyzer_timing  the thread band kernels vs their plain version on
                    that batch, exact and in turns, with its shape
- 19. smartseq      one SMART-seq2 plate of one donor: 96 cells of 4,000
+ 20. smartseq      one SMART-seq2 plate of one donor: 96 cells of 4,000
                    pairs of 2 x 100 bp (800 simulated from the donor's
                    two alleles of 6 of 8 panel genes, drawn per cell, at
                    a ratio drawn from [0.1, 0.9]; 800 near-miss and 2,400
@@ -181,7 +198,7 @@ Phases, in order; any failure raises and the exit code is non-zero:
                    chain, band and the batched EM must launch; each
                    route's wall and pass walls, and a spawn pool's
                    start-up
- 20. cohort_em_timing  the EM kernel's cohort form alone on (a) the 96
+ 21. cohort_em_timing  the EM kernel's cohort form alone on (a) the 96
                    problems the port's second pass solved and (b) 384
                    cells of benchmarks/cohort_em.py's default shape: the
                    batched launches at the cells' widths, the same cells
@@ -192,7 +209,7 @@ Phases, in order; any failure raises and the exit code is non-zero:
                    native loop; per launch its kernel's registers, local
                    bytes, resident blocks an SM and waves (local bytes in
                    a launch at the cells' widths fail)
- 21. sharded_em    the sharded EM (t1k_tpu_torch/parallel/mesh.py and
+ 22. sharded_em    the sharded EM (t1k_tpu_torch/parallel/mesh.py and
                    multihost.py; the sharded form of em_squarem.cu) on
                    one card: em_quantify_sharded_squarem over [card] x n,
                    n = 1, 2, 4, on the main phase's HLA problem and the
@@ -254,7 +271,9 @@ postings read and the seeds and buckets written; the chained seeds in
 and the keep set out) with the forced and largest-read census times,
 the chunk's, the keep set's and the tile route's, generate's and
 set_candidates' seconds, host waits a chunk, the decided share and each
-run's read_assignment seconds; launches_dryrun on band_stats_warp and
+run's read_assignment seconds; launches_db on band_stats and
+em_squarem, their launches in the db phase's card route; launches_dryrun
+on band_stats_warp and
 em_sharded over the dry runs; kmer_classify, K11 at the extractor's k
 on the run phase's reads, its launches the run chain's (no stage calls
 it: 0) beside launches_kmer_phase, and replaces_direct, the bitmap
@@ -269,6 +288,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import random
 import subprocess
 import sys
 import tempfile
@@ -1120,6 +1140,237 @@ def phase_main(dev, work: str, n_genes: int, copies: int, n_pairs: int,
     for route, m in metrics.items():
         print(f"  {route} stages: " + " ".join(
             f"{k}={v['seconds']}s" for k, v in m.items()), flush=True)
+
+
+# ------------------------------------------------------------- db phase
+# An IPD-shaped .dat: tests/test_db_scale.py's generator, copied, at its
+# defaults (24 genes x 125 records, 8,949,152 bytes, 2,292 alleles out)
+DB_GENES, DB_RECORDS = 24, 125
+DB_PAIRS = 4_000
+# a genotyper child's wall: from its start to its first stage line, then
+# to its last (the log lines of core/pipeline.py)
+DB_STAGE_MARKS = (("start", None, "read fragments. Start read assignment."),
+                  ("genotyper", "read fragments. Start read assignment.",
+                   "Genotyping finishes."))
+
+
+def _dat_seq(rng, n):
+    return "".join(rng.choice(BASES) for _ in range(n))
+
+
+def _dat_mutate(rng, seq, rate):
+    out = []
+    for c in seq:
+        if rng.random() < rate:
+            out.append(BASES[(BASES.index(c) + rng.randint(1, 3)) % 4])
+        else:
+            out.append(c)
+    return "".join(out)
+
+
+def _dat_record(f, allele, seq, features):
+    f.write(f"ID   {allele}\n")
+    f.write(f'FT   allele="{allele}"\n')
+    for line in features:
+        f.write(f"FT   {line}\n")
+    f.write(f"SQ  Sequence {len(seq)} BP\n")
+    for i in range(0, len(seq), 60):
+        chunk = seq[i:i + 60]
+        f.write(f"{chunk} {min(i + 60, len(seq))}\n")
+    f.write("//\n")
+
+
+def make_ipd_dat(rng, path, n_genes=DB_GENES, alleles_per_gene=DB_RECORDS):
+    """hla.dat-shaped: 6-8 exons/gene, ~1-3kb alleles, 18% exon-only
+    (rna-style) partial records, 12% block-dropped partials, 5% exact
+    duplicates.  Returns the gene names."""
+    genes = []
+    with open(path, "w") as f:
+        for g in range(n_genes):
+            gene = f"IP{chr(65 + g // 4)}{g % 4 + 1}"
+            genes.append(gene)
+            n_ex = rng.randint(6, 8)
+            utr5, utr3 = rng.choice([30, 50, 80]), rng.choice([30, 50, 80])
+            ex_lens = [rng.randint(90, 360) for _ in range(n_ex)]
+            in_lens = [rng.randint(80, 250) for _ in range(n_ex - 1)]
+            exons_t = [_dat_seq(rng, n) for n in ex_lens]
+            introns_t = [_dat_seq(rng, n) for n in in_lens]
+            dup_from = None
+            for a in range(alleles_per_gene):
+                allele = f"{gene}*{a + 1:03d}"
+                ex = [_dat_mutate(rng, e, rng.uniform(0.0, 0.01))
+                      for e in exons_t]
+                if dup_from is not None and rng.random() < 0.05:
+                    ex = dup_from
+                elif rng.random() < 0.1:
+                    dup_from = ex
+                r = rng.random()
+                parts, feats, pos = [], [], 1
+                if r < 0.18:
+                    # exon-only partial: the dna mode's intron rescue
+                    lo = rng.randint(0, 1)
+                    hi = n_ex - rng.randint(0, 1)
+                    for i in range(lo, hi):
+                        parts.append(ex[i])
+                        feats.append(
+                            f"exon          {pos}..{pos + len(ex[i]) - 1}")
+                        pos += len(ex[i])
+                    feats.append("/partial")
+                else:
+                    lo, hi = 0, n_ex
+                    partial = r < 0.30
+                    if partial:
+                        if rng.random() < 0.7:
+                            lo = rng.randint(1, n_ex - 1)
+                        if hi - lo > 1 and rng.random() < 0.5:
+                            hi = rng.randint(lo + 1, n_ex)
+                        if (lo, hi) == (0, n_ex):
+                            partial = False
+                    pad5 = utr5 if lo == 0 else 0
+                    if pad5:
+                        parts.append(_dat_seq(rng, pad5))
+                        pos += pad5
+                    for i in range(lo, hi):
+                        parts.append(ex[i])
+                        feats.append(
+                            f"exon          {pos}..{pos + len(ex[i]) - 1}")
+                        pos += len(ex[i])
+                        if i + 1 < hi:
+                            intr = introns_t[i]
+                            parts.append(intr)
+                            feats.append(
+                                f"intron        {pos}..{pos + len(intr) - 1}")
+                            pos += len(intr)
+                    if hi == n_ex:
+                        parts.append(_dat_seq(rng, utr3))
+                    if partial:
+                        feats.append("/partial")
+                _dat_record(f, allele, "".join(parts), feats)
+    return genes
+
+
+def write_chr6_gtf(path: str, genes) -> dict:
+    """Each gene on an interval of its own on chr6, strands alternating;
+    returns gene -> its coordinates as add_gene_coord writes them."""
+    coords = {}
+    with open(path, "w") as f:
+        f.write("#!genome-build synthetic\n")
+        for i, gene in enumerate(genes):
+            start, strand = 29_700_000 + 40_000 * i, "+-"[i % 2]
+            end = start + 5_000
+            attrs = f'gene_id "G{i:02d}"; gene_name "{gene}";'
+            f.write(f"chr6\tsynthetic\tgene\t{start}\t{end}\t.\t{strand}\t.\t"
+                    f"{attrs}\n")
+            f.write(f"chr6\tsynthetic\texon\t{start}\t{start + 300}\t.\t"
+                    f"{strand}\t.\t{attrs} transcript_name \"{gene}-201\";\n")
+            coords[gene] = f"chr6 {start} {end} {strand}"
+    return coords
+
+
+def db_genotype(dev, work: str, panel: str, reads: str, route: str) -> tuple:
+    """t1k_tpu_torch.cli.genotype in a child process through PORT_GENOTYPE
+    (--backend and --emBackend `route`, --outputReadAssignment, prefix
+    `route` in `work`): (the
+    kernels' launch counts, its metrics, {"process", "start", "genotyper",
+    "exit": seconds} by DB_STAGE_MARKS)."""
+    stdout, _, secs = timed_chain(
+        [sys.executable, "-c", PORT_GENOTYPE, "-f", panel,
+         "-1", reads + "_1.fq", "-2", reads + "_2.fq",
+         "-o", os.path.join(work, route), "--backend", route,
+         "--emBackend", route, "--device", str(dev),
+         "--outputReadAssignment"], DB_STAGE_MARKS)
+    secs["exit"] = secs["process"] - secs["start"] - secs["genotyper"]
+    with open(os.path.join(work, route + "_metrics.json")) as f:
+        metrics = json.load(f)
+    return json.loads(stdout.strip().splitlines()[-1]), metrics, secs
+
+
+def phase_db(dev, work: str, n_pairs: int, info: dict) -> dict:
+    """The port's database build into the genotyper: an IPD-shaped .dat
+    and a chr6 GTF through `python -m t1k_tpu_torch.db.build -d -g` (rna,
+    dna and both coordinate fastas), then `n_pairs` simulated from two
+    alleles of every gene of the built rna fasta through the port's
+    cli.genotype on the card (--backend gpu --emBackend gpu) and on the
+    host engine (--backend native --emBackend native), each in a child
+    process; every output, the read assignments included, byte-identical.  Returns the card route's
+    launches of the band and EM kernels."""
+    db_dir = os.path.join(work, "db")
+    os.makedirs(db_dir)
+    dat, gtf = os.path.join(db_dir, "ipd.dat"), os.path.join(db_dir, "ipd.gtf")
+    t0 = time.perf_counter()
+    genes = make_ipd_dat(random.Random(42), dat)
+    coords = write_chr6_gtf(gtf, genes)
+    info["write_s"] = f"{time.perf_counter() - t0:.2f}"
+    info["dat_bytes"] = os.path.getsize(dat)
+    out = os.path.join(db_dir, "idx")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "t1k_tpu_torch.db.build", "-d", dat,
+         "-g", gtf, "-o", out, "--prefix", "ipd"],
+        cwd=ROOT, env=child_env(), capture_output=True, text=True)
+    info["build_s"] = f"{time.perf_counter() - t0:.3f}"
+    if proc.returncode != 0:
+        raise RuntimeError(f"the database build failed:\n{proc.stderr[-4000:]}")
+    for kind in ("rna", "dna"):
+        seq = read_fasta(os.path.join(out, f"ipd_{kind}_seq.fa"))
+        coord = read_fasta(os.path.join(out, f"ipd_{kind}_coord.fa"))
+        if not seq or [(n, s) for n, _, s in seq] != \
+                [(n, s) for n, _, s in coord]:
+            raise AssertionError(f"the {kind} coordinate fasta's alleles "
+                                 "differ from its sequence fasta's")
+        for name, where, _ in coord:
+            if where != coords[name.split("*")[0]]:
+                raise AssertionError(f"{name}: coordinates {where!r}")
+        if {n.split("*")[0] for n, _, _ in seq} != set(genes):
+            raise AssertionError(f"a gene has no allele in the {kind} fasta")
+        info[f"{kind}_alleles"] = len(seq)
+
+    panel = os.path.join(out, "ipd_rna_seq.fa")
+    reads = os.path.join(db_dir, "reads")
+    simulate_reads(panel, reads, n_pairs, n_genes=len(genes))
+    launches, metrics, walls = {}, {}, {}
+    for route in ("gpu", "native"):
+        launches[route], metrics[route], walls[route] = db_genotype(
+            dev, db_dir, panel, reads, route)
+    names = {route: sorted(n[len(route):] for n in os.listdir(db_dir)
+                           if n.startswith(route + "_"))
+             for route in launches}
+    if names["gpu"] != names["native"]:
+        raise AssertionError(f"the routes wrote other files: {names}")
+    outputs = [s for s in names["gpu"] if s != "_metrics.json"]
+    for suffix in outputs:
+        with open(os.path.join(db_dir, "gpu" + suffix), "rb") as f:
+            a = f.read()
+        with open(os.path.join(db_dir, "native" + suffix), "rb") as f:
+            b = f.read()
+        if a != b:
+            raise AssertionError(f"db: {suffix} differs from the native "
+                                 "route")
+    card = {k: launches["gpu"][k] for k in ("band_stats", "em_squarem")}
+    if launches["native"]["band_stats"] or launches["native"]["em_squarem"]:
+        raise AssertionError(f"the native route launched kernels: "
+                             f"{launches['native']}")
+    ra = metrics["gpu"]["read_assignment"]
+    if ra["band_kernel_launches"] != card["band_stats"]:
+        raise AssertionError("metrics and wrapper disagree on launches")
+    if dev.type == "cuda" and min(card.values()) <= 0:
+        raise AssertionError(f"a kernel of the db path never launched: "
+                             f"{card}")
+    with open(os.path.join(db_dir, "gpu_genotype.tsv")) as f:
+        info["genotype_rows"] = sum(1 for _ in f)
+    info["pairs"] = n_pairs
+    info["outputs"] = ",".join(outputs)
+    info["deferred_item_count"] = ra["deferred_item_count"]
+    info["band_kernel_launches"] = card["band_stats"]
+    info["em_kernel_launches"] = card["em_squarem"]
+    for route in ("gpu", "native"):
+        info[f"{route}_s"] = f"{walls[route]['process']:.3f}"
+        print(f"  db {route} process: " + " ".join(
+            f"{k}={v:.3f}s" for k, v in walls[route].items())
+            + "; stages: " + " ".join(
+                f"{k}={v['seconds']}s" for k, v in metrics[route].items()),
+            flush=True)
+    return card
 
 
 def candidate_cases():
@@ -4197,6 +4448,8 @@ def run(dev, sizes: dict) -> list:
             em_problems = []
             phase_main(dev, work, PANEL_GENES, PANEL_COPIES,
                        sizes["sim_pairs"], info, em_problems)
+        with phase("db") as info:
+            db_launches = phase_db(dev, work, sizes["db"], info)
         with phase("candidates") as info:
             cand = phase_candidates(dev, work, info)
             for name, (timed, _, _) in cand.items():
@@ -4290,6 +4543,9 @@ def run(dev, sizes: dict) -> list:
         "launches_dryrun"] = dry_launches["band_stats_warp"]
     for name, (_, _, extras) in cand.items():
         records[list(KERNELS).index(name)].update(extras)
+    # the genotyper's launches on the database the port built (db phase)
+    for name, n in db_launches.items():
+        records[list(KERNELS).index(name)]["launches_db"] = n
     # K11 has no caller on any stage: its launches are the run chain's (0)
     records[list(KERNELS).index("kmer_classify")].update(
         replaces_direct="t1k_tpu/ops/kmer.py:144",
@@ -4299,7 +4555,7 @@ def run(dev, sizes: dict) -> list:
 
 FULL_SIZES = dict(random_items=RANDOM_ITEMS, em=(EM_RG, EM_EC),
                   em_large=EM_LARGE,
-                  v1_pairs=V1_PAIRS, sim_pairs=SIM_PAIRS,
+                  v1_pairs=V1_PAIRS, sim_pairs=SIM_PAIRS, db=DB_PAIRS,
                   extract=EXTRACT_SMOKE_PAIRS, run=EXTRACT_PAIRS,
                   bam=BAM_PAIRS,
                   plate=(PLATE_CELLS, PLATE_PAIRS, PLATE_WORKERS),

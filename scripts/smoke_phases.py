@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Some of chip_smoke.py's phases alone, on one CUDA card.
 
-  python3 scripts/smoke_phases.py [v1] [main] [candidates] [em_timing]
-                                  [composite] [kmer] [smartseq]
+  python3 scripts/smoke_phases.py [v1] [main] [db] [candidates]
+                                  [em_timing] [composite] [kmer] [smartseq]
                                   [cohort_em_timing] [sharded_em]
 
 Builds the kernels (the smoke's `build` phase, with the compiler's
@@ -10,13 +10,14 @@ register and spill lines), then runs the named phases in the smoke's
 order at its full sizes, each as chip_smoke.run runs it: candidates and
 em_timing take main's panel, reads and outputs (em_timing its EM
 problem) and run main first; kmer takes the run phase's reads, which it
-writes as that phase does (without running the chains); cohort_em_timing takes smartseq's
-problems and runs smartseq first; sharded_em takes both and runs both
-(its multi-process ranks in child processes); without main, the
-HLA-scale panel is
-built on its own (v1 needs none).  Prints each phase's line, the card
-line, and as JSON the v1 aligner's per-path launches and times and the
-smartseq plate's launches.
+writes as that phase does (without running the chains); cohort_em_timing
+takes smartseq's problems and runs smartseq first; sharded_em takes both
+and runs both (its multi-process ranks in child processes); without
+main, the HLA-scale panel is built on its own (v1 and db need none: db
+builds its own database with the port's build).  Prints each phase's
+line, the card line, and as JSON the v1 aligner's per-path launches and
+times, the db phase's band and EM launches and the smartseq plate's
+launches.
 """
 
 from __future__ import annotations
@@ -31,8 +32,8 @@ sys.path.insert(0, ROOT)
 
 import chip_smoke as cs  # noqa: E402
 
-PHASES = ("v1", "main", "candidates", "em_timing", "composite", "kmer",
-          "smartseq", "cohort_em_timing", "sharded_em")
+PHASES = ("v1", "main", "db", "candidates", "em_timing", "composite",
+          "kmer", "smartseq", "cohort_em_timing", "sharded_em")
 
 
 def main(argv) -> int:
@@ -80,8 +81,12 @@ def main(argv) -> int:
             with cs.phase("main") as info:
                 cs.phase_main(dev, work, cs.PANEL_GENES, cs.PANEL_COPIES,
                               sizes["sim_pairs"], info, em_problems)
-        else:
+        elif wanted - {"v1", "db"}:
             cs.build_panel(os.path.join(work, "panel.fa"))
+        if "db" in wanted:
+            with cs.phase("db") as info:
+                launches = cs.phase_db(dev, work, sizes["db"], info)
+            print(json.dumps({"db_launches": launches}), flush=True)
         if "candidates" in wanted:
             with cs.phase("candidates") as info:
                 cand = cs.phase_candidates(dev, work, info)

@@ -34,6 +34,9 @@ package and keeps its own copy of the host code it runs.
   cli/genotype.py    command line (--backend gpu, --emBackend gpu)
   cli/analyze.py     analyzer command line
   cli/run.py         the run-t1k chain from FASTQ or BAM (-b -c)
+  db/                the reference database build (.dat -> allele and
+                     coordinate FASTAs; VCF, GTF and variant-panel
+                     .dat generators), host code only
 
 Entry points run on the CUDA card unless the caller asks for the CPU
 (``device="cpu"``, ``--device cpu``).  It never imports jax.

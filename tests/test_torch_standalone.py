@@ -59,7 +59,11 @@ def test_every_port_module_imports_without_the_jax_package():
             "t1k_tpu_torch.tools.simulate",
             "t1k_tpu_torch.parallel.mesh",
             "t1k_tpu_torch.parallel.multihost",
-            "t1k_tpu_torch.ops.kmer"} <= set(names)
+            "t1k_tpu_torch.ops.kmer", "t1k_tpu_torch.db",
+            "t1k_tpu_torch.db.parse_dat", "t1k_tpu_torch.db.add_gene_coord",
+            "t1k_tpu_torch.db.build", "t1k_tpu_torch.db.vcf_to_dat",
+            "t1k_tpu_torch.db.gtf_to_dat",
+            "t1k_tpu_torch.db.variant_gene_db"} <= set(names)
     code = "".join(f"import {n}\n" for n in names) + _CHECK_MODULES
     proc = _run(code)
     assert proc.returncode == 0, proc.stderr[-3000:]
