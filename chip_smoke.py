@@ -149,15 +149,21 @@ Phases, in order; any failure raises and the exit code is non-zero:
                    process wall and stage seconds (between the lines of
                    its log that open and close each stage) are printed
  16. kmer          K11 (ops/kmer.py, csrc/kmer_classify.cu): the table of
-                   the panel at k = 11, 13, 14 (bitmaps) and 15, 16
-                   (hashed), build seconds printed, and the kernel exact
-                   against classify_plain on the card's tensors on the run
-                   phase's 250,000 mate-1 reads and on edge reads (lengths
-                   0, k - 1, k, k + 1, N at the first, a middle and the
-                   last base, a reverse complement, all-T, all-A); a batch
-                   narrower than k gives zeros; at the extractor's k the
-                   kernel and the screen's probe kernel on those reads in
-                   turns, reads/s, and the bound (bytes and gathers)
+                   the panel at k = 11, 12, 13 (pair tables), 14 (the
+                   centre-canonical table) and 15, 16 (hashed), build
+                   seconds printed, and the kernel and its first design
+                   exact against classify_plain on the card's tensors on
+                   the run phase's 250,000 mate-1 reads and on edge reads
+                   (lengths 0, k - 1, k, k + 1, N at the first, a middle
+                   and the last base, a reverse complement, all-T, all-A);
+                   a batch narrower than k gives zeros; at the extractor's
+                   k the kernel, the first design and the screen's probe
+                   kernel on those reads in turns (kmer, v1, probe, probe,
+                   v1, kmer), each design's time after 64 MB written (cold),
+                   the pair table's bytes, the table words a launch of
+                   each design reads (counted from the keys, not a
+                   hardware counter), reads/s, and the bound (bytes and
+                   gathers)
  17. bam_run       the run-t1k chain on a BAM (-b, with -c the coordinate
                    fasta: every panel allele on its gene's interval of
                    chr6): 250,000 pairs of 2 x 100 bp (BAM_PAIRS:
@@ -276,8 +282,10 @@ em_squarem, their launches in the db phase's card route; launches_dryrun
 on band_stats_warp and
 em_sharded over the dry runs; kmer_classify, K11 at the extractor's k
 on the run phase's reads, its launches the run chain's (no stage calls
-it: 0) beside launches_kmer_phase, and replaces_direct, the bitmap
-program it also replaces; no single PyTorch call computes the
+it: 0) beside launches_kmer_phase, replaces_direct, the bitmap program
+it also replaces, the first design's v1_ms, v1_launches_kmer_phase and
+v1_cold_ms, cold_ms and pair_table_bytes;
+no single PyTorch call computes the
 others, so their library_ms is null), and
 {"ok": true, "device": {...}} as the last line.  Work files go to a
 temporary directory that is removed at exit.
@@ -2687,8 +2695,11 @@ def phase_screen_timing(dev, check_probe: Checker,
 
 # ------------------------------------------------------------ k-mer prefilter
 
-# K11's table lengths: direct (bitmap) up to 14, hashed above
-KMER_KS = (11, 13, 14, 15, 16)
+# K11's table lengths: pair table up to 13, centre-canonical table at 14,
+# hashed above
+KMER_KS = (11, 12, 13, 14, 15, 16)
+# bytes written between launches for K11's cold reading (past the 50 MB L2)
+FLUSH_BYTES = 64 << 20
 # int32 operations per window and strand counted for K11's bound: the
 # rolled key (shift, or, and), its N count (add, compare), the bitmap
 # word's address and the bit (two shifts, two ands, a compare) and the
@@ -2749,17 +2760,41 @@ def kmer_bound(table, codes, lens):
                                    int32_per_s())
 
 
+def cold_ms(fn, reps: int, dev) -> float:
+    """Mean milliseconds of one call of `fn` after FLUSH_BYTES have been
+    written (CUDA events around the call alone; the host clock on the
+    CPU)."""
+    import torch
+
+    if dev.type != "cuda":
+        return time_ms(fn, reps, dev)
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    total = 0.0
+    for i in range(reps):
+        flush.fill_(i & 1)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+    return total / reps
+
+
 def phase_kmer(dev, check: Checker, work: str, prefix: str, n_reads: int,
                info: dict):
     """K11 (ops/kmer.py, csrc/kmer_classify.cu) on the HLA-scale panel:
     the table built at each of KMER_KS (build seconds printed) and the
-    kernel held exactly against classify_plain on the card's tensors, on
-    the first `n_reads` mate-1 reads of `prefix` and on edge reads; a
-    batch narrower than k gives zeros without a launch.  Then at the
-    extractor's k, on those reads, the kernel and the screen's probe
-    kernel in turns (kmer, probe, probe, kmer) between two plain runs,
-    and the bound.  Returns ((ms, plain ms, bound), launches in this
-    phase)."""
+    kernel and its first design held exactly against classify_plain on
+    the card's tensors, on the first `n_reads` mate-1 reads of `prefix`
+    and on edge reads of 48 and 151 bases; a batch narrower than k gives
+    zeros without a launch.  Then at the extractor's k, on those reads, the kernel, the
+    first design and the screen's probe kernel in turns (kmer, v1, probe,
+    probe, v1, kmer) between two plain runs, each design's cold time
+    (after FLUSH_BYTES written), the pair table's bytes, the table words a
+    launch of each design reads (ops/kmer.py::lookups) and the bound.  Returns ((ms, plain ms, bound),
+    launches of the kernel in this phase, extras for the kernels line)."""
     import torch
 
     from t1k_tpu_torch.core import extractor as tx
@@ -2768,6 +2803,7 @@ def phase_kmer(dev, check: Checker, work: str, prefix: str, n_reads: int,
 
     cuda = dev.type == "cuda"
     classify = kmer.classify_cuda if cuda else kmer.classify_plain
+    classify_v1 = kmer.classify_v1_cuda if cuda else kmer.classify_plain
     rs = tx.RefSet(digit_units=-1, delimiter="")
     for name, comment, seq in read_fasta(os.path.join(work, "panel.fa")):
         rs.add_allele(name, seq, comment)
@@ -2778,7 +2814,7 @@ def phase_kmer(dev, check: Checker, work: str, prefix: str, n_reads: int,
     put = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
     codes_d, lens_d = put(codes), put(lens)
     rng = np.random.default_rng(21)
-    launches0 = kmer.launch_counts["kmer_classify"]
+    launches0 = dict(kmer.launch_counts)
     k_screen = max(tx.EXTRACTOR_KMER_LENGTH, rs.infer_kmer_length())
     tables = {}
     for k in KMER_KS:
@@ -2787,12 +2823,19 @@ def phase_kmer(dev, check: Checker, work: str, prefix: str, n_reads: int,
         info[f"k{k}_build_s"] = f"{time.perf_counter() - t0:.3f}"
         info[f"k{k}_words"] = table.size
         edges = kmer_edge_reads(allele, k, rng)
+        # odd rows, staged a byte at a time, two tiles of windows a row
+        long_edges = kmer_edge_reads(allele, k, rng, L=151)
         for what, c, n in (("reads", codes_d, lens_d),
-                           ("edges", put(edges[0]), put(edges[1]))):
+                           ("edges", put(edges[0]), put(edges[1])),
+                           ("long edges", put(long_edges[0]),
+                            put(long_edges[1]))):
             got = classify(table, c, n)
+            got_v1 = classify_v1(table, c, n)
             want = kmer.classify_plain(table, c, n)
             check(got[0], want[0], f"kmer k={k} {what} fwd")
             check(got[1], want[1], f"kmer k={k} {what} rc")
+            check(got_v1[0], want[0], f"kmer v1 k={k} {what} fwd")
+            check(got_v1[1], want[1], f"kmer v1 k={k} {what} rc")
             if what == "reads":
                 info[f"k{k}_hit_reads"] = int(((got[0] + got[1]) > 0).sum())
         narrow = kmer.classify(table, codes_d[:, :k - 1].contiguous(),
@@ -2810,6 +2853,9 @@ def phase_kmer(dev, check: Checker, work: str, prefix: str, n_reads: int,
     def run_kmer():
         return classify(table, codes_d, lens_d)
 
+    def run_v1():
+        return classify_v1(table, codes_d, lens_d)
+
     def run_probe():
         return probe(codes_d, lens_d, index)
 
@@ -2818,23 +2864,39 @@ def phase_kmer(dev, check: Checker, work: str, prefix: str, n_reads: int,
 
     reps = 10 if cuda else 1
     plain_ms = [time_ms(run_plain, 1, dev)]
-    kmer_ms, probe_ms = [time_ms(run_kmer, reps, dev)], []
+    kmer_ms, v1_ms, probe_ms = [time_ms(run_kmer, reps, dev)], [], []
+    v1_ms.append(time_ms(run_v1, reps, dev))
     probe_ms += [time_ms(run_probe, reps, dev), time_ms(run_probe, reps, dev)]
+    v1_ms.append(time_ms(run_v1, reps, dev))
     kmer_ms.append(time_ms(run_kmer, reps, dev))
     plain_ms.append(time_ms(run_plain, 1, dev))
+    cold = (cold_ms(run_kmer, reps, dev), cold_ms(run_v1, reps, dev))
     if cuda:
         info["kmer_kernel_us"] = kernel_us(run_kmer, "classify_kernel", 10)
+        info["v1_kernel_us"] = kernel_us(run_v1, "classify_v1_kernel", 10)
     n_bytes, gathers, b = kmer_bound(table, codes_d, lens_d)
-    info.update(reads=len(lens), k=k_screen, direct=table.direct,
+    n_lookups = kmer.lookups(table, codes_d, lens_d)
+    pair_bytes = 4 * len(table.pair) if table.pair is not None else 0
+    info.update(reads=len(lens), k=k_screen, mode=table.mode,
+                pair_table_bytes=pair_bytes,
                 kmer_ms=" ".join(f"{t:.4f}" for t in kmer_ms),
+                v1_ms=" ".join(f"{t:.4f}" for t in v1_ms),
                 probe_ms=" ".join(f"{t:.4f}" for t in probe_ms),
                 plain_ms=" ".join(f"{t:.2f}" for t in plain_ms),
+                kmer_cold_ms=f"{cold[0]:.4f}", v1_cold_ms=f"{cold[1]:.4f}",
+                lookups=n_lookups[0], lookups_v1=n_lookups[1],
                 kmer_reads_per_s=f"{len(lens) / np.mean(kmer_ms) * 1e3:.4g}",
+                v1_reads_per_s=f"{len(lens) / np.mean(v1_ms) * 1e3:.4g}",
                 probe_reads_per_s=f"{len(lens) / np.mean(probe_ms) * 1e3:.4g}",
                 bound_bytes=n_bytes, bound_gathers=gathers,
                 bound_ms=f"{b[0]:.4f}", bound_by=b[1])
-    launches = kmer.launch_counts["kmer_classify"] - launches0
-    return (float(np.mean(kmer_ms)), float(np.mean(plain_ms)), b), launches
+    launches = {name: kmer.launch_counts[name] - launches0[name]
+                for name in launches0}
+    extras = dict(v1_ms=float(np.mean(v1_ms)), cold_ms=cold[0],
+                  v1_cold_ms=cold[1], pair_table_bytes=pair_bytes,
+                  v1_launches_kmer_phase=launches["kmer_classify_v1"])
+    return ((float(np.mean(kmer_ms)), float(np.mean(plain_ms)), b),
+            launches["kmer_classify"], extras)
 
 
 # ------------------------------------------------------------ run-t1k chain
@@ -4473,7 +4535,7 @@ def run(dev, sizes: dict) -> list:
         with phase("run") as info:
             run_launches = phase_run(dev, work, info, sizes["run"])
         with phase("kmer") as info:
-            times["kmer_classify"], kmer_launches = phase_kmer(
+            times["kmer_classify"], kmer_launches, kmer_extras = phase_kmer(
                 dev, checks["kmer_classify"], work, os.path.join(work, "run"),
                 sum(sizes["run"]), info)
         with phase("bam_run") as info:
@@ -4549,7 +4611,7 @@ def run(dev, sizes: dict) -> list:
     # K11 has no caller on any stage: its launches are the run chain's (0)
     records[list(KERNELS).index("kmer_classify")].update(
         replaces_direct="t1k_tpu/ops/kmer.py:144",
-        launches_kmer_phase=kmer_launches)
+        launches_kmer_phase=kmer_launches, **kmer_extras)
     return records
 
 

@@ -106,10 +106,10 @@ def main(argv) -> int:
                 work, os.path.join(work, "panel.fa"), sizes["run"],
                 tag="run", snp_genes=cs.SNP_GENES, barcodes=True)
             with cs.phase("kmer") as info:
-                timed, launches = cs.phase_kmer(
+                timed, launches, extras = cs.phase_kmer(
                     dev, cs.Checker(), work, prefix, sum(sizes["run"]), info)
             print(json.dumps({"kmer_classify": dict(
-                ms=timed[0], plain_ms=timed[1], bound_ms=timed[2][0],
+                extras, ms=timed[0], plain_ms=timed[1], bound_ms=timed[2][0],
                 bound_by=timed[2][1], launches_kmer_phase=launches)}),
                 flush=True)
         if "smartseq" in wanted:
