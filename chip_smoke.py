@@ -7,15 +7,21 @@ Phases, in order; any failure raises and the exit code is non-zero:
   1. card          nvidia-smi name and power limit, torch and CUDA versions
   2. build         nvcc builds the seven sources of csrc/ for sm_90a, one
                    process per source, all at once, and loads them
-  3. kernel        both band kernels vs their plain PyTorch version on the
-                   card, exact: the thread kernel (windows of at most 32
-                   cells) and the warp kernel forced at the same window on
-                   the 400 golden alignment cases, 100,000 seeded deferred
-                   items and the edge items (every t_len - p_len in
-                   [-10, 10] against p_len 1-254, t_len 0, N bases)
-                   through the descriptor service (W=32, rc-half
-                   descriptors included); the warp kernel at W = 64, 128,
-                   256; the golden batch and the wide windows timed
+  3. kernel        the band kernels vs their plain PyTorch version on the
+                   card, exact: the thread kernels (windows of at most 32
+                   cells), and the first design's warp kernel and the
+                   lane-group kernel at every CPL, sorted and not, forced
+                   at the same window, on the 400 golden alignment cases,
+                   100,000 seeded deferred items and the edge items (every
+                   t_len - p_len in [-10, 10] against p_len 1-254, t_len
+                   0, N bases) through the descriptor service (W=32,
+                   rc-half descriptors included); the route at W = 64,
+                   128, 256 (the lane-group kernel, and no other launch)
+                   and the group kernel at every CPL that holds the batch
+                   and the warp kernel, on 4,096-pair wide batches and the
+                   dry run's 1,024-, 512- and 256-pair shard slices; the
+                   golden batch timed, and the wide and dry-run batches
+                   through the route in turns with the warp kernel
   4. em            f64 SQUAREM EM kernel on a seeded 5,000 read group x
                    900 EC problem (the microcell): the native f64 loop's
                    iteration count and counts, bit for bit, and equal to
@@ -113,12 +119,15 @@ Phases, in order; any failure raises and the exit code is non-zero:
                    composite of __graft_entry__.entry(): band kernel,
                    FragWeight, one round of the dense int8 EM in float32)
                    on the card against its CPU run: match equal, x2 within
-                   rtol 1e-4, atol 1e-8; timed
- 12. timing        thread kernel, warp kernel and plain version, in turns,
-                   on the largest deferred-item batch one engine chunk of
-                   the main path sends, with the chunk's shape (p_len and
+                   rtol 1e-4, atol 1e-8; its band launches the lane-group
+                   kernel's alone; timed
+ 12. timing        thread kernels, warp kernel, the lane-group kernel
+                   forced at W = 32 and plain version, in turns, on the
+                   largest deferred-item batch one engine chunk of the
+                   main path sends, with the chunk's shape (p_len and
                    |t_len - p_len| quantiles, row use of the sorted launch,
-                   slot counts of its warps)
+                   slot counts of its warps) and how the narrow and wide
+                   thread kernels overlapped on their two streams
  13. extract       the FASTQ extraction stage on the same panel (k = 13,
                    hashed table): 100,000 read pairs of 2 x 100 bp
                    (2,000 simulated on-panel pairs, 8,000 near-miss
@@ -187,8 +196,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
                    card's busy and idle share of each analyzer stage; its
                    largest batch of deferred items is kept
  19. analyzer_timing  the thread band kernels vs their plain version on
-                   that batch, exact and in turns, with its shape
- 20. smartseq      one SMART-seq2 plate of one donor: 96 cells of 4,000
+                   that batch, exact and in turns, with its shape and
+                   the two streams' overlap
+ 20. smartseq      one SMART-seq2 plate of one donor: 48 cells of 4,000
                    pairs of 2 x 100 bp (800 simulated from the donor's
                    two alleles of 6 of 8 panel genes, drawn per cell, at
                    a ratio drawn from [0.1, 0.9]; 800 near-miss and 2,400
@@ -255,9 +265,14 @@ launches_by_path, beside the ring kernel's, the narrow and the wide
 pairs' times and bounds), the
 batched EM's over the smartseq phase's port run, launches_bam_run over
 the bam_run phase's chain and launches_smartseq over the plate; the
-band kernel as two entries, band_stats timed on the genotyper's chunk
-with the genotyper's launches and band_stats_analyzer on the analyzer's
-batch with the analyzer's; the
+band kernel's thread kernels as two entries, band_stats timed on the
+genotyper's chunk with the genotyper's launches and band_stats_analyzer
+on the analyzer's batch with the analyzer's; band_stats_group, the
+lane-group kernel (W > 32), timed on the dry run's 1,024-pair slice with
+the run chain's launches (0), launches_dryrun and launches_composite,
+the warp kernel's time on that slice, each kernel-phase batch's times
+and CPL, and its time on the genotyper's chunk forced at W = 32; the
+first design's warp kernel as band_stats_warp, timed on that chunk; the
 bound each could reach on the card and what sets it - for the EM the
 longer of its bytes/operations bound and the chain of dependent f64 adds
 em.cc's order forces, at the add latency the card measured, and for its
@@ -279,7 +294,7 @@ the chunk's, the keep set's and the tile route's, generate's and
 set_candidates' seconds, host waits a chunk, the decided share and each
 run's read_assignment seconds; launches_db on band_stats and
 em_squarem, their launches in the db phase's card route; launches_dryrun
-on band_stats_warp and
+on band_stats_group, band_stats_warp (0) and
 em_sharded over the dry runs; kmer_classify, K11 at the extractor's k
 on the run phase's reads, its launches the run chain's (no stage calls
 it: 0) beside launches_kmer_phase, replaces_direct, the bitmap program
@@ -601,6 +616,19 @@ class Checker:
             raise AssertionError(f"{what}: kernel differs from plain by {err}")
 
 
+def wide_windows(rng, w: int, n: int = 4096):
+    """`n` byte-window pairs for a window of `w` cells at ML = 5: t_len
+    40-199, p_len shorter by 0 to (w - 32) / 2 (at least 1), the pattern
+    the text with 5% of its codes set to 1."""
+    over = (w - 32) // 2
+    t_len = rng.integers(40, 200, n)
+    p_len = np.clip(t_len - rng.integers(0, over + 1, n), 1, None)
+    tcw = rng.integers(0, 5, (n, 200)).astype(np.int8)
+    pcw = tcw.copy()
+    pcw[rng.random(pcw.shape) < 0.05] = 1
+    return tcw, t_len, pcw, p_len
+
+
 def warp_kernel(dev):
     """The warp kernel forced at any window (the plain version on the
     CPU, for rehearsals)."""
@@ -610,21 +638,60 @@ def warp_kernel(dev):
         else ab.band_stats_plain
 
 
-def phase_kernel(dev, check: Checker, check_warp: Checker, n_random: int,
-                 info: dict) -> dict:
-    """Both band kernels against the plain version, exactly: the thread
-    kernel (every window of at most 32 cells) and the warp kernel forced
-    at the same window, on the golden batch, the seeded random items and
-    the edge items; the warp kernel alone at W = 64, 128 and 256.  Times
-    the golden batch (scores and stats, thread kernel) and the wide
-    windows (warp kernel) beside the plain version; returns
-    {case: (ms, plain ms, bound)}."""
+def group_kernel(dev, **shape):
+    """The lane-group kernel forced at any window, `shape` its
+    _band_stats_group_cuda arguments (the plain version on the CPU, for
+    rehearsals)."""
+    from t1k_tpu_torch.ops import align_band as ab
+
+    if dev.type != "cuda":
+        return ab.band_stats_plain
+    return lambda *args: ab._band_stats_group_cuda(*args, **shape)
+
+
+def group_shapes(max_slots: int):
+    """Every (CPL, sort) the lane-group kernel can take for a batch of at
+    most max_slots slots: each CPL whose 32-lane groups hold it, items
+    sorted by class and length or all at the widest class."""
+    from t1k_tpu_torch.ops import align_band as ab
+
+    return [dict(max_slots=max_slots, cpl=c, sort=s) for c in ab.GROUP_CPL
+            if 32 * c >= max_slots for s in (False, True)]
+
+
+def check_group_shapes(dev, check_group: Checker, args, want, what: str,
+                       max_slots: int) -> None:
+    """The lane-group kernel at every shape of group_shapes against the
+    plain version's `want`."""
+    for shape in group_shapes(max_slots):
+        check_group(group_kernel(dev, **shape)(*args), want,
+                    f"{what} (group cpl={shape['cpl']} sort={shape['sort']})")
+
+
+def phase_kernel(dev, check: Checker, check_warp: Checker,
+                 check_group: Checker, n_random: int, info: dict) -> tuple:
+    """The band kernels against the plain version, exactly: the thread
+    kernels (the route at W <= 32), and the first design's warp kernel and
+    the lane-group kernel at every CPL (sorted and not) forced at the same
+    window, on the golden batch, the seeded random items and the edge
+    items; the route at W = 64, 128 and 256 (the lane-group kernel,
+    counted as band_stats_group and no other) and the group kernel at
+    every CPL that holds the batch, and the warp kernel, on the wide
+    batches (4,096 pairs, ML = 5, diff 0 to (W - 32) / 2) and the dry
+    run's shard slices (1,024, 512 and 256 pairs of 112 / 100 at ML = 10,
+    W = 64).  Times the golden batch (scores and stats, thread kernels)
+    beside the plain version, and the wide batches and the dry-run slices
+    through the route in turns with the warp kernel (route, warp, warp,
+    route).  Returns ({case: (ms, plain ms, bound)} of the golden batch,
+    {case: (route ms, warp ms, plain ms, bound, CPL, sort)} of the wide
+    and dry-run batches)."""
     import torch
 
     from t1k_tpu_torch.ops import align_band as ab
+    from t1k_tpu_torch.parallel import dryrun
 
     warp = warp_kernel(dev)
-    timed = {}
+    timed, wide = {}, {}
     tc, tl, pc, pl, want = golden_windows()
     ref, reads, desc = ab._pack_windows(tc, tl, pc, pl, dev)
     ml, over = ab._window_class(tl, pl)
@@ -640,6 +707,9 @@ def phase_kernel(dev, check: Checker, check_warp: Checker, n_random: int,
         check(k_out, p_out, f"golden stats={stats}")
         check_warp(warp(ref, reads, desc, ml, w, stats), p_out,
                    f"golden stats={stats} (warp)")
+        check_group_shapes(dev, check_group,
+                           (ref, reads, desc, ml, w, stats), p_out,
+                           f"golden stats={stats}", 32)
         if not (k_out[0].cpu().numpy() == want).all():
             raise AssertionError("golden scores differ from the table")
         timed[f"golden_{'stats' if stats else 'scores'}_W{w}"] = (
@@ -663,37 +733,63 @@ def phase_kernel(dev, check: Checker, check_warp: Checker, n_random: int,
         p_out = ab.band_stats_plain(*args)
         check(ab.band_stats(*args), p_out, f"{name} W=32")
         check_warp(warp(*args), p_out, f"{name} W=32 (warp)")
+        check_group_shapes(dev, check_group, args, p_out, f"{name} W=32", 32)
         if not (match == (p_out[1].cpu().numpy() & 511)).all():
             raise AssertionError(f"{name}: service match counts differ "
                                  "from plain")
         info[f"{name}_items"] = len(t_len)
         info[f"{name}_rc_items"] = int(rc.sum())
 
+    batches = []
     for w in (64, 128, 256):
-        n = 4096
-        over = (w - 32) // 2
-        t_len = rng.integers(40, 200, n)
-        p_len = np.clip(t_len - rng.integers(0, over + 1, n), 1, None)
-        tcw = rng.integers(0, 5, (n, 200)).astype(np.int8)
-        pcw = tcw.copy()
-        pcw[rng.random(pcw.shape) < 0.05] = 1
+        batches.append((f"wide_W{w}", *wide_windows(rng, w), 5, w))
+    dtc, dtl, dpc, dpl = dryrun.example_batch(dryrun.B, dryrun.LT, dryrun.LP)
+    for n in (1024, 512, 256):
+        batches.append((f"dryrun_{n}", dtc[:n], dtl[:n], dpc[:n], dpl[:n],
+                        dryrun.ML, dryrun.W))
+    for name, tcw, t_len, pcw, p_len, ml, w in batches:
+        n = len(t_len)
         ref, reads, desc = ab._pack_windows(tcw, t_len, pcw, p_len, dev)
+        kw = ab.kernel_window(w)
+        cpl, max_slots, sort = ab.group_launch(t_len, p_len, ml, kw)
 
-        def run(ref=ref, reads=reads, desc=desc, w=w):
-            return ab.band_stats(ref, reads, desc, 5, w)
+        def run(ref=ref, reads=reads, desc=desc, ml=ml, w=w,
+                lengths=(t_len, p_len)):
+            return ab.band_stats(ref, reads, desc, ml, w, lengths=lengths)
 
-        def plain(ref=ref, reads=reads, desc=desc, w=w):
-            return ab.band_stats_plain(ref, reads, desc, 5, w)
-        check_warp(run(), plain(), f"W={w}")
-        timed[f"wide_stats_W{w}"] = (time_ms(run, 20, dev),
-                                     time_ms(plain, 1, dev),
-                                     dp_bound(t_len, p_len, 40 * n))
-    info["wide_windows"] = "64,128,256"
+        def warp_fn(ref=ref, reads=reads, desc=desc, ml=ml, w=w):
+            return warp(ref, reads, desc, ml, w)
+
+        def plain(ref=ref, reads=reads, desc=desc, ml=ml, w=w):
+            return ab.band_stats_plain(ref, reads, desc, ml, w)
+        p_out = plain()
+        before = dict(ab.launch_counts)
+        check_group(run(), p_out, name)
+        if dev.type == "cuda" and ab.launch_counts != dict(
+                before, band_stats_group=before["band_stats_group"] + 1):
+            raise AssertionError(f"{name}: the route launched "
+                                 f"{ab.launch_counts} after {before}")
+        check_warp(warp_fn(), p_out, f"{name} (warp)")
+        check_group_shapes(dev, check_group, (ref, reads, desc, ml, w),
+                           p_out, name, max_slots)
+        reps = 20 if dev.type == "cuda" else 1
+        ms = [time_ms(run, reps, dev), time_ms(warp_fn, reps, dev),
+              time_ms(warp_fn, reps, dev), time_ms(run, reps, dev)]
+        wide[name] = ((ms[0] + ms[3]) / 2, (ms[1] + ms[2]) / 2,
+                      time_ms(plain, 1, dev), dp_bound(t_len, p_len, 40 * n),
+                      cpl, sort)
+        info[f"{name}_ms"] = " ".join(f"{t:.4f}" for t in ms[::3])
+        info[f"{name}_warp_ms"] = " ".join(f"{t:.4f}" for t in ms[1:3])
+        info[f"{name}_route"] = (f"cpl{cpl}_sort{int(wide[name][5])}_"
+                                 f"slots{max_slots}")
     for case, (ms, plain_ms, (b_ms, _)) in timed.items():
         info[f"{case}_ms"] = f"{ms:.4f}"
         info[f"{case}_plain_ms"] = f"{plain_ms:.2f}"
         info[f"{case}_bound_ms"] = f"{b_ms:.4f}"
-    return timed
+    for case, (_, _, plain_ms, (b_ms, _), _, _) in wide.items():
+        info[f"{case}_plain_ms"] = f"{plain_ms:.2f}"
+        info[f"{case}_bound_ms"] = f"{b_ms:.4f}"
+    return timed, wide
 
 
 def em_problem(n_rg: int, n_ec: int, rng, row_len) -> dict:
@@ -987,8 +1083,10 @@ def phase_composite(dev, info: dict) -> None:
     __graft_entry__.entry() (band kernel, FragWeight, the dense int8 EM
     round) on the card against its CPU run: match equal, x2 within the
     float32 tolerance its CPU test holds against the JAX composite (rtol
-    1e-4, atol 1e-8); the band kernel's launches counted; the entry timed
-    on the host clock (it returns numpy arrays)."""
+    1e-4, atol 1e-8); the band kernel's launches counted (the lane-group
+    kernel's, and none of the first design's); the entry timed on the
+    host clock (it returns numpy arrays).  Returns the lane-group
+    kernel's launches in the first call."""
     from t1k_tpu_torch.ops import align_band
     from t1k_tpu_torch.parallel import dryrun
 
@@ -996,6 +1094,8 @@ def phase_composite(dev, info: dict) -> None:
     match, x2 = dryrun.entry(dev)
     band = {k: v - before[k] for k, v in align_band.launch_counts.items()
             if v != before[k]}
+    if dev.type == "cuda" and set(band) != {"band_stats_group"}:
+        raise AssertionError(f"entry() launched {band}")
     t0 = time.perf_counter()
     want_match, want_x2 = dryrun.entry("cpu")
     cpu_s = time.perf_counter() - t0
@@ -1013,6 +1113,7 @@ def phase_composite(dev, info: dict) -> None:
     info.update(match_sum=int(match.sum()), x2_max_diff=f"{err.max():.3e}",
                 band_launches=band, entry_ms=" ".join(f"{t:.2f}" for t in ms),
                 cpu_entry_s=f"{cpu_s:.2f}")
+    return band.get("band_stats_group", 0)
 
 
 def phase_em_timing(dev, hla: dict, sizes: dict, info: dict):
@@ -1096,7 +1197,7 @@ def phase_main(dev, work: str, n_genes: int, copies: int, n_pairs: int,
         em_problems.append({k: v for k, v in bound_args.items()
                             if k not in ("device", "dtype")})
         return em_call(*args, **kwargs)
-    ab.launch_counts.update(band_stats=0, band_stats_warp=0)
+    ab.launch_counts.update(dict.fromkeys(ab.launch_counts, 0))
     em.launch_counts["em_squarem"] = 0
     tg.em_quantify_gpu = capture
     t0 = time.perf_counter()
@@ -1111,7 +1212,8 @@ def phase_main(dev, work: str, n_genes: int, copies: int, n_pairs: int,
         raise AssertionError(f"the genotyper ran {len(em_problems)} EMs")
     launches = {"band_stats": ab.launch_counts["band_stats"],
                 "em_squarem": em.launch_counts["em_squarem"]}
-    warp_launches = ab.launch_counts["band_stats_warp"]
+    wide_launches = (ab.launch_counts["band_stats_warp"]
+                     + ab.launch_counts["band_stats_group"])
     for suffix in ("_genotype.tsv", "_allele.tsv", "_aligned_1.fa",
                    "_aligned_2.fa"):
         with open(os.path.join(work, "native" + suffix), "rb") as f:
@@ -1130,8 +1232,9 @@ def phase_main(dev, work: str, n_genes: int, copies: int, n_pairs: int,
     if dev.type == "cuda" and min(launches.values()) <= 0:
         raise AssertionError(f"a kernel of the main path never launched: "
                              f"{launches}")
-    if warp_launches:
-        raise AssertionError("the main path launched the warp band kernel")
+    if wide_launches:
+        raise AssertionError("the main path launched a wide-window band "
+                             "kernel")
     if ra["deferred_item_count"] <= 0:
         raise AssertionError("the main path deferred no DP item")
     with open(os.path.join(work, "port_genotype.tsv")) as f:
@@ -1856,6 +1959,55 @@ def recording_service():
     return Recorder
 
 
+def thread_timeline(fn, reps: int) -> dict:
+    """Means over `reps` calls of a thread-path wrapper, from
+    torch.profiler's kernel records: microseconds from the wide kernel's
+    start to the narrow kernel's (negative: the narrow one first), the
+    two kernels' time together and their span from the first start to
+    the last end, each kernel's time, and the calls whose narrow kernel
+    started first."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    runs = {"thread_wide": [], "thread_narrow": []}
+    for ev in prof.events():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        for key, spans in runs.items():
+            if key in ev.name:
+                spans.append((ev.time_range.start, ev.time_range.end))
+    wide, narrow = (sorted(v) for v in runs.values())
+    if len(wide) != len(narrow) or not wide:
+        return {"kept": [len(wide), len(narrow)]}
+    pairs = list(zip(wide, narrow))
+    return dict(
+        calls=len(pairs),
+        narrow_after_wide_us=float(np.mean([n[0] - w[0] for w, n in pairs])),
+        together_us=float(np.mean([max(0, min(w[1], n[1]) - max(w[0], n[0]))
+                                   for w, n in pairs])),
+        span_us=float(np.mean([max(w[1], n[1]) - min(w[0], n[0])
+                               for w, n in pairs])),
+        wide_us=float(np.mean([w[1] - w[0] for w, _ in pairs])),
+        narrow_us=float(np.mean([n[1] - n[0] for _, n in pairs])),
+        narrow_first=int(sum(n[0] < w[0] for w, n in pairs)))
+
+
+def streams_line(info: dict, thread) -> None:
+    """The thread kernels' two streams over 20 calls (thread_timeline):
+    the narrow kernel's start after the wide one's, their time together
+    and their span, in microseconds; a launch's time beyond the sort and
+    the span is the streams' hand-offs."""
+    tl = thread_timeline(thread, 20)
+    for key in ("narrow_after_wide_us", "together_us", "span_us"):
+        info[key] = f"{tl[key]:.1f}" if key in tl else "n/a"
+
+
 def main_path_chunk(dev, work: str, n_reads: int):
     """The largest batch of deferred items one engine chunk sends when the
     first `n_reads` reads of <work>/r_1.fq meet <work>/panel.fa: the
@@ -1873,15 +2025,18 @@ def main_path_chunk(dev, work: str, n_reads: int):
     return rec.largest
 
 
-def phase_timing(dev, check: Checker, check_warp: Checker, work: str,
-                 n_reads: int, info: dict):
-    """Thread kernel, warp kernel and plain version, in turns (plain,
-    thread, warp, thread, warp, plain), on the largest batch of deferred
-    items one engine chunk of the main path sends; each kernel alone by
-    torch.profiler.  Prints the chunk's shape: p_len and |t_len - p_len|
+def phase_timing(dev, check: Checker, check_warp: Checker,
+                 check_group: Checker, work: str, n_reads: int, info: dict):
+    """Thread kernels, warp kernel, the lane-group kernel (forced at W =
+    32 at its rule's CPL, for the record: the route is the thread
+    kernels') and plain version, in turns (plain, thread, warp, group,
+    thread, warp, group, plain), on the largest batch of deferred items
+    one engine chunk of the main path sends; each kernel alone by
+    torch.profiler, and how the narrow and wide kernels overlapped
+    (streams_line).  Prints the chunk's shape: p_len and |t_len - p_len|
     quantiles, the row use of the sorted launch and the warps' slot
     counts.  Returns ((thread ms, plain ms, bound), (warp ms, plain ms,
-    bound))."""
+    bound), group ms)."""
     import torch
 
     from t1k_tpu_torch.ops import align_band as ab
@@ -1890,6 +2045,7 @@ def phase_timing(dev, check: Checker, check_warp: Checker, work: str,
     d = torch.from_numpy(desc).to(dev)
     args = (ref, reads, d, ab.DESC_ML, ab.DESC_W)
     warp = warp_kernel(dev)
+    group = group_kernel(dev, max_slots=32)
 
     def thread():
         return ab.band_stats(*args)
@@ -1897,24 +2053,31 @@ def phase_timing(dev, check: Checker, check_warp: Checker, work: str,
     def warp_fn():
         return warp(*args)
 
+    def group_fn():
+        return group(*args)
+
     def plain():
         return ab.band_stats_plain(*args)
 
     want = plain()
     check(thread(), want, "main-path chunk")
     check_warp(warp_fn(), want, "main-path chunk (warp)")
+    check_group(group_fn(), want, "main-path chunk (group)")
     cuda = dev.type == "cuda"  # CPU rehearsals: one call each
     plain_ms = [time_ms(plain, 3 if cuda else 1, dev)]
-    thread_ms, warp_ms = [], []
+    thread_ms, warp_ms, group_ms = [], [], []
     for _ in range(2):
         thread_ms.append(time_ms(thread, 50 if cuda else 1, dev))
         warp_ms.append(time_ms(warp_fn, 20 if cuda else 1, dev))
+        group_ms.append(time_ms(group_fn, 20 if cuda else 1, dev))
     plain_ms.append(time_ms(plain, 3 if cuda else 1, dev))
     if cuda:  # each kernel alone, without the wrapper
         for name in ("thread_narrow", "thread_wide", "sort_",
-                     "band_warp_kernel"):
-            us = call_us(warp_fn if "warp" in name else thread, name, 20)
-            info[f"{name.strip('_')}_us"] = us
+                     "band_warp_kernel", "group_kernel"):
+            fn = (warp_fn if "warp" in name else
+                  group_fn if "group" in name else thread)
+            info[f"{name.strip('_')}_us"] = call_us(fn, name, 20)
+        streams_line(info, thread)
     t_len, p_len = desc[1], desc[3]
     diff = np.abs(t_len - p_len)
     q = (0, 0.5, 0.9, 0.99, 1)
@@ -1927,6 +2090,7 @@ def phase_timing(dev, check: Checker, check_warp: Checker, work: str,
         f"{c}:{int((slots == c).sum())}" for c in (13, 24, 32))
     info["thread_ms"] = " ".join(f"{t:.4f}" for t in thread_ms)
     info["warp_ms"] = " ".join(f"{t:.4f}" for t in warp_ms)
+    info["group_ms"] = " ".join(f"{t:.4f}" for t in group_ms)
     info["plain_ms"] = " ".join(f"{t:.2f}" for t in plain_ms)
     # descriptors in (4 x int64), scores and packed counts out (2 x int32)
     b = dp_bound(t_len, p_len, 40 * d.shape[1])
@@ -1934,7 +2098,8 @@ def phase_timing(dev, check: Checker, check_warp: Checker, work: str,
     info["bound_scores_only_ms"] = \
         f"{dp_bound(t_len, p_len, 40 * d.shape[1], stats=False)[0]:.4f}"
     return ((float(np.mean(thread_ms)), float(np.mean(plain_ms)), b),
-            (float(np.mean(warp_ms)), float(np.mean(plain_ms)), b))
+            (float(np.mean(warp_ms)), float(np.mean(plain_ms)), b),
+            float(np.mean(group_ms)))
 
 
 # ------------------------------------------------------------- v1 aligner
@@ -3049,9 +3214,9 @@ def check_chain(dev, native: str, port: str, outputs, port_stdout: str,
     if sum(band.values()) != launches["band_stats"]:
         raise AssertionError(f"metrics {band} and wrapper "
                              f"{launches['band_stats']} disagree on launches")
-    if launches["band_stats_warp"]:
-        raise AssertionError(f"the {label} chain launched the warp band "
-                             "kernel")
+    if launches["band_stats_warp"] or launches["band_stats_group"]:
+        raise AssertionError(f"the {label} chain launched a wide-window "
+                             "band kernel")
     if dev.type == "cuda" and min(*band.values(), launches["em_squarem"],
                                   launches["phase_a_probe"],
                                   launches["phase_a_chain"]) <= 0:
@@ -3455,7 +3620,8 @@ def phase_run_profile(dev, work: str, info: dict):
 def phase_analyzer_timing(dev, check: Checker, batch, info: dict):
     """The thread kernels against the plain version, exactly and in turns
     (plain, thread, thread, plain), on the analyzer's largest batch of
-    deferred items (its one launch on the run's selected alleles).
+    deferred items (its one launch on the run's selected alleles); each
+    kernel alone and the two streams' overlap (streams_line).
     Returns (thread ms, plain ms, bound)."""
     import torch
 
@@ -3479,6 +3645,7 @@ def phase_analyzer_timing(dev, check: Checker, batch, info: dict):
     if cuda:
         for name in ("thread_narrow", "thread_wide", "sort_"):
             info[f"{name.strip('_')}_us"] = call_us(thread, name, 20)
+        streams_line(info, thread)
     t_len, p_len = desc[1], desc[3]
     q = (0, 0.5, 0.9, 0.99, 1)
     info["items"] = int(desc.shape[1])
@@ -3495,8 +3662,11 @@ def phase_analyzer_timing(dev, check: Checker, batch, info: dict):
 # ------------------------------------------------------ SMART-seq plate
 
 # one plate of one donor: cells, and per cell its on-panel pairs (the
-# donor's alleles), near-miss and random pairs
-PLATE_CELLS = 96
+# donor's alleles), near-miss and random pairs.  48 cells, half a
+# 96-well plate, so the smoke stays inside its time limit on a slow
+# host (a full plate took 296 s of 1,170 s of phases on one, H100 80GB
+# HBM3 at 700 W)
+PLATE_CELLS = 48
 PLATE_PAIRS = (800, 800, 2_400)
 PLATE_GENES, PLATE_EXPRESSED = 8, 6   # donor genes; expressed per cell
 PLATE_WORKERS = 8
@@ -3689,8 +3859,8 @@ def phase_smartseq(dev, work: str, info: dict, plate: tuple) -> tuple:
         merged = [line.rstrip("\n").split("\t") for line in f]
     if len(final) != n_cells + 1:
         raise AssertionError(f"the final matrix has {len(final)} rows")
-    if launches["band_stats_warp"]:
-        raise AssertionError("the plate launched the warp band kernel")
+    if launches["band_stats_warp"] or launches["band_stats_group"]:
+        raise AssertionError("the plate launched a wide-window band kernel")
     kernels = ("phase_a_probe", "phase_a_chain", "band_stats",
                "em_squarem_batched")
     if dev.type == "cuda" and min(launches[k] for k in kernels) <= 0:
@@ -4169,12 +4339,17 @@ def dryrun_scaling(dev, sizes: dict, info: dict) -> dict:
     ab.launch_counts.update(dict.fromkeys(ab.launch_counts, 0))
     em.launch_counts.update(dict.fromkeys(em.launch_counts, 0))
     step = sb.bench_full_step(mesh_of)
-    dry = {key: d[key] for d, key in ((ab.launch_counts, "band_stats_warp"),
+    dry = {key: d[key] for d, key in ((ab.launch_counts, "band_stats_group"),
+                                      (ab.launch_counts, "band_stats_warp"),
                                       (em.launch_counts, "em_squarem"),
                                       *((em.launch_counts, k)
                                         for k in em.ESTEP_KERNELS))}
-    if dev.type == "cuda" and min(dry.values()) <= 0:
+    if dev.type == "cuda" and min(v for k, v in dry.items()
+                                  if k != "band_stats_warp") <= 0:
         raise AssertionError(f"a dry-run kernel never launched: {dry}")
+    if dry["band_stats_warp"] or ab.launch_counts["band_stats"]:
+        raise AssertionError(f"the dry runs left the lane-group kernel: "
+                             f"{dict(ab.launch_counts)}")
     em_scaling = sb.bench_em(mesh_of, sb.scaling_problem(*sizes["scaling"]))
     for n in SHARDS:
         info[f"dryrun_n{n}_s"] = step[n]["s_per_step"]
@@ -4462,7 +4637,7 @@ SOURCES = ("band_stats", "em_squarem", "align_full", "phase_a_probe",
            "phase_a_chain", "cand_census", "kmer_classify")
 # kernel record -> its source under t1k_tpu_torch/csrc/
 KERNELS = {"band_stats": "band_stats", "band_stats_analyzer": "band_stats",
-           "band_stats_warp": "band_stats",
+           "band_stats_group": "band_stats", "band_stats_warp": "band_stats",
            "em_squarem": "em_squarem", "em_squarem_batched": "em_squarem",
            "em_sharded": "em_squarem",
            "align_full": "align_full",
@@ -4493,8 +4668,9 @@ def run(dev, sizes: dict) -> list:
                     if "registers" in line or "spill" in line:
                         print(f"  ptxas {name}:", line.strip(), flush=True)
     with phase("kernel") as info:
-        phase_kernel(dev, checks["band_stats"], checks["band_stats_warp"],
-                     sizes["random_items"], info)
+        _, group_timed = phase_kernel(
+            dev, checks["band_stats"], checks["band_stats_warp"],
+            checks["band_stats_group"], sizes["random_items"], info)
         cuda and torch.cuda.synchronize()
     with phase("em") as info:
         phase_em(dev, *sizes["em"], info)
@@ -4520,11 +4696,12 @@ def run(dev, sizes: dict) -> list:
             *times["em_squarem"], em_err = phase_em_timing(
                 dev, em_problems[0], sizes, info)
         with phase("composite") as info:
-            phase_composite(dev, info)
+            composite_launches = phase_composite(dev, info)
         with phase("timing") as info:
-            times["band_stats"], times["band_stats_warp"] = phase_timing(
-                dev, checks["band_stats"], checks["band_stats_warp"], work,
-                8192, info)
+            times["band_stats"], times["band_stats_warp"], group_chunk = \
+                phase_timing(dev, checks["band_stats"],
+                             checks["band_stats_warp"],
+                             checks["band_stats_group"], work, 8192, info)
         with phase("extract") as info:
             prefix = phase_extract(dev, work, info, sizes["extract"])
         with phase("screen_timing") as info:
@@ -4560,12 +4737,15 @@ def run(dev, sizes: dict) -> list:
     # analyzer); the v1 aligner (on no stage) over its own phase; the
     # batched EM over the SMART-seq plate; and over the run-t1k -b chain
     # and the plate (the v1 aligner's not counted there)
+    dry1024 = group_timed["dryrun_1024"]
+    times["band_stats_group"] = (dry1024[0], dry1024[2], dry1024[3])
     launches = dict(run_launches, align_full=sum(v1_launches.values()),
                     em_squarem_batched=plate_launches["em_squarem_batched"],
                     em_sharded=sharded_launches,
                     **{name: v[1] for name, v in cand.items()})
     replaces = {"band_stats": "t1k_tpu/ops/align_pallas_band.py:55",
                 "band_stats_analyzer": "t1k_tpu/ops/align_pallas_band.py:55",
+                "band_stats_group": "t1k_tpu/ops/align_pallas_band.py:55",
                 "band_stats_warp": "t1k_tpu/ops/align_pallas_band.py:55",
                 "em_squarem": "t1k_tpu/ops/em.py:213",
                 "em_squarem_batched": "t1k_tpu/ops/em.py:359",
@@ -4603,6 +4783,16 @@ def run(dev, sizes: dict) -> list:
     records[list(KERNELS).index("em_squarem_batched")].update(batched_extras)
     records[list(KERNELS).index("band_stats_warp")][
         "launches_dryrun"] = dry_launches["band_stats_warp"]
+    # the lane-group kernel (no stage launches it): timed on the dry run's
+    # 1,024-pair slice, its launches the dry runs' and the composite's
+    records[list(KERNELS).index("band_stats_group")].update(
+        launches_dryrun=dry_launches["band_stats_group"],
+        launches_composite=composite_launches,
+        warp_ms=group_timed["dryrun_1024"][1],
+        batches={name: dict(ms=v[0], warp_ms=v[1], plain_ms=v[2],
+                            bound_ms=v[3][0], cpl=v[4], sort=v[5])
+                 for name, v in group_timed.items()},
+        genotyper_chunk_ms=group_chunk)
     for name, (_, _, extras) in cand.items():
         records[list(KERNELS).index(name)].update(extras)
     # the genotyper's launches on the database the port built (db phase)

@@ -18,8 +18,10 @@ pack their windows into such flat buffers.
 ``band_stats_plain``, the vectorized PyTorch version of the kernels; CUDA
 tensors launch a hand-written kernel of ``csrc/band_stats.cu`` and never
 fall back: one thread per item for windows of at most 32 cells (every
-launch of the engine's deferred items), one warp per item for the wider
-windows.
+launch of the engine's deferred items), a group of lanes per item for
+the wider windows, each lane holding CPL of the item's band slots
+(``group_cpl`` picks CPL for the launch, the item's slot count its group
+of G lanes).
 """
 
 from __future__ import annotations
@@ -52,8 +54,17 @@ DEFER_MAX_DIFF = 10
 SEQ_PAD = 256
 
 # Kernel launches, counted by the CUDA wrapper where it launches:
-# "band_stats" the thread kernel, "band_stats_warp" the warp kernel.
-launch_counts = {"band_stats": 0, "band_stats_warp": 0}
+# "band_stats" the thread kernels, "band_stats_group" the lane-group
+# kernel, "band_stats_warp" the first design's warp kernel (A/B only).
+launch_counts = {"band_stats": 0, "band_stats_group": 0,
+                 "band_stats_warp": 0}
+
+# csrc/band_stats.cu's paths (t1k_band_stats's `path`)
+_PATH_WARP, _PATH_THREAD, _PATH_GROUP = 0, 1, 2
+# Slots a lane of the group kernel can hold (its instantiations); a
+# group has at most 32 lanes and holds at least GROUP_MIN_SLOTS slots.
+GROUP_CPL = (1, 2, 4, 8)
+GROUP_MIN_SLOTS = 16
 
 
 def band_window(ml: int, max_tp_diff: int, cap: int = 256) -> int:
@@ -79,14 +90,80 @@ def kernel_window(w: int) -> int:
     return kw
 
 
+def window_slots(t_lens, p_lens, ml: int, kw: int) -> np.ndarray:
+    """Register slots each item needs in a window of kw cells
+    (band_stats.cu window_slots): the window cells from the column-0 cell
+    left of the band to the row-0 cell right of it."""
+    diff = np.asarray(t_lens, np.int64) - np.asarray(p_lens, np.int64)
+    base = np.maximum(ml - 5 - np.maximum(-diff, 0) - 1, 0)
+    return np.maximum(np.minimum(ml + 5 + np.maximum(diff, 0) + 1, kw - 1)
+                      - base + 1, 1)
+
+
+def group_lanes(slots, cpl: int) -> np.ndarray:
+    """The lane-group kernel's G for items of `slots` slots at `cpl` slots
+    a lane (band_stats.cu group_lg): the fewest lanes, a power of two,
+    whose slots hold the item's and at least GROUP_MIN_SLOTS."""
+    need = np.maximum(-(-np.asarray(slots, np.int64) // cpl),
+                      GROUP_MIN_SLOTS // cpl)
+    return np.minimum(1 << np.ceil(np.log2(np.maximum(need, 1))).astype(
+        np.int64), 32)
+
+
+# The most lanes a lane-group launch may take in all (group_cpl): between
+# the smoke's 4,096 pairs at W = 128 at 2 slots a lane (100,032 lanes,
+# faster than at 4) and its 4,096 pairs at W = 64 at 1 (111,696 lanes,
+# slower than at 2), scripts/band_ab.py's per-CPL times.
+GROUP_MAX_LANES = 104 * 1024
+
+
+def group_cpl(slot_counts) -> int:
+    """Slots a lane for a lane-group launch whose items number
+    slot_counts[s] of s slots each (np.bincount of their slot counts):
+    the fewest (the most lanes an item) whose 32-lane groups hold the
+    largest item and at which the items' groups (group_lanes) take at
+    most GROUP_MAX_LANES lanes in all, else the most.  Per-CPL times
+    fixed it: the dry run's 256-1,024 pairs of 25 slots take 1, the
+    smoke's 4,096 pairs at W = 64 and 128 take 2 and at W = 256 4."""
+    counts = np.asarray(slot_counts, np.int64)
+    slots = np.flatnonzero(counts)
+    for cpl in GROUP_CPL:
+        if 32 * cpl >= slots[-1] and int(
+                (counts[slots] * group_lanes(slots, cpl)).sum()) <= \
+                GROUP_MAX_LANES:
+            return cpl
+    return GROUP_CPL[-1]
+
+
+def group_launch(t_lens, p_lens, ml: int, kw: int):
+    """(cpl, max_slots, sort) of a lane-group launch of items of these
+    lengths: group_cpl's slots a lane, the largest window_slots, and
+    whether the items first go through the class and length sort (three
+    small kernels), which pays wherever the items differ in p_len or in G
+    at that CPL; a batch of one shape runs in index order."""
+    t_lens = np.asarray(t_lens, np.int64)
+    p_lens = np.asarray(p_lens, np.int64)
+    if len(t_lens) == 0:
+        return 1, 1, False
+    slots = window_slots(t_lens, p_lens, ml, kw)
+    max_slots = int(slots.max())
+    cpl = group_cpl(np.bincount(slots))
+    uniform = (p_lens.min() == p_lens.max() and group_lanes(
+        slots.min(), cpl) == group_lanes(max_slots, cpl))
+    return cpl, max_slots, not uniform
+
+
 def band_stats(ref: torch.Tensor, reads: torch.Tensor, desc: torch.Tensor,
-               ml: int, w: int, stats: bool = True) -> torch.Tensor:
+               ml: int, w: int, stats: bool = True,
+               lengths=None) -> torch.Tensor:
     """Scores (row 0) and packed traceback counts (row 1) as an int32
     [2, n] tensor on the inputs' device, single-base and empty items
     fixed up.  CPU tensors take the plain version, CUDA tensors the
-    kernel."""
+    kernel.  `lengths`, where given, are the items' (t_lens, p_lens) on
+    the host, from which the lane-group kernel takes its launch's shape
+    (group_launch); without them it holds the whole window and sorts."""
     if ref.device.type == "cuda":
-        return band_stats_cuda(ref, reads, desc, ml, w, stats)
+        return band_stats_cuda(ref, reads, desc, ml, w, stats, lengths)
     if ref.device.type == "cpu":
         return band_stats_plain(ref, reads, desc, ml, w, stats)
     raise ValueError(f"no band kernel for device {ref.device}")
@@ -235,36 +312,74 @@ def _kernel_lib() -> ctypes.CDLL:
 
     lib = load("band_stats")
     lib.t1k_band_order_ints.restype = ctypes.c_int
-    lib.t1k_band_order_ints.argtypes = []
+    lib.t1k_band_order_ints.argtypes = [ctypes.c_int]
     lib.t1k_band_stats.restype = ctypes.c_int
     lib.t1k_band_stats.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
     return lib
 
 
 def band_stats_cuda(ref: torch.Tensor, reads: torch.Tensor,
                     desc: torch.Tensor, ml: int, w: int,
-                    stats: bool = True) -> torch.Tensor:
+                    stats: bool = True, lengths=None) -> torch.Tensor:
     """Launch csrc/band_stats.cu on the current stream of the inputs'
     device (no synchronisation); same result as band_stats_plain.  A
     window of at most 32 cells takes the thread kernels, a wider one the
-    warp kernel."""
-    return _launch(ref, reads, desc, ml, w, stats, kernel_window(w) == 32)
+    lane-group kernel, shaped by group_launch where `lengths` are given."""
+    kw = kernel_window(w)
+    if kw == 32:
+        return _launch(ref, reads, desc, ml, w, stats, _PATH_THREAD)
+    cpl, max_slots, sort = ((None, kw, True) if lengths is None
+                            else group_launch(*lengths, ml, kw))
+    return _band_stats_group_cuda(ref, reads, desc, ml, w, stats,
+                                  max_slots=max_slots, cpl=cpl, sort=sort)
+
+
+def _band_stats_group_cuda(ref: torch.Tensor, reads: torch.Tensor,
+                           desc: torch.Tensor, ml: int, w: int,
+                           stats: bool = True, max_slots: int = None,
+                           cpl: int = None,
+                           sort: bool = True) -> torch.Tensor:
+    """The lane-group kernel at any window, W = 32 included, its items of
+    at most `max_slots` slots (the window's where None) sorted by class
+    and length or not; `cpl` forces its slots a lane (A/B timing and the
+    card's tests), else group_cpl chooses them as if every item had
+    max_slots slots."""
+    kw = kernel_window(w)
+    max_slots = kw if max_slots is None else int(max_slots)
+    if not 1 <= max_slots <= kw:
+        raise ValueError(f"max_slots {max_slots} outside 1..{kw}")
+    if cpl is None:
+        counts = np.zeros(max_slots + 1, np.int64)
+        counts[max_slots] = max(int(desc.shape[1]), 1)
+        cpl = group_cpl(counts)
+    if cpl not in GROUP_CPL or 32 * cpl < max_slots:
+        raise ValueError(f"{cpl} slots a lane cannot hold {max_slots} "
+                         "slots in 32 lanes")
+    return _launch(ref, reads, desc, ml, w, stats, _PATH_GROUP, cpl,
+                   max_slots, int(bool(sort)))
 
 
 def _band_stats_warp_cuda(ref: torch.Tensor, reads: torch.Tensor,
                           desc: torch.Tensor, ml: int, w: int,
                           stats: bool = True) -> torch.Tensor:
-    """The warp kernel at any window, W = 32 included: for timing it
-    beside the thread kernel and for the card's tests only."""
-    return _launch(ref, reads, desc, ml, w, stats, False)
+    """The first design's warp kernel at any window, W = 32 included: for
+    timing it beside the kernels the route takes and for the card's tests
+    only."""
+    return _launch(ref, reads, desc, ml, w, stats, _PATH_WARP)
 
 
-def _launch(ref, reads, desc, ml, w, stats, thread: bool):
-    """One launch of the thread kernels (counted as one "band_stats") or
-    of the warp kernel."""
+_COUNTED = {_PATH_WARP: "band_stats_warp", _PATH_THREAD: "band_stats",
+            _PATH_GROUP: "band_stats_group"}
+
+
+def _launch(ref, reads, desc, ml, w, stats, path: int, cpl: int = 0,
+            max_slots: int = 0, sort: int = 0):
+    """One launch of the thread kernels (counted as one "band_stats"), of
+    the lane-group kernel or of the warp kernel."""
     dev = ref.device
     for name, x, dt in (("ref", ref, torch.int8), ("reads", reads, torch.int8),
                         ("desc", desc, torch.int64)):
@@ -281,19 +396,21 @@ def _launch(ref, reads, desc, ml, w, stats, thread: bool):
     if n == 0:
         return out
     lib = _kernel_lib()
-    # the thread kernels' item order: bin cursors, the split, perm [n]
-    scratch = (torch.empty(lib.t1k_band_order_ints() + n, dtype=torch.int32,
-                           device=dev) if thread else None)
+    # the item order: bin cursors, the split, perm [n]
+    ordered = path == _PATH_THREAD or (path == _PATH_GROUP and sort)
+    scratch = (torch.empty(lib.t1k_band_order_ints(path) + n,
+                           dtype=torch.int32, device=dev) if ordered else None)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.t1k_band_stats(ref.data_ptr(), reads.data_ptr(),
-                                desc.data_ptr(), n, ml, kw, int(stats),
-                                int(thread),
-                                scratch.data_ptr() if thread else None,
+                                desc.data_ptr(), n, ml, kw, int(stats), path,
+                                cpl, max_slots, sort,
+                                None if scratch is None
+                                else scratch.data_ptr(),
                                 out.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"band_stats kernel launch failed: CUDA error {rc}")
-    launch_counts["band_stats" if thread else "band_stats_warp"] += 1
+    launch_counts[_COUNTED[path]] += 1
     return out
 
 
@@ -334,7 +451,8 @@ def banded_scores_band(t_codes, t_lens, p_codes, p_lens,
     the window width adapts to the batch's length differences."""
     ml, over = _window_class(t_lens, p_lens)
     ref, reads, desc = _pack_windows(t_codes, t_lens, p_codes, p_lens, device)
-    out = band_stats(ref, reads, desc, ml, band_window(ml, over), stats=False)
+    out = band_stats(ref, reads, desc, ml, band_window(ml, over), stats=False,
+                     lengths=(t_lens, p_lens))
     return out[0].cpu().numpy()
 
 
@@ -357,7 +475,8 @@ def banded_stats_band(t_codes, t_lens, p_codes, p_lens, ml: int = None,
     if max_ops >= 512:
         raise ValueError("packed count fields overflow beyond 511 ops")
     ref, reads, desc = _pack_windows(t_codes, t_lens, p_codes, p_lens, device)
-    out = band_stats(ref, reads, desc, ml, w).cpu().numpy()
+    out = band_stats(ref, reads, desc, ml, w,
+                     lengths=(t_lens, p_lens)).cpu().numpy()
     packed = out[1]
     return out[0], packed & 511, (packed >> 9) & 511, (packed >> 18) & 511
 

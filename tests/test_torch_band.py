@@ -348,21 +348,40 @@ def test_desc_service_edge_shapes(diff, p_len):
 THREAD_SLOTS = (13, 24, 32)
 
 
-def _thread_slots(t_len, p_len, ml):
-    """Register slots one item needs (band_stats.cu item_slots): the
-    window cells from the column-0 cell left of the band to the row-0 cell
-    right of it."""
+def _thread_slots(t_len, p_len, ml, kw=32):
+    """Register slots one item needs in a window of kw cells (band_stats.cu
+    window_slots): the window cells from the column-0 cell left of the
+    band to the row-0 cell right of it."""
     diff = t_len - p_len
     base = max(ml - 5 - max(-diff, 0) - 1, 0)
-    return max(min(ml + 5 + max(diff, 0) + 1, 31) - base + 1, 1)
+    return max(min(ml + 5 + max(diff, 0) + 1, kw - 1) - base + 1, 1)
 
 
-def _thread_item(ref, reads, item, ml, ns, stats=True):
-    """Scalar mirror of csrc/band_stats.cu's band_item for one item
-    (t_off, t_len, p_off, p_len), slot for slot: the same register slots,
-    running max, copy scan and boundary cases, and the narrow kernel's
-    rows without column 0 (13 slots).  Returns (score, packed counts)."""
-    neg, go, ge, m32, kw = ab.NEG_INF, ab.GO, ab.GE, 0xFFFFFFFF, 32
+def _lane_scan(vals, op):
+    """Inclusive scan over a group's lanes in log2 G steps, as the kernel's
+    __shfl_up_sync steps of width G: lane g takes lane g - d's value for
+    d = 1, 2, 4, ..."""
+    vals = list(vals)
+    d = 1
+    while d < len(vals):
+        vals = [op(v, vals[g - d]) if g >= d else v
+                for g, v in enumerate(vals)]
+        d *= 2
+    return vals
+
+
+def _thread_item(ref, reads, item, ml, ns, stats=True, kw=32, lanes=1):
+    """Scalar mirror of csrc/band_stats.cu's band_item (lanes = 1) and
+    group_item (a group of `lanes` lanes, each holding ns / lanes slots)
+    for one item (t_off, t_len, p_off, p_len), slot for slot in a window
+    of kw cells: the same register slots, running max, copy scan and
+    boundary cases, the narrow kernel's and the group kernel's rows
+    without column 0, and in a group the lane totals of u and the lanes'
+    last open cells carried lane to lane by log2 G step scans, the
+    payload taken from the lane holding the key.  Returns (score, packed
+    counts)."""
+    neg, go, ge, m32 = ab.NEG_INF, ab.GO, ab.GE, 0xFFFFFFFF
+    cpl = ns // lanes
     t_off, tl, p_off, pl = (int(x) for x in item)
     diff = tl - pl
     left, right = 5 + max(-diff, 0), 5 + max(diff, 0)
@@ -379,7 +398,8 @@ def _thread_item(ref, reads, item, ml, ns, stats=True):
         pm[s] = 0 if j0 == 0 else (j0 * ab.IU + (
             0 if j0 * ge >= (pl + 1) * go else ab.IU)) & m32
         pe[s] = 0 if j0 == 0 else ((j0 + 1) * ab.IU) & m32
-    col0_rows = min(pl, ml - base) if ns == 13 else pl
+    split = lanes > 1 or ns == 13
+    col0_rows = min(pl, ml - base) if split else pl
     for i in range(1, pl + 1):
         k_col0 = i <= col0_rows
         js0 = base - ml + i  # text column of slot 0
@@ -390,43 +410,72 @@ def _thread_item(ref, reads, item, ml, ns, stats=True):
         c0, m0_i, start_le1 = -js0, go + i * go, left >= i - 1
         lo = max(band_lo, 1 - js0, 0)
         hi = min(band_hi, tl - js0, ns - 1)
-        run = m_left = neg
-        nof_left = last_p = 0
-        last_w = -1024
+        col0 = [k_col0 and s == c0 for s in range(ns)]
+        j_pos = [not k_col0 or js0 + s >= 1 for s in range(ns)]
+        inband = [lo <= s <= hi for s in range(ns)]
+        # the slots' own terms: vertical move, h and u
+        ec, h, u = [0] * ns, [0] * ns, [0] * ns
         for s in range(ns):
-            j, col0, inband = js0 + s, k_col0 and s == c0, lo <= s <= hi
-            j_pos = not k_col0 or j >= 1
-            sub = ab.SCORE_MATCH if match[s] else ab.SCORE_MISMATCH
             up = s + 1 < ns
-            m_up = m[s + 1] if up else neg
-            ec = max(e[s + 1] + ge, m_up + go + ge) if up else neg
-            if col0:
-                ec = go + i * ge
-            h = m0_i if col0 else max(m[s] + sub, ec)
-            if not (inband or (col0 and start_le1)):
-                h = neg
-            u = (m0_i - go if start_le1 else neg) if col0 else h - ge * j
-            f = go + ge * j + run
-            run = max(run, u)
-            ibc = inband or col0
-            mc = m0_i if col0 else (max(h, f) if ibc else neg)
-            ec = ec if ibc else neg
-            if stats:
-                open_e = m_up + go + ge == ec
-                pe_new = (ab.IU + ((pm[s + 1] if open_e else pe[s + 1])
-                                   if up else 0)) & m32
-                diag_ok = m[s] + sub == mc and j_pos
-                diag_p = (pm[s] + (ab.MU if match[s] else ab.XU)) & m32
-                nof = diag_p if diag_ok else pe_new
-                if col0 or (m_left + go + ge == f and j_pos):
-                    last_w, last_p = base + s, (i * ab.IU if col0
-                                                else nof_left)
-                pf = (last_p + (base + s - last_w + 1) * ab.IU) & m32
-                v = diag_p if diag_ok else (pf if f >= ec else pe_new)
-                pm[s], pe[s] = (i * ab.IU if col0 else v), pe_new
-                nof_left = nof
-            m_left = m[s] = mc
-            e[s] = ec
+            ec[s] = max(e[s + 1] + ge, m[s + 1] + go + ge) if up else neg
+            if col0[s]:
+                ec[s] = go + i * ge
+            sub = ab.SCORE_MATCH if match[s] else ab.SCORE_MISMATCH
+            h[s] = m0_i if col0[s] else max(m[s] + sub, ec[s])
+            if not (inband[s] or (col0[s] and start_le1)):
+                h[s] = neg
+            u[s] = ((m0_i - go if start_le1 else neg) if col0[s]
+                    else h[s] - ge * (js0 + s))
+        # the max of u left of each lane: its lanes' totals, scanned
+        tot = _lane_scan([max([neg] + u[g * cpl:(g + 1) * cpl])
+                          for g in range(lanes)], max)
+        f, mc = [0] * ns, [0] * ns
+        pe_new, diag_p, nof, diag_ok = [0] * ns, [0] * ns, [0] * ns, [0] * ns
+        for g in range(lanes):
+            run = tot[g - 1] if g else neg
+            for s in range(g * cpl, (g + 1) * cpl):
+                f[s] = go + ge * (js0 + s) + run
+                run = max(run, u[s])
+                ibc = inband[s] or col0[s]
+                mc[s] = m0_i if col0[s] else (max(h[s], f[s]) if ibc
+                                              else neg)
+                ec[s] = ec[s] if ibc else neg
+                if stats:
+                    up = s + 1 < ns
+                    m_up = m[s + 1] if up else neg
+                    open_e = m_up + go + ge == ec[s]
+                    pe_new[s] = (ab.IU + ((pm[s + 1] if open_e else pe[s + 1])
+                                          if up else 0)) & m32
+                    sub = ab.SCORE_MATCH if match[s] else ab.SCORE_MISMATCH
+                    diag_ok[s] = m[s] + sub == mc[s] and j_pos[s]
+                    diag_p[s] = (pm[s] + (ab.MU if match[s] else ab.XU)) & m32
+                    nof[s] = diag_p[s] if diag_ok[s] else pe_new[s]
+        if stats:
+            # the open cells and their payloads, each lane's last one
+            opened, pay = [False] * ns, [0] * ns
+            agg = []
+            for g in range(lanes):
+                lk, lp = -1024, 0
+                for s in range(g * cpl, (g + 1) * cpl):
+                    m_left = mc[s - 1] if s else neg
+                    opened[s] = col0[s] or (m_left + go + ge == f[s]
+                                            and j_pos[s])
+                    pay[s] = i * ab.IU if col0[s] else (nof[s - 1] if s else 0)
+                    if opened[s]:
+                        lk, lp = base + s, pay[s]
+                agg.append((lk, lp))
+            keys = _lane_scan([k for k, _ in agg], max)
+            for g in range(lanes):
+                last_w = keys[g - 1] if g else -1024
+                last_p = agg[(last_w - base) // cpl][1] if last_w >= 0 else 0
+                for s in range(g * cpl, (g + 1) * cpl):
+                    if opened[s]:
+                        last_w, last_p = base + s, pay[s]
+                    pf = (last_p + (base + s - last_w + 1) * ab.IU) & m32
+                    v = diag_p[s] if diag_ok[s] else (
+                        pf if f[s] >= ec[s] else pe_new[s])
+                    pm[s], pe[s] = (i * ab.IU if col0[s] else v), pe_new[s]
+        m, e = mc, ec
     fs = ml + diff - base
     score, statv = neg, 0
     if 0 <= ml + diff < kw and fs < ns:
@@ -440,13 +489,10 @@ def _thread_item(ref, reads, item, ml, ns, stats=True):
     return score, packed if stats else 0
 
 
-def _mirror_batches():
-    """(name, ref, reads, desc, ML, W) batches for the mirror:
-    every MIRROR_SHAPES item at the descriptor route's (15, 32), and the
-    byte-window batches of the stats cases and the golden table at their
-    own (ML, W)."""
-    rng = np.random.default_rng(77)
-    ref, reads, starts, lens, items = _shape_items(rng, MIRROR_SHAPES, 1)
+def _desc_batch(rng, shapes, ml, kw, copies=1):
+    """(ref, reads, desc, ML, kW) tensors of _shape_items's items, the
+    patterns addressed through a doubled read tensor (rc half)."""
+    ref, reads, starts, lens, items = _shape_items(rng, shapes, copies)
     t_off, t_len, _, _, p_len, rc = items
     base = reads.size + ab.SEQ_PAD
     rc_half = np.concatenate([reads, np.zeros(ab.SEQ_PAD, np.int8)])
@@ -457,9 +503,18 @@ def _mirror_batches():
             r < 4, 3 - r, r)[::-1]
     flat = np.concatenate([reads, np.zeros(ab.SEQ_PAD, np.int8), rc_half])
     desc = np.stack([t_off, t_len, np.where(rc, base, 0) + starts, p_len])
-    out = [("edges", torch.from_numpy(np.concatenate(
+    return (torch.from_numpy(np.concatenate(
         [ref, np.zeros(ab.SEQ_PAD, np.int8)])), torch.from_numpy(flat),
-        torch.from_numpy(desc.astype(np.int64)), ab.DESC_ML, ab.DESC_W)]
+        torch.from_numpy(desc.astype(np.int64)), ml, kw)
+
+
+def _mirror_batches():
+    """(name, ref, reads, desc, ML, W) batches for the mirror:
+    every MIRROR_SHAPES item at the descriptor route's (15, 32), and the
+    byte-window batches of the stats cases and the golden table at their
+    own (ML, W)."""
+    out = [("edges", *_desc_batch(np.random.default_rng(77), MIRROR_SHAPES,
+                                  ab.DESC_ML, ab.DESC_W))]
     for name, (tc, tl, pc, pl) in (("stats_cases", _stats_cases()),
                                    ("golden", _golden_batch()[:4])):
         ml, over = ab._window_class(tl, pl)
@@ -468,24 +523,123 @@ def _mirror_batches():
     return out
 
 
-@pytest.mark.parametrize("stats", [True, False])
-def test_thread_kernel_mirror_matches_plain(stats):
-    """The thread kernel's slot loop, run as scalar Python on each item,
-    equals the plain version on the edge shapes (every diff in [-10, 10]
-    against p_len 1-254, t_len 0 included), the stats cases and the golden
-    table, with the smallest slot count each item fits (a warp of such
-    items) and with 32 slots (a warp holding a wider item)."""
-    for name, ref, reads, desc, ml, w in _mirror_batches():
+def _wide_shapes(ml, kw, diffs, p_lens=(1, 2, 16, 33, 95, 160, 254)):
+    """(t_len - p_len, p_len) shapes a window of kw cells at ML takes:
+    each diff against each p_len where 0 <= t_len and t_len + p_len + 2 <
+    512, and t_len = 0 against p_len 1, 2 and ML - 5 where ML covers it."""
+    shapes = [(d, p) for d in diffs for p in p_lens
+              if 0 <= p + d and 2 * p + d + 2 < 512]
+    shapes += [(-p, p) for p in sorted({1, 2, ml - 5}) if 1 <= p <= ml - 5]
+    assert all(-d <= ml - 5 and d <= kw - ml - 6 for d, _ in shapes)
+    return shapes
+
+
+# The lane-group kernel's batches (W > 32): name -> (ML, kernel window,
+# diffs).  ML = 117 at W = 256 takes diff -112 to +112 (up to 125 slots);
+# ML = 5 there diff up to +244 (256 slots, only CPL = 8 holds them).
+WIDE_MIRROR = {
+    "W64": (30, 64, (-25, -24, -13, -1, 0, 1, 7, 14, 27, 28)),
+    "W128": (60, 128, (-55, -54, -30, -1, 0, 1, 20, 45, 61, 62)),
+    "W256": (117, 256, (-112, -111, -70, -17, 0, 1, 33, 80, 111, 112)),
+    "W256_ML5": (5, 256, (0, 20, 125, 200, 243, 244)),
+}
+
+
+def _wide_batch(name):
+    ml, kw, diffs = WIDE_MIRROR[name]
+    return (name, *_desc_batch(np.random.default_rng(sum(map(ord, name))),
+                               _wide_shapes(ml, kw, diffs), ml, kw))
+
+
+def _pallas_band_stats(ref, reads, desc, ml, w):
+    """The JAX package's _band_stats_call (interpret mode, one block of
+    128 lanes) on the items of `desc`, packed as _band_grid packs them,
+    with its single-base and empty fix-ups.  Returns int32 [2, n]."""
+    import jax.numpy as jnp
+    from t1k_tpu.ops.align_pallas_band import (LANES, _band_stats_call,
+                                               _round_up)
+
+    r, q, d = ref.numpy(), reads.numpy(), desc.numpy()
+    n = d.shape[1]
+    assert n <= LANES
+    t_off, tl, p_off, pl = d
+    Lt, Lp = int(tl.max()), int(pl.max())
+    lead = ml + 1
+    Lt_pad = _round_up(max(Lt + lead, Lp + w + 1) + 1, 8)
+    Lp_pad = _round_up(max(Lp, 8), 8)
+    tb = np.zeros((LANES, Lt_pad), np.int32)
+    pb = np.zeros((LANES, Lp_pad), np.int32)
+    for k in range(n):
+        tb[k, lead:lead + tl[k]] = r[t_off[k]:t_off[k] + tl[k]]
+        pb[k, :pl[k]] = q[p_off[k]:p_off[k] + pl[k]]
+    lens = [np.zeros((1, 1, LANES), np.int32) for _ in range(2)]
+    lens[0][0, 0, :n], lens[1][0, 0, :n] = tl, pl
+    score, packed = (np.asarray(x)[0, :n] for x in _band_stats_call(
+        jnp.asarray(lens[0]), jnp.asarray(lens[1]), jnp.asarray(tb.T[None]),
+        jnp.asarray(pb.T[None]), G=1, ML=ml, Lp=Lp, interpret=True, W=w))
+    t0 = r[t_off].astype(np.int32)
+    p0 = q[p_off].astype(np.int32)
+    eq = (t0 == p0) | (t0 == 4) | (p0 == 4)
+    single = (tl == 1) & (pl == 1)
+    score = np.where(single, np.where(eq, ab.SCORE_MATCH, ab.SCORE_MISMATCH),
+                     score)
+    packed = np.where(single, np.where(eq, ab.MU, ab.XU), packed)
+    empty = (tl == 0) | (pl == 0)
+    return np.stack([np.where(empty, 0, score), np.where(empty, 0, packed)])
+
+
+# (stats, window, CPL) of the mirror: the thread kernels at W = 32 (CPL
+# None, under their first ids), the lane-group kernel at each CPL the
+# dispatch can take for each batch (32 * CPL at least its widest item),
+# W = 32 included (the group kernel forced there)
+MIRROR_CASES = [(True, "W32", None), (False, "W32", None)] + [
+    (True, "W32", c) for c in (1, 2, 4, 8)] + [
+    (True, "W64", c) for c in (2, 4, 8)] + [
+    (True, "W128", c) for c in (4, 8)] + [
+    (True, "W256", c) for c in (4, 8)] + [
+    (True, "W256_ML5", 8), (False, "W64", 2), (False, "W256", 4)]
+
+
+@pytest.mark.parametrize(
+    "stats,window,cpl", MIRROR_CASES,
+    ids=[str(st) if c is None else f"{st}-{w}-cpl{c}"
+         for st, w, c in MIRROR_CASES])
+def test_thread_kernel_mirror_matches_plain(stats, window, cpl):
+    """The kernels' slot loop, run as scalar Python on each item, equals
+    the plain version.  Thread kernels (CPL None): the edge shapes (every
+    diff in [-10, 10] against p_len 1-254, t_len 0 included), the stats
+    cases and the golden table, with the smallest slot count each item
+    fits (a warp of such items) and with 32 slots (a warp holding a wider
+    item).  Lane-group kernel: each item on its group of G lanes of CPL
+    slots (the G the dispatch takes for it), at W = 32 on those batches
+    and at W = 64, 128 and 256 on items with diff from -112 to +244, p_len
+    1-254 and t_len 0, there also equal to the JAX package's
+    _band_stats_call in interpret mode."""
+    batches = (_mirror_batches() if window == "W32"
+               else [_wide_batch(window)])
+    for name, ref, reads, desc, ml, w in batches:
+        kw = ab.kernel_window(w)
         want = ab.band_stats_plain(ref, reads, desc, ml, w, stats).numpy()
+        if window != "W32":
+            pallas = _pallas_band_stats(ref, reads, desc, ml, w)
+            assert (pallas[0] == want[0]).all(), name
+            if stats:
+                assert (pallas[1] == want[1]).all(), name
         r, q, d = ref.numpy(), reads.numpy(), desc.numpy()
-        for widest in (False, True):
-            got = []
-            for k in range(d.shape[1]):
-                need = _thread_slots(int(d[1, k]), int(d[3, k]), ml)
-                ns = 32 if widest else min(c for c in THREAD_SLOTS
-                                           if c >= need)
-                got.append(_thread_item(r, q, d[:, k], ml, ns, stats))
-            assert (np.array(got).T == want).all(), (name, widest)
+        need = [_thread_slots(int(d[1, k]), int(d[3, k]), ml, kw)
+                for k in range(d.shape[1])]
+        if cpl is None:
+            layouts = [[(min(c for c in THREAD_SLOTS if c >= x), 1)
+                        for x in need], [(32, 1)] * len(need)]
+        else:
+            assert max(need) <= 32 * cpl
+            lanes = [int(g) for g in ab.group_lanes(need, cpl)]
+            layouts = [[(cpl * g, g) for g in lanes]]
+            assert len({g for _, g in layouts[0]}) >= 2, name
+        for layout in layouts:
+            got = [_thread_item(r, q, d[:, k], ml, ns, stats, kw, g)
+                   for k, (ns, g) in enumerate(layout)]
+            assert (np.array(got).T == want).all(), (name, layout[0])
 
 
 @pytest.mark.cuda
@@ -512,6 +666,103 @@ def test_cuda_thread_and_warp_kernels_match_plain(cuda_device):
         ref = ab.banded_stats_band(tc, tl, pc, pl, w=w, device="cpu")
         for g, r in zip(got, ref):
             assert (g == r).all()
+
+
+def _wide_windows(rng, w, n=4096):
+    """(t_len, p_len) of chip_smoke.py's wide batches: t_len 40-199, p_len
+    shorter by 0 to (w - 32) / 2, at least 1."""
+    t_len = rng.integers(40, 200, n)
+    return t_len, np.clip(t_len - rng.integers(0, (w - 32) // 2 + 1, n), 1,
+                          None)
+
+
+# Batches whose fastest CPL scripts/band_ab.py measured on an H100 (80GB
+# HBM3, 700 W), sorted where group_launch sorts: name -> (ML, W, CPL)
+GROUP_CPL_CASES = {
+    "dryrun_256": (10, 40, 1), "dryrun_512": (10, 40, 1),
+    "dryrun_1024": (10, 40, 1), "dryshape_16384": (10, 40, 8),
+    "wide_W64": (5, 64, 2), "wide_W128": (5, 128, 2),
+    "wide_W256": (5, 256, 4), "wide256_1024": (5, 256, 4),
+    "wide256_16384": (5, 256, 8)}
+
+
+@pytest.mark.parametrize("name", sorted(GROUP_CPL_CASES))
+def test_group_launch_takes_the_fastest_measured_cpl(name):
+    """group_launch picks, for each batch the rule was fixed on, the CPL
+    that was fastest there (route and every CPL in turns on the card),
+    every CPL it returns holds the largest item in 32 lanes, and a batch
+    of one shape runs unsorted."""
+    from t1k_tpu_torch.parallel import dryrun
+
+    ml, w, want = GROUP_CPL_CASES[name]
+    kind, n = name.rsplit("_", 1)
+    rng = np.random.default_rng(2024)
+    if kind.startswith("dry"):
+        _, tl, _, pl = dryrun.example_batch(int(n) if kind == "dryshape"
+                                            else dryrun.B, dryrun.LT,
+                                            dryrun.LP)
+        tl, pl = tl[:int(n)], pl[:int(n)]
+    else:
+        tl, pl = _wide_windows(rng, w if kind == "wide" else 256,
+                               4096 if kind == "wide" else int(n))
+    kw = ab.kernel_window(w)
+    cpl, max_slots, sort = ab.group_launch(tl, pl, ml, kw)
+    assert max_slots == ab.window_slots(tl, pl, ml, kw).max()
+    assert cpl == want and 32 * cpl >= max_slots
+    assert sort == (kind != "dryrun" and kind != "dryshape")
+
+
+@pytest.mark.cuda
+def test_cuda_group_kernel_matches_plain(cuda_device):
+    """On a card: the lane-group kernel, the route of every window above
+    32 cells, equals the plain version on the mirror's wide batches (W =
+    64, 128 and 256, diff -112 to +244) through band_stats, with and
+    without the items' lengths, and at every CPL whose 32-lane groups hold
+    the batch, sorted and not; forced at W = 32
+    on the mirror's batches at every CPL; and
+    through banded_stats_band on the dry run's shard slices (1,024, 512
+    and 256 pairs of 112 / 100 at ML = 10).  The first design's warp
+    kernel equals the plain version on the wide batches.  band_stats
+    counts its wide launches as band_stats_group and none as the thread
+    kernels' or the warp kernel's."""
+    from t1k_tpu_torch.parallel import dryrun
+
+    batches = [_wide_batch(name) for name in WIDE_MIRROR] + _mirror_batches()
+    for name, ref, reads, desc, ml, w in batches:
+        args = [x.to(cuda_device) for x in (ref, reads, desc)]
+        kw = ab.kernel_window(w)
+        need = int(ab.window_slots(desc[1].numpy(), desc[3].numpy(), ml,
+                                   kw).max())
+        for stats in (True, False):
+            want = ab.band_stats_plain(ref, reads, desc, ml, w, stats)
+            if kw > 32:
+                for lengths in (None, (desc[1].numpy(), desc[3].numpy())):
+                    n0 = dict(ab.launch_counts)
+                    got = ab.band_stats(*args, ml, w, stats, lengths).cpu()
+                    assert ab.launch_counts == dict(
+                        n0, band_stats_group=n0["band_stats_group"] + 1)
+                    assert torch.equal(got, want), (name, stats)
+                warp = ab._band_stats_warp_cuda(*args, ml, w, stats).cpu()
+                assert torch.equal(warp, want), (name, stats)
+            for cpl in ab.GROUP_CPL:
+                if 32 * cpl < need:
+                    continue
+                for sort in (False, True):
+                    got = ab._band_stats_group_cuda(
+                        *args, ml, w, stats, max_slots=need, cpl=cpl,
+                        sort=sort).cpu()
+                    assert torch.equal(got, want), (name, stats, cpl, sort)
+    tc, tl, pc, pl = dryrun.example_batch(dryrun.B, dryrun.LT, dryrun.LP)
+    for n in (1024, 512, 256):
+        n0 = ab.launch_counts["band_stats_group"]
+        got = ab.banded_stats_band(tc[:n], tl[:n], pc[:n], pl[:n],
+                                   ml=dryrun.ML, w=dryrun.W,
+                                   device=cuda_device)
+        assert ab.launch_counts["band_stats_group"] == n0 + 1
+        want = ab.banded_stats_band(tc[:n], tl[:n], pc[:n], pl[:n],
+                                    ml=dryrun.ML, w=dryrun.W, device="cpu")
+        for g, r in zip(got, want):
+            assert (g == r).all(), n
 
 
 @pytest.mark.cuda
