@@ -54,7 +54,23 @@ Phases, in order; any failure raises and the exit code is non-zero:
                    gpu, byte-compared with the native route of t1k_tpu;
                    both kernels' launch counts over the run must be > 0;
                    the EM problem its genotyper solves is kept
-  8. db            the port's database build into its genotyper: an
+  8. distributed   the host-sharded genotyper on main's panel and reads:
+                   t1k_tpu_torch.parallel.distributed's
+                   run_genotyper_distributed at 3 shards (an engine a
+                   shard, one band-kernel service for all), --backend
+                   gpu --emBackend gpu, in this process (launch counts
+                   set to 0 before and read after): exactly the four
+                   genotyper files, each equal to main's port and native
+                   outputs; each shard's fragments, deferred items, band
+                   launches and host seconds; the band kernel and the
+                   EM kernel must launch.  Then t1k_tpu_torch.cli.run on
+                   the first 2,000 of those pairs (cut from 12,000 for
+                   the time limit) as one process and as two processes
+                   under T1K_NUM_PROCESSES=2 on the one card, each a
+                   child process with its launch counts printed: every
+                   output equal, both processes launching the band
+                   kernel; each route's wall
+  9. db            the port's database build into its genotyper: an
                    IPD-shaped .dat (tests/test_db_scale.py's generator,
                    copied: 24 genes x 125 records, ~8.9 MB, exon-only and
                    block-dropped partials, duplicates) and a GTF that puts
@@ -71,7 +87,7 @@ Phases, in order; any failure raises and the exit code is non-zero:
                    launched by the first and not by the second; build
                    seconds, each route's wall (split at its first and
                    last stage lines) and stages
-  9. candidates    DeviceCandidates (K10: probe, census kernel, bucket
+ 10. candidates    DeviceCandidates (K10: probe, census kernel, bucket
                    chain) on the card against its plain version on the
                    CPU, array for array, and every decided read's keep set
                    against the native engine's overlap buckets: seeded
@@ -103,7 +119,7 @@ Phases, in order; any failure raises and the exit code is non-zero:
                    census, the census of the chunk's largest read alone,
                    the chain, the keep set, the chunk and the tile route
                    timed, the plain census and chain once
- 10. em_timing     the EM kernel on that HLA problem, the microcell and a
+ 11. em_timing     the EM kernel on that HLA problem, the microcell and a
                    seeded problem with ~10x its incidences (the
                    device-memory instantiation): kernel alone (tables on
                    the card), the em_quantify_gpu wrapper and the native
@@ -115,20 +131,20 @@ Phases, in order; any failure raises and the exit code is non-zero:
                    tensor code) on the same three problems, its rounds
                    and largest difference from the native loop printed,
                    its loop in turns with K5
- 11. composite     parallel/dryrun.py's entry() (the single-device
+ 12. composite     parallel/dryrun.py's entry() (the single-device
                    composite of __graft_entry__.entry(): band kernel,
                    FragWeight, one round of the dense int8 EM in float32)
                    on the card against its CPU run: match equal, x2 within
                    rtol 1e-4, atol 1e-8; its band launches the lane-group
                    kernel's alone; timed
- 12. timing        thread kernels, warp kernel, the lane-group kernel
+ 13. timing        thread kernels, warp kernel, the lane-group kernel
                    forced at W = 32 and plain version, in turns, on the
                    largest deferred-item batch one engine chunk of the
                    main path sends, with the chunk's shape (p_len and
                    |t_len - p_len| quantiles, row use of the sorted launch,
                    slot counts of its warps) and how the narrow and wide
                    thread kernels overlapped on their two streams
- 13. extract       the FASTQ extraction stage on the same panel (k = 13,
+ 14. extract       the FASTQ extraction stage on the same panel (k = 13,
                    hashed table): 100,000 read pairs of 2 x 100 bp
                    (2,000 simulated on-panel pairs, 8,000 near-miss
                    pairs, 90,000 random pairs, shuffled; cut from 200,000
@@ -138,9 +154,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
                    t1k_tpu.cli.extract --backend native run in a child
                    process; both phase-A kernels must launch and the
                    device must decide a share of the screened reads
- 14. screen_timing probe and chain kernels vs their plain versions, in
+ 15. screen_timing probe and chain kernels vs their plain versions, in
                    turns, on one full 1024-row chunk of the extract inputs
- 15. run           the run-t1k chain (extract -> genotype -> analyze) on
+ 16. run           the run-t1k chain (extract -> genotype -> analyze) on
                    the same panel: 250,000 read pairs built as extract's
                    (10,000 simulated, 40,000 near-miss, 200,000 random),
                    the simulated pairs of two genes drawn from copies of
@@ -157,7 +173,7 @@ Phases, in order; any failure raises and the exit code is non-zero:
                    analyzer's read assignment must launch; each route's
                    process wall and stage seconds (between the lines of
                    its log that open and close each stage) are printed
- 16. kmer          K11 (ops/kmer.py, csrc/kmer_classify.cu): the table of
+ 17. kmer          K11 (ops/kmer.py, csrc/kmer_classify.cu): the table of
                    the panel at k = 11, 12, 13 (pair tables), 14 (the
                    centre-canonical table) and 15, 16 (hashed), build
                    seconds printed, and the kernel and its first design
@@ -173,7 +189,7 @@ Phases, in order; any failure raises and the exit code is non-zero:
                    each design reads (counted from the keys, not a
                    hardware counter), reads/s, and the bound (bytes and
                    gathers)
- 17. bam_run       the run-t1k chain on a BAM (-b, with -c the coordinate
+ 18. bam_run       the run-t1k chain on a BAM (-b, with -c the coordinate
                    fasta: every panel allele on its gene's interval of
                    chr6): 250,000 pairs of 2 x 100 bp (BAM_PAIRS:
                    10,000 on-panel pairs in their gene's interval, 1,000
@@ -191,14 +207,14 @@ Phases, in order; any failure raises and the exit code is non-zero:
                    then the port's extraction alone in this process, its
                    screen on the host engine, then on the card, each run
                    timed and its outputs equal to the chain's
- 18. run_profile   the port's analyzer alone on the run's genotyper
+ 19. run_profile   the port's analyzer alone on the run's genotyper
                    outputs under torch.profiler: the same VCF, and the
                    card's busy and idle share of each analyzer stage; its
                    largest batch of deferred items is kept
- 19. analyzer_timing  the thread band kernels vs their plain version on
+ 20. analyzer_timing  the thread band kernels vs their plain version on
                    that batch, exact and in turns, with its shape and
                    the two streams' overlap
- 20. smartseq      one SMART-seq2 plate of one donor: 48 cells of 4,000
+ 21. smartseq      one SMART-seq2 plate of one donor: 12 cells of 4,000
                    pairs of 2 x 100 bp (800 simulated from the donor's
                    two alleles of 6 of 8 panel genes, drawn per cell, at
                    a ratio drawn from [0.1, 0.9]; 800 near-miss and 2,400
@@ -214,7 +230,7 @@ Phases, in order; any failure raises and the exit code is non-zero:
                    chain, band and the batched EM must launch; each
                    route's wall and pass walls, and a spawn pool's
                    start-up
- 21. cohort_em_timing  the EM kernel's cohort form alone on (a) the 96
+ 22. cohort_em_timing  the EM kernel's cohort form alone on (a) the
                    problems the port's second pass solved and (b) 384
                    cells of benchmarks/cohort_em.py's default shape: the
                    batched launches at the cells' widths, the same cells
@@ -225,7 +241,7 @@ Phases, in order; any failure raises and the exit code is non-zero:
                    native loop; per launch its kernel's registers, local
                    bytes, resident blocks an SM and waves (local bytes in
                    a launch at the cells' widths fail)
- 22. sharded_em    the sharded EM (t1k_tpu_torch/parallel/mesh.py and
+ 23. sharded_em    the sharded EM (t1k_tpu_torch/parallel/mesh.py and
                    multihost.py; the sharded form of em_squarem.cu) on
                    one card: em_quantify_sharded_squarem over [card] x n,
                    n = 1, 2, 4, on the main phase's HLA problem and the
@@ -293,7 +309,8 @@ and the keep set out) with the forced and largest-read census times,
 the chunk's, the keep set's and the tile route's, generate's and
 set_candidates' seconds, host waits a chunk, the decided share and each
 run's read_assignment seconds; launches_db on band_stats and
-em_squarem, their launches in the db phase's card route; launches_dryrun
+em_squarem, their launches in the db phase's card route, and
+launches_distributed, in the in-process sharded genotyper; launches_dryrun
 on band_stats_group, band_stats_warp (0) and
 em_sharded over the dry runs; kmer_classify, K11 at the extractor's k
 on the run phase's reads, its launches the run chain's (no stage calls
@@ -1251,6 +1268,139 @@ def phase_main(dev, work: str, n_genes: int, copies: int, n_pairs: int,
     for route, m in metrics.items():
         print(f"  {route} stages: " + " ".join(
             f"{k}={v['seconds']}s" for k, v in m.items()), flush=True)
+
+
+# ---------------------------------------------------- distributed phase
+DIST_SHARDS = 3
+# the multi-process flavour's read pairs: the first of main's, cut from
+# its 12,000 for the time limit (4,000 took two chains of 29.6-37.4 s,
+# H100 80GB HBM3 at 700 W)
+MP_PAIRS = 2_000
+MP_OUTPUTS = ("_candidate_1.fq", "_candidate_2.fq", "_genotype.tsv",
+              "_allele.tsv", "_aligned_1.fa", "_aligned_2.fa",
+              "_allele.vcf")
+DIST_OUTPUTS = ("_genotype.tsv", "_allele.tsv", "_aligned_1.fa",
+                "_aligned_2.fa")
+
+
+def same_files(a: str, b: str, suffixes, what: str) -> None:
+    for suffix in suffixes:
+        with open(a + suffix, "rb") as f, open(b + suffix, "rb") as g:
+            if f.read() != g.read():
+                raise AssertionError(f"{what}: {suffix} differs")
+
+
+def phase_distributed(dev, work: str, info: dict,
+                      mp_pairs: int = MP_PAIRS) -> dict:
+    """The host-sharded genotyper on main's panel and reads.  In this
+    process, parallel/distributed.py's run_genotyper_distributed at
+    DIST_SHARDS shards (one band-kernel service for all), --backend gpu
+    --emBackend gpu: its files exactly the genotyper's four, each equal
+    to main's port and native outputs; each shard's fragments, deferred
+    items, band launches and host seconds printed; the band kernel and
+    the EM kernel must launch in it.  Then the run-t1k chain
+    (t1k_tpu_torch.cli.run --backend gpu --emBackend gpu) on the first
+    `mp_pairs` of those pairs, once as one process and once as two
+    processes (T1K_NUM_PROCESSES=2) sharing the card, each a child
+    process with its launch counts printed: every output equal, the band
+    kernel launched by both processes of the pair.  Returns the
+    in-process run's launch counts."""
+    from t1k_tpu_torch.core.pipeline import GenotypeOptions
+    from t1k_tpu_torch.ops import align_band as ab
+    from t1k_tpu_torch.ops import em
+    from t1k_tpu_torch.parallel.distributed import run_genotyper_distributed
+    from t1k_tpu_torch.utils.observability import metrics
+
+    panel = os.path.join(work, "panel.fa")
+    fq1, fq2 = os.path.join(work, "r_1.fq"), os.path.join(work, "r_2.fq")
+    out = os.path.join(work, "dist")
+    os.makedirs(out)
+    ab.launch_counts.update(dict.fromkeys(ab.launch_counts, 0))
+    em.launch_counts["em_squarem"] = 0
+    t0 = time.perf_counter()
+    run_genotyper_distributed(
+        panel, [fq1], [fq2], os.path.join(out, "d"),
+        GenotypeOptions(backend="gpu", em_backend="gpu", device=str(dev)),
+        n_workers=DIST_SHARDS)
+    info["in_process_s"] = f"{time.perf_counter() - t0:.2f}"
+    launches = {"band_stats": ab.launch_counts["band_stats"],
+                "em_squarem": em.launch_counts["em_squarem"]}
+    if sorted(os.listdir(out)) != sorted("d" + s for s in DIST_OUTPUTS):
+        raise AssertionError(f"files written: {sorted(os.listdir(out))}")
+    for route in ("port", "native"):
+        same_files(os.path.join(out, "d"), os.path.join(work, route),
+                   DIST_OUTPUTS, f"{DIST_SHARDS} shards against main's "
+                   f"{route} route")
+    stages = metrics().stages
+    shards = [stages[f"shard_{w}"] for w in range(DIST_SHARDS)]
+    for w, s in enumerate(shards):
+        print(f"  shard {w}: fragments={s['fragment_count']} "
+              f"deferred_items={s['deferred_item_count']} "
+              f"band_launches={s['band_kernel_launches']} "
+              f"host_s={s['seconds']} read_assignment_s="
+              f"{s['read_assignment_seconds']}", flush=True)
+    if sum(s["band_kernel_launches"] for s in shards) != \
+            launches["band_stats"]:
+        raise AssertionError("the shards and the wrapper disagree on "
+                             "launches")
+    if dev.type == "cuda" and (launches["band_stats"] <= 0
+                               or launches["em_squarem"] < 1):
+        raise AssertionError(f"a kernel of the sharded genotyper never "
+                             f"launched: {launches}")
+    if ab.launch_counts["band_stats_warp"] or \
+            ab.launch_counts["band_stats_group"]:
+        raise AssertionError("the sharded genotyper launched a "
+                             "wide-window band kernel")
+    info["deferred_items"] = sum(s["deferred_item_count"] for s in shards)
+    info["band_launches"] = launches["band_stats"]
+    info["em_launches"] = launches["em_squarem"]
+    info["em_iterations"] = stages["em_quantification"]["em_iteration_count"]
+
+    # the multi-process CLI flavour on the first mp_pairs pairs
+    mp1, mp2 = (os.path.join(work, f"mp_{m}.fq") for m in (1, 2))
+    for src, dst in ((fq1, mp1), (fq2, mp2)):
+        with open(src) as f, open(dst, "w") as g:
+            g.writelines(line for _, line in zip(range(4 * mp_pairs), f))
+    args = ["-f", panel, "-1", mp1, "-2", mp2, "-o", "mp", "--backend",
+            "gpu", "--emBackend", "gpu", "--device", str(dev)]
+    env = child_env()
+    for var in ("T1K_NUM_PROCESSES", "T1K_PROCESS_ID"):
+        env.pop(var, None)
+    t0 = time.perf_counter()
+    one = subprocess.run(
+        [sys.executable, "-c", PORT_RUN, *args, "--od",
+         os.path.join(work, "mp_one")],
+        cwd=ROOT, env=env, capture_output=True, text=True)
+    info["mp_one_process_s"] = f"{time.perf_counter() - t0:.2f}"
+    if one.returncode != 0:
+        raise RuntimeError(f"one-process chain failed:\n{one.stderr[-4000:]}")
+    procs = []
+    t0 = time.perf_counter()
+    for pid in (1, 0):  # process 1 first: it waits for 0's extraction
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", PORT_RUN, *args, "--od",
+             os.path.join(work, "mp_two")],
+            cwd=ROOT, env=dict(env, T1K_NUM_PROCESSES="2",
+                               T1K_PROCESS_ID=str(pid)),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    logs = [p.communicate(timeout=600) for p in procs]
+    info["mp_two_processes_s"] = f"{time.perf_counter() - t0:.2f}"
+    for pid, p, (_, err) in zip((1, 0), procs, logs):
+        if p.returncode != 0:
+            raise RuntimeError(f"process {pid} of 2 failed:\n{err[-4000:]}")
+    same_files(os.path.join(work, "mp_two", "mp"),
+               os.path.join(work, "mp_one", "mp"), MP_OUTPUTS,
+               "two processes against one")
+    one_launches = json.loads(one.stdout.splitlines()[-1])
+    two_launches = [json.loads(o.splitlines()[-1]) for o, _ in logs]
+    info["mp_pairs"] = mp_pairs
+    info["mp_band_launches_one"] = one_launches["band_stats"]
+    info["mp_band_launches_two"] = "+".join(
+        str(n["band_stats"]) for n in two_launches)
+    if dev.type == "cuda" and min(n["band_stats"] for n in two_launches) <= 0:
+        raise AssertionError(f"a process of the two launched no band "
+                             f"kernel: {two_launches}")
+    return launches
 
 
 # ------------------------------------------------------------- db phase
@@ -3662,11 +3812,12 @@ def phase_analyzer_timing(dev, check: Checker, batch, info: dict):
 # ------------------------------------------------------ SMART-seq plate
 
 # one plate of one donor: cells, and per cell its on-panel pairs (the
-# donor's alleles), near-miss and random pairs.  48 cells, half a
-# 96-well plate, so the smoke stays inside its time limit on a slow
-# host (a full plate took 296 s of 1,170 s of phases on one, H100 80GB
-# HBM3 at 700 W)
-PLATE_CELLS = 48
+# donor's alleles), near-miss and random pairs.  12 cells, an eighth of
+# a 96-well plate, so the smoke stays inside its time limit on a slow
+# host (H100 80GB HBM3 at 700 W: a full plate took 296 s of 1,170 s of
+# phases on one; 48 cells 154.6 s of 888.4; 24 cells 103.7 s of 947.4
+# with the distributed phase's 93.5)
+PLATE_CELLS = 12
 PLATE_PAIRS = (800, 800, 2_400)
 PLATE_GENES, PLATE_EXPRESSED = 8, 6   # donor genes; expressed per cell
 PLATE_WORKERS = 8
@@ -4686,6 +4837,8 @@ def run(dev, sizes: dict) -> list:
             em_problems = []
             phase_main(dev, work, PANEL_GENES, PANEL_COPIES,
                        sizes["sim_pairs"], info, em_problems)
+        with phase("distributed") as info:
+            dist_launches = phase_distributed(dev, work, info, sizes["mp"])
         with phase("db") as info:
             db_launches = phase_db(dev, work, sizes["db"], info)
         with phase("candidates") as info:
@@ -4798,6 +4951,9 @@ def run(dev, sizes: dict) -> list:
     # the genotyper's launches on the database the port built (db phase)
     for name, n in db_launches.items():
         records[list(KERNELS).index(name)]["launches_db"] = n
+    # the in-process sharded genotyper's (distributed phase)
+    for name, n in dist_launches.items():
+        records[list(KERNELS).index(name)]["launches_distributed"] = n
     # K11 has no caller on any stage: its launches are the run chain's (0)
     records[list(KERNELS).index("kmer_classify")].update(
         replaces_direct="t1k_tpu/ops/kmer.py:144",
@@ -4807,7 +4963,8 @@ def run(dev, sizes: dict) -> list:
 
 FULL_SIZES = dict(random_items=RANDOM_ITEMS, em=(EM_RG, EM_EC),
                   em_large=EM_LARGE,
-                  v1_pairs=V1_PAIRS, sim_pairs=SIM_PAIRS, db=DB_PAIRS,
+                  v1_pairs=V1_PAIRS, sim_pairs=SIM_PAIRS, mp=MP_PAIRS,
+                  db=DB_PAIRS,
                   extract=EXTRACT_SMOKE_PAIRS, run=EXTRACT_PAIRS,
                   bam=BAM_PAIRS,
                   plate=(PLATE_CELLS, PLATE_PAIRS, PLATE_WORKERS),

@@ -1,23 +1,24 @@
 #!/usr/bin/env python3
 """Some of chip_smoke.py's phases alone, on one CUDA card.
 
-  python3 scripts/smoke_phases.py [v1] [main] [db] [candidates]
-                                  [em_timing] [composite] [kmer] [smartseq]
-                                  [cohort_em_timing] [sharded_em]
+  python3 scripts/smoke_phases.py [v1] [main] [distributed] [db]
+                                  [candidates] [em_timing] [composite]
+                                  [kmer] [smartseq] [cohort_em_timing]
+                                  [sharded_em]
 
 Builds the kernels (the smoke's `build` phase, with the compiler's
 register and spill lines), then runs the named phases in the smoke's
-order at its full sizes, each as chip_smoke.run runs it: candidates and
-em_timing take main's panel, reads and outputs (em_timing its EM
-problem) and run main first; kmer takes the run phase's reads, which it
+order at its full sizes, each as chip_smoke.run runs it: distributed,
+candidates and em_timing take main's panel, reads and outputs (em_timing
+its EM problem) and run main first; kmer takes the run phase's reads, which it
 writes as that phase does (without running the chains); cohort_em_timing
 takes smartseq's problems and runs smartseq first; sharded_em takes both
 and runs both (its multi-process ranks in child processes); without
 main, the HLA-scale panel is built on its own (v1 and db need none: db
 builds its own database with the port's build).  Prints each phase's
 line, the card line, and as JSON the v1 aligner's per-path launches and
-times, the db phase's band and EM launches and the smartseq plate's
-launches.
+times, the distributed and db phases' band and EM launches and the
+smartseq plate's launches.
 """
 
 from __future__ import annotations
@@ -32,8 +33,8 @@ sys.path.insert(0, ROOT)
 
 import chip_smoke as cs  # noqa: E402
 
-PHASES = ("v1", "main", "db", "candidates", "em_timing", "composite",
-          "kmer", "smartseq", "cohort_em_timing", "sharded_em")
+PHASES = ("v1", "main", "distributed", "db", "candidates", "em_timing",
+          "composite", "kmer", "smartseq", "cohort_em_timing", "sharded_em")
 
 
 def main(argv) -> int:
@@ -47,7 +48,7 @@ def main(argv) -> int:
     if not wanted <= set(PHASES):
         print(f"phases: {' '.join(PHASES)}", file=sys.stderr)
         return 2
-    if wanted & {"candidates", "em_timing"}:
+    if wanted & {"distributed", "candidates", "em_timing"}:
         wanted.add("main")
     if "cohort_em_timing" in wanted:
         wanted.add("smartseq")
@@ -83,6 +84,11 @@ def main(argv) -> int:
                               sizes["sim_pairs"], info, em_problems)
         elif wanted - {"v1", "db"}:
             cs.build_panel(os.path.join(work, "panel.fa"))
+        if "distributed" in wanted:
+            with cs.phase("distributed") as info:
+                launches = cs.phase_distributed(dev, work, info,
+                                                sizes["mp"])
+            print(json.dumps({"distributed_launches": launches}), flush=True)
         if "db" in wanted:
             with cs.phase("db") as info:
                 launches = cs.phase_db(dev, work, sizes["db"], info)

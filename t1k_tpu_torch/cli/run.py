@@ -117,19 +117,12 @@ def build_parser() -> argparse.ArgumentParser:
 def resolve_preset(preset: str, similarity: Optional[float],
                    relax: bool = False):
     """(genotyper -s, extractor -s, relaxIntronAlign) for a preset
-    (run-t1k:289-314)."""
-    geno_sim = similarity if similarity is not None else 0.8
-    extract_sim = similarity if similarity is not None else 0.8
-    if preset in ("hla", "hla-wgs"):
-        geno_sim = 0.97
-        if preset == "hla-wgs":
-            extract_sim = 0.97
-    elif preset == "kir-wgs":
-        geno_sim = 0.9
-        relax = True
-    elif preset == "kir-wes":
-        relax = True
-    return geno_sim, extract_sim, relax
+    (run-t1k:289-314): PipelineConfig.apply_preset over -s (default 0.8)
+    and --relaxIntronAlign."""
+    sim = similarity if similarity is not None else 0.8
+    cfg = PipelineConfig(similarity=sim, extractor_similarity=sim,
+                         relax_intron_align=relax).apply_preset(preset)
+    return cfg.similarity, cfg.extractor_similarity, cfg.relax_intron_align
 
 
 def main(argv: Optional[List[str]] = None) -> int:

@@ -1,10 +1,11 @@
 """Typed pipeline configuration with preset profiles (the port's copy of
 ``t1k_tpu/config.py``).
 
-One dataclass carries every knob of the three stages, with the preset
-(run-t1k:289-314, cli/run.py::resolve_preset) already resolved into it.
-The resolved config is serialized next to the outputs
-(<prefix>_config.json) for provenance.
+One dataclass carries every knob of the three stages; presets mutate it
+the same way run-t1k's flag macros do (run-t1k:289-314;
+cli/run.py::resolve_preset goes through ``apply_preset``).  The resolved
+config is serialized next to the outputs (<prefix>_config.json) for
+provenance.
 """
 
 from __future__ import annotations
@@ -46,6 +47,21 @@ class PipelineConfig:
     # provenance
     preset: str = ""
     stage: int = 0
+
+    def apply_preset(self, preset: str) -> "PipelineConfig":
+        self.preset = preset
+        if preset in ("hla", "hla-wgs"):
+            self.similarity = 0.97
+            if preset == "hla-wgs":
+                self.extractor_similarity = 0.97
+        elif preset == "kir-wgs":
+            self.similarity = 0.9
+            self.relax_intron_align = True
+        elif preset == "kir-wes":
+            self.relax_intron_align = True
+        elif preset:
+            raise ValueError(f"unknown preset {preset}")
+        return self
 
     def save(self, path: str) -> None:
         with open(path, "w") as f:

@@ -29,7 +29,7 @@ from ..ops import align_band
 from ..ops.align_band import DeferredDescService
 from ..utils.observability import metrics, stage
 from .fragment import RefContext, fragment_assign, set_read_assignments
-from .genotyper import Genotyper, GenotyperConfig
+from .genotyper import Genotyper, GenotyperConfig, pack_assignments
 from .pipeline import (assign_unique_reads, load_reads, log,
                        overlap_lists_from_records)
 from .variant import BarcodeSummary, VariantCaller
@@ -113,17 +113,6 @@ def _add_alignment_info_batch(frags_lists, refset) -> None:
                 frag.o1_rc = enqueue(frag.overlap1, codes)
     for o, edits in zip(targets, align_global_batch(t_parts, p_parts)):
         o.align = edits
-
-
-def pack_assignments(assignments):
-    """Each fragment's ReadAssignments as the engine's fragment records
-    [N,6] (allele, start, end, weight, adjust, qual; float64 holds the
-    float32 weights exactly), in fragment order, and the per-fragment
-    counts: the input of Genotyper.coalesce_arrays."""
-    rows = [(a.allele_idx, a.start, a.end, a.weight, a.adjust_weight, a.qual)
-            for ra in assignments for a in ra]
-    rec = np.array(rows, dtype=np.float64).reshape(-1, 6)
-    return rec, np.array([len(ra) for ra in assignments], dtype=np.int64)
 
 
 def run_analyzer(

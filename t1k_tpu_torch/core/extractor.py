@@ -76,6 +76,14 @@ def low_complexity_flags(codes: np.ndarray, seg: np.ndarray,
             | ((cnt[:, :4] <= 2).sum(axis=1) >= 2))
 
 
+def is_low_complexity(seq: str) -> bool:
+    """Single-read wrapper over low_complexity_flags."""
+    codes = encode_seq(seq)
+    return bool(low_complexity_flags(
+        codes, np.zeros(len(codes), np.int64),
+        np.array([len(seq)], np.int64))[0])
+
+
 def lazy_device_screen(backend: str, build, device="cuda"):
     """Size-gated lazy device-screen factory.  Returns get(n_new) ->
     DeviceScreen-or-None.  Backend "gpu" builds the screen at the first

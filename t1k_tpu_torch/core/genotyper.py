@@ -70,6 +70,17 @@ def alnorm(x: float, upper: bool) -> float:
     return value
 
 
+def pack_assignments(assignments):
+    """Each fragment's ReadAssignments as the engine's fragment records
+    [N,6] (allele, start, end, weight, adjust, qual; float64 holds the
+    float32 weights exactly), in fragment order, and the per-fragment
+    counts: the input of Genotyper.coalesce_arrays."""
+    rows = [(a.allele_idx, a.start, a.end, a.weight, a.adjust_weight, a.qual)
+            for ra in assignments for a in ra]
+    rec = np.array(rows, dtype=np.float64).reshape(-1, 6)
+    return rec, np.array([len(ra) for ra in assignments], dtype=np.int64)
+
+
 @dataclass
 class GenotyperConfig:
     filter_frac: float = DEFAULT_FILTER_FRAC
@@ -151,6 +162,14 @@ class Genotyper:
                 self.whitelist[i] = True
 
     # ----------------------------------------------------------- coalesce
+    def coalesce(self, assignments) -> int:
+        """Merge identical assignment vectors (each fragment's list of
+        ReadAssignments, in fragment order) into weighted read groups
+        (Genotyper.hpp:841-908): the lists packed as fragment records
+        for coalesce_arrays, whose groups it writes.  Returns the number
+        of assigned fragments."""
+        return self.coalesce_arrays(*pack_assignments(assignments))
+
     def coalesce_arrays(self, rec: np.ndarray, counts: np.ndarray) -> int:
         """Array-based coalescing over the native fragment stage's output
         (records [N,6]: allele/start/end/weight/adjust/qual), as

@@ -227,6 +227,27 @@ def new_genotyper(refset: RefSet, opts: GenotypeOptions, device,
     return genotyper
 
 
+def resolve_routes(opts: GenotypeOptions,
+                   desc_service: Optional[DeferredDescService] = None):
+    """(backend, device, desc_service) of the stage's options: "auto"
+    resolved, the card asked for where a gpu route runs (raising before
+    any work without one, as the EM's "auto" does), and the band-kernel
+    service the gpu backend scores on, `desc_service` if given."""
+    if opts.device_candidates:  # on opts.device whatever the backend
+        resolve_device(opts.device, NoCardError)
+    backend = resolve_backend(opts.backend, opts.device)
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown alignment backend {backend!r}")
+    device = opts.device
+    if backend == "gpu" or opts.em_backend == "gpu":
+        device = resolve_device(opts.device)
+    if opts.em_backend == "auto":  # without a card: fail before any work
+        Genotyper._resolve_em_backend(0, 0, opts.device)
+    if backend == "gpu" and desc_service is None:
+        desc_service = DeferredDescService(device)
+    return backend, device, desc_service
+
+
 def run_genotyper(
     ref_fasta: str,
     reads1: List[str],
@@ -252,18 +273,7 @@ def prepare_genotyper(
     `desc_service` replaces the band-kernel service the gpu backend
     would build on `opts.device`."""
     opts = opts or GenotypeOptions()
-    if opts.device_candidates:  # on opts.device whatever the backend
-        resolve_device(opts.device, NoCardError)
-    backend = resolve_backend(opts.backend, opts.device)
-    if backend not in BACKENDS:
-        raise ValueError(f"unknown alignment backend {backend!r}")
-    device = opts.device
-    if backend == "gpu" or opts.em_backend == "gpu":
-        device = resolve_device(opts.device)
-    if opts.em_backend == "auto":  # without a card: fail before any work
-        Genotyper._resolve_em_backend(0, 0, opts.device)
-    if backend == "gpu" and desc_service is None:
-        desc_service = DeferredDescService(device)
+    backend, device, desc_service = resolve_routes(opts, desc_service)
     if refset is None:
         refset = RefSet.from_fasta(ref_fasta, opts.digit_units, opts.delimiter)
     packed = refset.packed()
@@ -365,11 +375,14 @@ def finish_genotyper(
     prep: PreparedGenotype,
     output_prefix: str,
     em_result: Optional[Tuple[int, np.ndarray]] = None,
+    side_files: bool = True,
 ) -> GenotypeResult:
     """EM (or a supplied abundance file, EM snapshot or EM result), allele
     selection, and output writing (Genotyper.cpp:640-738).  `em_result`
     is (iterations, per-EC read counts) from an external quantification:
-    the cohort driver's batched EM."""
+    the SMART-seq cohort's batched EM.  Without `side_files` the EM snapshot
+    (<prefix>_em_state.npz) and <prefix>_metrics.json are not written:
+    the in-process sharded genotyper writes the reference's files only."""
     opts = prep.opts
     genotyper = prep.genotyper
     ids1, ids2 = prep.read_ids1, prep.read_ids2
@@ -393,8 +406,9 @@ def finish_genotyper(
         with stage("em_quantification") as ctx:
             em_iters = genotyper.quantify()
             ctx["em_iteration_count"] = em_iters
-            genotyper.save_em_state(f"{output_prefix}_em_state.npz",
-                                    genotyper._last_ec_read_count)
+            if side_files:
+                genotyper.save_em_state(f"{output_prefix}_em_state.npz",
+                                        genotyper._last_ec_read_count)
         log(f"Finish allele quantification in {em_iters} EM iterations.")
     with stage("allele_selection"):
         genotyper.remove_low_likelihood()
@@ -426,7 +440,8 @@ def finish_genotyper(
             for row in prep.assign_rows:
                 f.write(row + "\n")
 
-    metrics().save(f"{output_prefix}_metrics.json")
+    if side_files:
+        metrics().save(f"{output_prefix}_metrics.json")
     log("Genotyping finishes.")
     return GenotypeResult(
         genotyper=genotyper, refset=prep.refset, aligned_flags=aligned_flags,

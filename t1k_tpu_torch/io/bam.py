@@ -6,8 +6,9 @@ No external htslib dependency: records are read by the native scanner
 (``native/bamscan.cc`` through ``BamScan``), which gives what the
 extraction stage needs — flags, tid/pos, CIGAR reference span,
 sequence/qual (reverse-complemented back to original orientation for
-reverse-strand records), and the barcode/UMI tags; ``BamWriter`` writes
-BGZF blocks as plain gzip members.
+reverse-strand records), and the barcode/UMI tags; ``BamReader`` decodes
+every record in pure Python (the tests' independent oracle), and
+``BamWriter`` writes BGZF blocks as plain gzip members.
 
 Extraction behavior contract (reference BamExtractor.cpp): keep
 (a) unaligned templates (mate pairs arriving together unless
@@ -24,11 +25,12 @@ byte-identical outputs.
 
 from __future__ import annotations
 
+import gzip
 import itertools
 import struct
 import zlib
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
@@ -41,7 +43,11 @@ from ..utils.observability import stage
 from .reads import read_seq_file
 from .refset import RefSet
 
+_CIGAR_OPS = "MIDNSHP=X"
 _SEQ_NIBBLE = "=ACMGRSVTWYHKDBN"
+# hex() renders each packed byte as two nibble chars -> map to bases
+_HEX_TO_BASE = str.maketrans("0123456789abcdef", _SEQ_NIBBLE)
+_QUAL_PLUS_33 = bytes((min(q + 33, 255)) for q in range(256))
 _COMP = str.maketrans("ACGTN", "TGCAN")
 
 
@@ -59,6 +65,167 @@ class BamRecord:
     seq: str                       # as stored (alignment orientation)
     qual: Optional[str]
     tags: Dict[str, object]
+
+    @property
+    def is_paired(self) -> bool:
+        return bool(self.flag & 0x1)
+
+    @property
+    def is_unmapped(self) -> bool:
+        return bool(self.flag & 0x4) or self.tid < 0
+
+    @property
+    def is_reverse(self) -> bool:
+        return bool(self.flag & 0x10)
+
+    @property
+    def mate_reverse(self) -> bool:
+        return bool(self.flag & 0x20)
+
+    @property
+    def is_first_mate(self) -> bool:
+        return bool(self.flag & 0x40)
+
+    @property
+    def is_primary(self) -> bool:
+        return (self.flag & 0x900) == 0
+
+    def is_template_aligned(self) -> bool:
+        """reference alignments.hpp:426-432."""
+        if (self.flag & 0xD) == 0xD or (self.flag & 0x5) == 0x4 or self.tid < 0:
+            return False
+        return True
+
+    def is_aligned(self) -> bool:
+        return not ((self.flag & 0x4) or self.tid < 0)
+
+    def ref_span(self) -> int:
+        """Reference bases consumed by the alignment (M/D/N/=/X)."""
+        span = 0
+        for ln, op in self.cigar:
+            if _CIGAR_OPS[op] in "MDN=X":
+                span += ln
+        return span
+
+    def original_seq(self) -> str:
+        """Read sequence in sequencing orientation
+        (alignments.hpp:527-563)."""
+        if self.is_reverse:
+            return self.seq[::-1].translate(_COMP)
+        return self.seq
+
+    def original_qual(self) -> Optional[str]:
+        if self.qual is None:
+            return None
+        return self.qual[::-1] if self.is_reverse else self.qual
+
+
+class BamReader:
+    """Pure-Python BAM reader (BGZF blocks are gzip members): every
+    record with its CIGAR and aux tags.  The extraction stage reads
+    through the native scanner (NativeBamReader); this one is the
+    independent decoder the tests hold the scanner against."""
+
+    def __init__(self, path: str):
+        self.path = path
+        self._open()
+
+    def _open(self):
+        self._fh = gzip.open(self.path, "rb")
+        magic = self._fh.read(4)
+        if magic != b"BAM\x01":
+            raise ValueError(f"{self.path}: not a BAM file")
+        (l_text,) = struct.unpack("<i", self._fh.read(4))
+        self.header_text = self._fh.read(l_text).decode("ascii", "replace")
+        (n_ref,) = struct.unpack("<i", self._fh.read(4))
+        self.ref_names: List[str] = []
+        self.ref_lens: List[int] = []
+        for _ in range(n_ref):
+            (l_name,) = struct.unpack("<i", self._fh.read(4))
+            name = self._fh.read(l_name)[:-1].decode("ascii")
+            (l_ref,) = struct.unpack("<i", self._fh.read(4))
+            self.ref_names.append(name)
+            self.ref_lens.append(l_ref)
+        self.name_to_tid = {n: i for i, n in enumerate(self.ref_names)}
+
+    def rewind(self):
+        self._fh.close()
+        self._open()
+
+    def close(self) -> None:
+        self._fh.close()
+
+    def __enter__(self) -> "BamReader":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    def __iter__(self) -> Iterator[BamRecord]:
+        while True:
+            hdr = self._fh.read(4)
+            if len(hdr) < 4:
+                return
+            (block_size,) = struct.unpack("<i", hdr)
+            data = self._fh.read(block_size)
+            yield self._decode(data)
+
+    def _decode(self, d: bytes) -> BamRecord:
+        (tid, pos, l_read_name, mapq, _bin, n_cigar, flag, l_seq, mtid,
+         mpos, tlen) = struct.unpack("<iiBBHHHiiii", d[:32])
+        off = 32
+        name = d[off:off + l_read_name - 1].decode("ascii")
+        off += l_read_name
+        cigar = []
+        if n_cigar:
+            vals = struct.unpack(f"<{n_cigar}I", d[off:off + 4 * n_cigar])
+            cigar = [(v >> 4, v & 0xF) for v in vals]
+            off += 4 * n_cigar
+        nbytes = (l_seq + 1) // 2
+        seq = d[off:off + nbytes].hex().translate(_HEX_TO_BASE)[:l_seq]
+        off += nbytes
+        qual_raw = d[off:off + l_seq]
+        qual = None
+        if l_seq and qual_raw[0] != 0xFF:
+            qual = qual_raw.translate(_QUAL_PLUS_33).decode("latin-1")
+        off += l_seq
+        tags: Dict[str, object] = {}
+        while off < len(d):
+            tag = d[off:off + 2].decode("ascii")
+            typ = chr(d[off + 2])
+            off += 3
+            if typ == "Z":
+                end = d.index(0, off)
+                tags[tag] = d[off:end].decode("ascii")
+                off = end + 1
+            elif typ == "A":
+                tags[tag] = chr(d[off])
+                off += 1
+            elif typ in "cC":
+                tags[tag] = d[off]
+                off += 1
+            elif typ in "sS":
+                (tags[tag],) = struct.unpack("<H" if typ == "S" else "<h",
+                                             d[off:off + 2])
+                off += 2
+            elif typ in "iI":
+                (tags[tag],) = struct.unpack("<I" if typ == "I" else "<i",
+                                             d[off:off + 4])
+                off += 4
+            elif typ == "f":
+                (tags[tag],) = struct.unpack("<f", d[off:off + 4])
+                off += 4
+            elif typ == "B":
+                sub = chr(d[off])
+                (cnt,) = struct.unpack("<i", d[off + 1:off + 5])
+                size = {"c": 1, "C": 1, "s": 2, "S": 2, "i": 4, "I": 4,
+                        "f": 4}[sub]
+                off += 5 + cnt * size
+                tags[tag] = None
+            else:
+                break
+        return BamRecord(name, flag, tid, pos, mapq, cigar, mtid, mpos, tlen,
+                         seq, qual, tags)
 
 
 def _bgzf_block(payload: bytes) -> bytes:
@@ -219,21 +386,40 @@ class _RecView:
 
 
 class NativeBamReader:
-    """The native scanner of one BAM (`_scan`, batches in file order)
-    and its reference names; string aux tags are limited to the
-    requested barcode/UMI tags (exposed as tags['__bc__'] /
-    tags['__umi__'])."""
+    """BamReader-compatible streaming reader over the native scanner of
+    one BAM (`_scan`, batches in file order); string aux tags are
+    limited to the requested barcode/UMI tags (exposed as
+    tags['__bc__'] / tags['__umi__'])."""
 
     def __init__(self, path: str, bc_tag: str = "", umi_tag: str = "",
                  trim_len: int = -1):
         self._args = (path, bc_tag, umi_tag, trim_len)
         self._scan = BamScan(path, bc_tag, umi_tag, trim_len)
+        self.path = path
         self.ref_names = self._scan.ref_names
+        self.ref_lens = self._scan.ref_lens
+        self.header_text = self._scan.header_text
         self.name_to_tid = {n: i for i, n in enumerate(self.ref_names)}
 
     def rewind(self):
         self._scan.close()
         self._scan = BamScan(*self._args)
+
+    def __iter__(self):
+        for fields, hashes, offs, blobs in self.scan_blocks():
+            rows = fields.tolist()
+            hs = hashes.tolist()
+            offl = {k: v.tolist() for k, v in offs.items()}
+            for i in range(len(rows)):
+                yield _RecView(rows[i], i, offl, blobs, hs[i])
+
+    def scan_blocks(self):
+        """Yield raw (fields, hashes, offs, blobs) batches."""
+        while True:
+            b = self._scan.scan()
+            if b is None:
+                return
+            yield b
 
 
 def _general_stats(len_chunks: List[np.ndarray],

@@ -123,6 +123,12 @@ def read_seq_files(paths: Sequence[str], interleaved_id: int = 0) -> Iterator[Se
                     yield rec
 
 
+def write_fasta(path: str, records) -> None:
+    with open(path, "w") as f:
+        for rec in records:
+            f.write(f">{rec.id}\n{rec.seq}\n")
+
+
 def write_fastq(path: str, records) -> None:
     with open(path, "w") as f:
         for rec in records:

@@ -116,6 +116,7 @@ _lib.t1k_engine_create.argtypes = [
 ]
 _lib.t1k_engine_destroy.argtypes = [ct.c_void_p]
 _lib.t1k_engine_set_threads.argtypes = [ct.c_void_p, ct.c_int32]
+_lib.t1k_engine_set_hit_len.argtypes = [ct.c_void_p, ct.c_int32]
 _lib.t1k_assign_batch.restype = ct.c_int64
 _lib.t1k_assign_batch.argtypes = [
     ct.c_void_p, _c_i8p, _c_i64p, _c_i32p, _c_i32p, ct.c_int64,
@@ -156,6 +157,15 @@ _lib.t1k_coalesce_fetch.argtypes = [
 _lib.t1k_align_global.restype = ct.c_int32
 _lib.t1k_align_global.argtypes = [
     _c_i8p, ct.c_int32, _c_i8p, ct.c_int32, ct.c_int32, _c_i8p,
+]
+_lib.t1k_align_stats.restype = None
+_lib.t1k_align_stats.argtypes = [
+    _c_i8p, ct.c_int32, _c_i8p, ct.c_int32, ct.c_int32, _c_i32p,
+]
+_lib.t1k_align_stats_batch.restype = None
+_lib.t1k_align_stats_batch.argtypes = [
+    _c_i8p, _c_i32p, _c_i8p, _c_i32p, ct.c_int64, ct.c_int64, ct.c_int64,
+    ct.c_int32, _c_i32p,
 ]
 _lib.t1k_align_global_batch.restype = None
 _lib.t1k_align_global_batch.argtypes = [
@@ -213,6 +223,36 @@ def align_global(t: np.ndarray, p: np.ndarray,
     return score, out[:n]
 
 
+def align_stats_batch(tc: np.ndarray, tl: np.ndarray, pc: np.ndarray,
+                      pl: np.ndarray, band: int = 5) -> np.ndarray:
+    """Match counts for padded [n, tcap]/[n, pcap] row batches: the host
+    oracle of the band kernel's counts, with the deferred-DP stats_fn
+    signature (engine.cc t1k_align_stats_batch)."""
+    tc = np.ascontiguousarray(tc, dtype=np.int8)
+    pc = np.ascontiguousarray(pc, dtype=np.int8)
+    n = len(tl)
+    out = np.zeros(n, dtype=np.int32)
+    _lib.t1k_align_stats_batch(
+        tc, np.ascontiguousarray(tl, np.int32), pc,
+        np.ascontiguousarray(pl, np.int32),
+        tc.shape[1] if tc.ndim == 2 else len(tc),
+        pc.shape[1] if pc.ndim == 2 else len(pc), n, band, out)
+    return out
+
+
+def align_stats(t: np.ndarray, p: np.ndarray,
+                band: int = 5) -> Tuple[int, int, int]:
+    """Count-only banded alignment; returns (match, mismatch, indel).
+
+    The walk of `align_global` without the edit string: the engine's
+    gap-fill and overhang scoring (and its <=31bp stack-state path)."""
+    t = np.ascontiguousarray(t, dtype=np.int8)
+    p = np.ascontiguousarray(p, dtype=np.int8)
+    out = np.zeros(3, dtype=np.int32)
+    _lib.t1k_align_stats(t, len(t), p, len(p), band, out)
+    return int(out[0]), int(out[1]), int(out[2])
+
+
 def align_global_batch(ts, ps, band: int = 5):
     """Banded global alignment of many (text, pattern) pairs in one
     native call; returns a list of edit-walk int8 arrays (views into one
@@ -262,6 +302,10 @@ _lib.t1k_bam_n_refs.restype = ct.c_int32
 _lib.t1k_bam_n_refs.argtypes = [ct.c_void_p]
 _lib.t1k_bam_ref_name.restype = ct.c_char_p
 _lib.t1k_bam_ref_name.argtypes = [ct.c_void_p, ct.c_int32]
+_lib.t1k_bam_ref_len.restype = ct.c_int32
+_lib.t1k_bam_ref_len.argtypes = [ct.c_void_p, ct.c_int32]
+_lib.t1k_bam_header_text.restype = ct.c_char_p
+_lib.t1k_bam_header_text.argtypes = [ct.c_void_p]
 _lib.t1k_bam_scan2.restype = ct.c_int64
 _lib.t1k_bam_scan2.argtypes = [ct.c_void_p, ct.c_int64, ct.c_int32]
 _lib.t1k_bam_fetch.restype = None
@@ -289,6 +333,10 @@ class BamScan:
         n = _lib.t1k_bam_n_refs(self._handle)
         self.ref_names = [
             _lib.t1k_bam_ref_name(self._handle, i).decode() for i in range(n)]
+        self.ref_lens = [
+            _lib.t1k_bam_ref_len(self._handle, i) for i in range(n)]
+        self.header_text = _lib.t1k_bam_header_text(self._handle).decode(
+            "ascii", "replace")
 
     def close(self):
         if self._handle:
@@ -310,6 +358,22 @@ class BamScan:
                           if ln.value else b"")
         return offs, blobs
 
+    def _fields(self, n: int) -> np.ndarray:
+        return np.ctypeslib.as_array(
+            _lib.t1k_bam_fields(self._handle), shape=(n, 9)).copy()
+
+    def scan(self, max_records: int = 262144):
+        """Eager scan: returns (fields [n,9] i32, name_hash [n] u64,
+        offsets dict, blobs dict) or None at EOF."""
+        n = int(_lib.t1k_bam_scan2(self._handle, max_records, 0))
+        if n == 0:
+            return None
+        fields = self._fields(n)
+        hashes = np.ctypeslib.as_array(
+            _lib.t1k_bam_name_hashes(self._handle), shape=(n,)).copy()
+        offs, blobs = self._text_views(n)
+        return fields, hashes, offs, blobs
+
     def scan_lazy(self, max_records: int = 262144):
         """Lazy scan: returns (fields [n,9] i32: flag, tid, pos, mapq,
         mtid, mpos, tlen, l_seq, ref_span; name_hash [n] u64) or None;
@@ -317,11 +381,18 @@ class BamScan:
         n = int(_lib.t1k_bam_scan2(self._handle, max_records, 1))
         if n == 0:
             return None
-        fields = np.ctypeslib.as_array(
-            _lib.t1k_bam_fields(self._handle), shape=(n, 9)).copy()
+        fields = self._fields(n)
         hashes = np.ctypeslib.as_array(
             _lib.t1k_bam_name_hashes(self._handle), shape=(n,)).copy()
         return fields, hashes
+
+    def scan_headers(self, max_records: int = 262144):
+        """Headers-only scan (fields [n,9] i32, ref_span not populated
+        beyond the cigar walk) or None; for sampling passes."""
+        n = int(_lib.t1k_bam_scan2(self._handle, max_records, 2))
+        if n == 0:
+            return None
+        return self._fields(n)
 
     def fetch(self, idxs: np.ndarray):
         """Decode text blobs for `idxs` (rows of the last scan_lazy
@@ -363,6 +434,13 @@ class NativeEngine:
         if handle:
             _lib.t1k_engine_destroy(handle)
             self._handle = None
+
+    def set_hit_len_required(self, h: int) -> None:
+        self.hit_len_required = h
+        _lib.t1k_engine_set_hit_len(self._handle, h)
+
+    def set_threads(self, n: int) -> None:
+        _lib.t1k_engine_set_threads(self._handle, n)
 
     def assign_batch(
         self,

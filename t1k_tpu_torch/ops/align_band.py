@@ -481,6 +481,12 @@ def banded_stats_band(t_codes, t_lens, p_codes, p_lens, ml: int = None,
     return out[0], packed & 511, (packed >> 9) & 511, (packed >> 18) & 511
 
 
+def make_deferred_desc_service(device="cuda") -> "DeferredDescService":
+    """The descriptor-mode scorer of NativeEngine.assign_batch_deferred
+    on `device` (a CUDA card, or the CPU through the plain version)."""
+    return DeferredDescService(device)
+
+
 def make_deferred_stats_fn(device="cuda"):
     """stats_fn(t_codes, t_lens, p_codes, p_lens) -> match int32 for
     NativeEngine.assign_batch_deferred (window-bytes transport)."""

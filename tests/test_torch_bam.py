@@ -259,6 +259,163 @@ def test_writer_matches_the_jax_package(tmp_path, layout):
         assert f.read() == g.read()
 
 
+LAYOUTS = {"mixed": {}, "no_qualities": dict(quals=False),
+           "single_end": dict(single=True),
+           "mate_id_suffix": dict(suffix=("/1", "/2"))}
+RECORD_FIELDS = ("name", "flag", "tid", "pos", "mapq", "cigar", "mtid",
+                 "mpos", "tlen", "seq", "qual", "tags")
+RECORD_PROPERTIES = ("is_paired", "is_unmapped", "is_reverse",
+                     "mate_reverse", "is_first_mate", "is_primary")
+RECORD_METHODS = ("is_template_aligned", "is_aligned", "ref_span",
+                  "original_seq", "original_qual")
+
+
+def _record_view(rec):
+    """A record's fields, flag properties and derived values."""
+    return ([getattr(rec, k) for k in RECORD_FIELDS + RECORD_PROPERTIES]
+            + [getattr(rec, k)() for k in RECORD_METHODS])
+
+
+def typed_tags_bam(path):
+    """Records with every aux type the decoder reads (A, c, C, s, S, i,
+    I, f, Z, B arrays) and a CIGAR with every op, in BGZF blocks of the
+    port's writer; returns the record count."""
+    import struct
+
+    hdr = port_bam.BamRecord("h", 0, 0, 0, 0, [], -1, -1, 0, "", None, {})
+    w = port_bam.BamWriter(path, *CONTIGS, HEADER)
+    w.write(hdr)
+    aux = (b"XAA" + b"q" + b"XBc" + struct.pack("<b", -5)
+           + b"XCC" + struct.pack("<B", 200)
+           + b"XDs" + struct.pack("<h", -300) + b"XES" + struct.pack("<H", 60000)
+           + b"XFi" + struct.pack("<i", -70000)
+           + b"XGI" + struct.pack("<I", 3_000_000_000)
+           + b"XHf" + struct.pack("<f", 1.5) + b"CBZACGT\x00"
+           + b"XBB" + b"s" + struct.pack("<i", 3) + struct.pack("<3h", 1, 2, 3)
+           + b"UBZumi1\x00")
+    cigar = [(5, 4), (10, 0), (2, 1), (3, 2), (4, 3), (6, 7), (1, 8),
+             (2, 6), (7, 5)]
+    seq = "ACGTNACGTRYACGTACGT"
+    name = b"typed\x00"
+    data = struct.pack("<iiBBHHHiiii", 1, 1234, len(name), 33, 0,
+                       len(cigar), 0x51, len(seq), 1, 1500, 400)
+    data += name + b"".join(struct.pack("<I", (ln << 4) | op)
+                            for ln, op in cigar)
+    lookup = {c: i for i, c in enumerate(port_bam._SEQ_NIBBLE)}
+    data += bytes((lookup[seq[i]] << 4)
+                  | (lookup[seq[i + 1]] if i + 1 < len(seq) else 0)
+                  for i in range(0, len(seq), 2))
+    data += bytes(range(10, 10 + len(seq))) + aux
+    w._buf += struct.pack("<i", len(data)) + data
+    w.close()
+    return 2
+
+
+@pytest.mark.parametrize("layout", sorted(LAYOUTS) + ["typed_tags"])
+def test_bam_reader_matches_the_jax_reader(tmp_path, layout):
+    """The port's pure-Python BamReader and BamRecord (fields, flag
+    properties, reference span, original orientation) against
+    t1k_tpu.io.bam's on BAMs the port's writer wrote: paired, unmapped,
+    reverse and tagged records; rewind reads them again."""
+    path = str(tmp_path / "in.bam")
+    if layout == "typed_tags":
+        n = typed_tags_bam(path)
+    else:
+        n = mixed_bam(path, **LAYOUTS[layout], bam=port_bam)
+    host = host_bam.BamReader(path)
+    with port_bam.BamReader(path) as port:
+        for k in ("header_text", "ref_names", "ref_lens", "name_to_tid"):
+            assert getattr(port, k) == getattr(host, k), k
+        want = [_record_view(r) for r in host]
+        got = [_record_view(r) for r in port]
+        assert got == want and len(got) == n
+        port.rewind()
+        assert [_record_view(r) for r in port] == want
+    flags = {r[1] for r in want}
+    if layout == "typed_tags":
+        assert want[1][-3] == 10 + 3 + 4 + 6 + 1  # M D N = X
+        assert want[1][RECORD_FIELDS.index("tags")]["XG"] == 3_000_000_000
+    elif layout != "single_end":
+        assert {0x63, 0x93, 0x4D, 0x8D} <= flags
+    host._fh.close()
+
+
+@pytest.mark.parametrize("tags", [("", ""), ("CB", "UB")],
+                         ids=["no_tags", "cb_ub"])
+def test_native_scans_match_the_jax_scanner(tmp_path, flush, tags):
+    """BamScan.scan, scan_headers and NativeBamReader.scan_blocks against
+    t1k_tpu.native's and t1k_tpu.io.bam's, batch for batch; the native
+    reader's records against the pure-Python reader's."""
+    from t1k_tpu import native as host_native
+    from t1k_tpu_torch import native as port_native
+
+    path = str(tmp_path / "in.bam")
+    n = mixed_bam(path, bam=port_bam)
+
+    def same_batches(a, b):
+        assert (a is None) == (b is None)
+        if a is None:
+            return False
+        for x, y in zip(a, b):
+            if isinstance(x, dict):
+                assert x.keys() == y.keys()
+                for k in x:
+                    assert np.array_equal(x[k], y[k]), k
+            else:
+                assert np.array_equal(x, y)
+        return True
+
+    for bam, cap in ((path, 37), (flush[0], 262144)):
+        for mode in ("scan", "scan_headers"):
+            host = host_native.BamScan(bam, *tags)
+            port = port_native.BamScan(bam, *tags)
+            assert port.ref_names == host.ref_names
+            assert port.ref_lens == host.ref_lens
+            assert port.header_text == host.header_text == HEADER
+            batches = 0
+            while True:
+                a, b = (getattr(s, mode)(cap) for s in (host, port))
+                if mode == "scan_headers" and a is not None:
+                    a, b = [a], [b]
+                if not same_batches(a, b):
+                    break
+                batches += 1
+            assert batches >= (2 if bam == path else 1)
+            host.close()
+            port.close()
+        host = host_bam.NativeBamReader(bam, *tags)
+        port = port_bam.NativeBamReader(bam, *tags)
+        for k in ("path", "header_text", "ref_names", "ref_lens"):
+            assert getattr(port, k) == getattr(host, k), k
+        for _ in range(2):  # and again after rewind
+            blocks = list(port.scan_blocks())
+            want = list(host.scan_blocks())
+            assert len(blocks) == len(want)
+            for a, b in zip(want, blocks):
+                same_batches(a, b)
+            port.rewind()
+            host.rewind()
+    # the scanner's records against the pure-Python decoder's
+    views = list(port_bam.NativeBamReader(path, "CB", "UB"))
+    with port_bam.BamReader(path) as reader:
+        recs = list(reader)
+    assert len(views) == len(recs) == n
+    for v, r in zip(views, recs):
+        assert (v.name, v.flag, v.tid, v.pos, v.mapq, v.mtid, v.mpos,
+                v.tlen, v.seq) == (r.name, r.flag, r.tid, r.pos, r.mapq,
+                                   r.mtid, r.mpos, r.tlen, r.seq)
+        assert [getattr(v, k) for k in RECORD_PROPERTIES[:1]
+                + RECORD_PROPERTIES[2:]] == [
+            getattr(r, k) for k in RECORD_PROPERTIES[:1]
+            + RECORD_PROPERTIES[2:]]
+        assert (v.ref_span(), v.original_seq(), v.original_qual(),
+                v.is_aligned(), v.is_template_aligned()) == (
+            r.ref_span(), r.original_seq(), r.original_qual(),
+            r.is_aligned(), r.is_template_aligned())
+        assert v.tags.get("__bc__") == r.tags.get("CB")
+        assert v.tags.get("__umi__") == r.tags.get("UB")
+
+
 @pytest.mark.parametrize("min_reads", ["0", "40000", "10000000"])
 def test_auto_gate_counts_screened_reads(tmp_path, coord, flush,
                                          monkeypatch, min_reads):

@@ -253,6 +253,7 @@ def test_entry_points_default_to_the_card():
     for fn in (Genotyper.__init__, phase_a.PhaseAIndex.build,
                phase_a.PhaseAIndex.from_jax_arrays, phase_a.DeviceScreen.build,
                align_band.DeferredDescService.__init__,
+               align_band.make_deferred_desc_service,
                align_band.make_deferred_stats_fn,
                align_band.banded_scores_band, align_band.banded_stats_band,
                align.banded_scores, align.banded_scores_full,
@@ -275,3 +276,273 @@ def test_multigene_golden_on_card(tmp_path):
     _check_multigene_goldens(prefix)
     stage = json.loads(_read(prefix + "_metrics.json"))["read_assignment"]
     assert stage["band_kernel_launches"] > 0
+
+
+# ------------------------------------------- host helpers of the JAX package
+# Names t1k_tpu exports beside its pipeline (test_torch_api_parity.py),
+# each against its t1k_tpu counterpart: exact, bytes or integers.
+
+def _golden_pairs():
+    """The 400 cases of golden/align_global.tsv as (t, p) code arrays."""
+    from t1k_tpu_torch.constants import encode_seq
+
+    pairs = []
+    with open(os.path.join(GOLDEN_DIR, "align_global.tsv")) as f:
+        for line in f:
+            _, _, t, p, _, _ = line.rstrip("\n").split("\t")
+            pairs.append(tuple(encode_seq("" if s == "-" else s)
+                               for s in (t, p)))
+    return pairs
+
+
+def _seeded_pairs(seed=23, n=300):
+    """Reads against windows that differ from them by substitutions,
+    N bases and indels of up to 8 bases, p_len 1-150."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    pairs = []
+    for _ in range(n):
+        p = rng.integers(0, 4, int(rng.integers(1, 151))).astype(np.int8)
+        t = p.copy()
+        sub = rng.random(len(t)) < 0.05
+        t[sub] = rng.integers(0, 5, int(sub.sum()))
+        cut = int(rng.integers(0, len(t) + 1))
+        indel = int(rng.integers(-8, 9))
+        if indel > 0:
+            t = np.concatenate([t[:cut], rng.integers(0, 4, indel)
+                                .astype(np.int8), t[cut:]])
+        elif indel < 0:
+            t = np.concatenate([t[:cut], t[cut - indel:]])
+        pairs.append((t.astype(np.int8), p))
+    return pairs
+
+
+def _padded(pairs):
+    import numpy as np
+
+    tl = np.array([len(t) for t, _ in pairs], np.int32)
+    pl = np.array([len(p) for _, p in pairs], np.int32)
+    tc = np.zeros((len(pairs), int(tl.max()) + 1), np.int8)
+    pc = np.zeros((len(pairs), int(pl.max()) + 1), np.int8)
+    for i, (t, p) in enumerate(pairs):
+        tc[i, :len(t)] = t
+        pc[i, :len(p)] = p
+    return tc, tl, pc, pl
+
+
+@pytest.mark.parametrize("cases", ["golden", "seeded"])
+def test_align_stats_match_jax_and_band_kernel(cases):
+    """native.align_stats and align_stats_batch against t1k_tpu.native's;
+    the batch's match counts equal the band kernel's plain version's on
+    the same items."""
+    import numpy as np
+
+    from t1k_tpu import native as host_native
+    from t1k_tpu_torch import native as port_native
+    from t1k_tpu_torch.ops.align_band import banded_stats_band
+
+    pairs = _golden_pairs() if cases == "golden" else _seeded_pairs()
+    assert len(pairs) == (400 if cases == "golden" else 300)
+    for t, p in pairs:
+        assert port_native.align_stats(t, p) == host_native.align_stats(t, p)
+    tc, tl, pc, pl = _padded(pairs)
+    match = port_native.align_stats_batch(tc, tl, pc, pl)
+    assert match.dtype == np.int32
+    assert np.array_equal(match, host_native.align_stats_batch(tc, tl, pc,
+                                                               pl))
+    assert np.array_equal(match, [port_native.align_stats(t, p)[0]
+                                  for t, p in pairs])
+    _, band_match, _, _ = banded_stats_band(tc, tl, pc, pl, device="cpu")
+    assert np.array_equal(band_match, match)
+
+
+@pytest.mark.parametrize("threads,hit_len", [(1, 31), (4, 31), (3, 21),
+                                             (2, 45)])
+def test_engine_setters_leave_assignments_as_the_jax_engine(threads,
+                                                            hit_len):
+    """NativeEngine.set_threads and set_hit_len_required against the JAX
+    engine's: the same assignment records after each; more threads
+    change no record, and a hit length other than 31 changes some."""
+    import numpy as np
+
+    from t1k_tpu.io.refset import RefSet as HostRefSet
+    from t1k_tpu.native import NativeEngine as HostEngine
+    from t1k_tpu_torch.constants import GENOTYPER_KMER_LENGTH, encode_seq
+    from t1k_tpu_torch.io.reads import read_seq_files
+    from t1k_tpu_torch.io.refset import RefSet
+    from t1k_tpu_torch.native import NativeEngine
+
+    ref, fq1, fq2 = MULTIGENE
+    seqs = sorted({r.seq for r in read_seq_files([fq1, fq2])})
+    codes = np.concatenate([encode_seq(s) for s in seqs])
+    lens = np.array([len(s) for s in seqs], np.int32)
+    starts = np.concatenate([[0], np.cumsum(lens[:-1])]).astype(np.int64)
+    weights = np.ones(len(seqs), np.int32)
+    runs = []
+    for engine in (NativeEngine(RefSet.from_fasta(ref).packed(),
+                                GENOTYPER_KMER_LENGTH),
+                   HostEngine(HostRefSet.from_fasta(ref).packed(),
+                              GENOTYPER_KMER_LENGTH)):
+        base = engine.assign_batch(codes, starts, lens, weights)
+        engine.set_threads(threads)
+        engine.set_hit_len_required(hit_len)
+        assert engine.hit_len_required == hit_len
+        runs.append((base, engine.assign_batch(codes, starts, lens,
+                                               weights)))
+    (port_base, port), (host_base, host) = runs
+    for a, b in zip(port + port_base, host + host_base):
+        assert a.tobytes() == b.tobytes()
+    changed = port[0].shape != port_base[0].shape or \
+        port[0].tobytes() != port_base[0].tobytes()
+    assert changed == (hit_len != 31)
+
+
+def test_is_low_complexity_matches_jax():
+    import numpy as np
+
+    from t1k_tpu.core.extractor import is_low_complexity as host_rule
+    from t1k_tpu_torch.core.extractor import is_low_complexity
+
+    rng = np.random.default_rng(29)
+    reads = ["", "A", "N", "ACGT", "A" * 100, "N" * 10 + "ACGT" * 22,
+             "AC" * 50, "ACG" * 33, "ACGT" * 25]
+    for _ in range(400):
+        n = int(rng.integers(1, 160))
+        probs = rng.dirichlet(np.full(5, 0.4))
+        reads.append("".join(rng.choice(list("ACGTN"), n, p=probs)))
+    got = [is_low_complexity(s) for s in reads]
+    assert got == [host_rule(s) for s in reads]
+    assert 0 < sum(got) < len(got)
+
+
+def test_write_fasta_matches_jax(tmp_path):
+    from t1k_tpu.io.reads import write_fasta as host_write
+    from t1k_tpu_torch.io.reads import read_seq_files, write_fasta
+
+    records = list(read_seq_files([MULTIGENE[1]]))
+    write_fasta(str(tmp_path / "port.fa"), records)
+    host_write(str(tmp_path / "host.fa"), records)
+    assert _read(tmp_path / "port.fa", "rb") == _read(tmp_path / "host.fa",
+                                                      "rb")
+    assert [r.seq for r in read_seq_files([str(tmp_path / "port.fa")])] \
+        == [r.seq for r in records]
+
+
+PRESETS = ["", "hla", "hla-wgs", "kir-wgs", "kir-wes"]
+
+
+@pytest.mark.parametrize("preset", PRESETS + ["wgs"])
+def test_apply_preset_matches_jax_and_run_cli(preset):
+    """PipelineConfig.apply_preset against t1k_tpu's (the reference),
+    field for field; cli/run.py's resolve_preset gives what it sets at
+    every -s and --relaxIntronAlign."""
+    import dataclasses
+
+    from t1k_tpu.config import PipelineConfig as HostConfig
+    from t1k_tpu_torch.cli.run import resolve_preset
+    from t1k_tpu_torch.config import PipelineConfig
+
+    if preset not in PRESETS:
+        for cls in (PipelineConfig, HostConfig):
+            with pytest.raises(ValueError, match="unknown preset"):
+                cls().apply_preset(preset)
+        return
+    for sim in (0.8, 0.85):
+        for relax in (False, True):
+            kw = dict(similarity=sim, extractor_similarity=sim,
+                      relax_intron_align=relax)
+            port = PipelineConfig(**kw)
+            assert port.apply_preset(preset) is port
+            host = dataclasses.asdict(HostConfig(**kw).apply_preset(preset))
+            got = dataclasses.asdict(port)
+            assert {k: got[k] for k in host} == host
+            assert resolve_preset(preset, sim, relax) == (
+                port.similarity, port.extractor_similarity,
+                port.relax_intron_align)
+    assert resolve_preset(preset, None) == resolve_preset(preset, 0.8)
+
+
+def test_make_deferred_desc_service_scores_as_the_host_engine():
+    """ops.align_band.make_deferred_desc_service: a descriptor service on
+    the device asked for, whose scores through the engine's deferred
+    mode give the host engine's records."""
+    import numpy as np
+
+    from t1k_tpu_torch.constants import GENOTYPER_KMER_LENGTH, encode_seq
+    from t1k_tpu_torch.io.reads import read_seq_files
+    from t1k_tpu_torch.io.refset import RefSet
+    from t1k_tpu_torch.native import NativeEngine
+    from t1k_tpu_torch.ops import align_band
+
+    service = align_band.make_deferred_desc_service(device="cpu")
+    assert isinstance(service, align_band.DeferredDescService)
+    assert service.device == torch.device("cpu")
+    ref, fq1, fq2 = MULTIGENE
+    seqs = sorted({r.seq for r in read_seq_files([fq1, fq2])})
+    codes = np.concatenate([encode_seq(s) for s in seqs])
+    lens = np.array([len(s) for s in seqs], np.int32)
+    starts = np.concatenate([[0], np.cumsum(lens[:-1])]).astype(np.int64)
+    weights = np.ones(len(seqs), np.int32)
+    engine = NativeEngine(RefSet.from_fasta(ref).packed(),
+                          GENOTYPER_KMER_LENGTH)
+    want = engine.assign_batch(codes, starts, lens, weights)
+    got = engine.assign_batch_deferred(codes, starts, lens, weights,
+                                       desc_service=service)
+    assert service.items_scored > 0
+    for a, b in zip(got, want):
+        assert a.tobytes() == b.tobytes()
+
+
+def test_genotyper_coalesce_matches_jax_object_coalesce():
+    """Genotyper.coalesce (the assignments packed for coalesce_arrays)
+    against t1k_tpu's object coalesce on the multigene fragments: the
+    assigned count and the group CSR byte for byte."""
+    from t1k_tpu.core import fragment as host_fragment
+    from t1k_tpu.core.genotyper import Genotyper as HostGenotyper
+    from t1k_tpu.io.refset import RefSet as HostRefSet
+    from t1k_tpu_torch.constants import GENOTYPER_KMER_LENGTH
+    from t1k_tpu_torch.core.fragment import (RefContext, fragment_assign,
+                                             set_read_assignments)
+    from t1k_tpu_torch.core.genotyper import Genotyper
+    from t1k_tpu_torch.core.pipeline import (assign_unique_reads,
+                                             overlap_lists_from_records)
+    from t1k_tpu_torch.io.reads import read_seq_files
+    from t1k_tpu_torch.io.refset import RefSet
+    from t1k_tpu_torch.native import NativeEngine
+
+    ref, fq1, fq2 = MULTIGENE
+    seqs1 = [r.seq for r in read_seq_files([fq1])]
+    seqs2 = [r.seq for r in read_seq_files([fq2])]
+    n = len(seqs1)
+    refset = RefSet.from_fasta(ref)
+    engine = NativeEngine(refset.packed(), GENOTYPER_KMER_LENGTH)
+    _, group_of, rec, off = assign_unique_reads(engine, seqs1 + seqs2)
+    overlaps = overlap_lists_from_records(rec, off)
+    has_n = [("N" in a) or ("N" in b) for a, b in zip(seqs1, seqs2)]
+    ctx = RefContext(refset)
+    port = Genotyper(refset, device="cpu")
+    assert port.coalesce([]) == 0 and port.read_group_count == 0
+    cnt_port = port.coalesce([
+        set_read_assignments(ctx, fragment_assign(
+            ctx, overlaps[group_of[i]], overlaps[group_of[n + i]], has_n[i],
+            True), None, 2000) for i in range(n)])
+
+    host_refset = HostRefSet.from_fasta(ref)
+    host_ctx = host_fragment.RefContext(host_refset)
+    host_overlaps = [[host_fragment.OverlapRec.from_row(r) for r in
+                      rec[off[i]:off[i + 1]]] for i in range(len(off) - 1)]
+    host = HostGenotyper(host_refset)
+    cnt_host = host.coalesce([
+        host_fragment.set_read_assignments(
+            host_ctx, host_fragment.fragment_assign(
+                host_ctx, host_overlaps[group_of[i]],
+                host_overlaps[group_of[n + i]], has_n[i], True), None, 2000)
+        for i in range(n)])
+    host._build_group_arrays_from_objects()
+    assert cnt_port == cnt_host > n // 2
+    assert port.read_group_count == host.read_group_count > 1
+    for name in ("_grp_off", "_flat_allele", "_flat_start", "_flat_end",
+                 "_flat_weight", "_flat_qual", "_flat_adjust"):
+        a, b = getattr(port, name), getattr(host, name)
+        assert a.dtype == b.dtype and a.tobytes() == b.tobytes(), name
