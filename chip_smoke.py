@@ -3,6 +3,13 @@
 
   python3 chip_smoke.py
 
+Every baseline is the port's own native route (--backend native
+--emBackend native or T1K_BACKEND=native: the host engine of
+t1k_tpu_torch/native/), each in a child process that reports its
+start-up (to its imports' end) and whether it made a CUDA context.
+Nothing here runs the JAX package: the CPU tests hold the port's native
+route against it (tests/test_torch_native_route.py and the others).
+
 Phases, in order; any failure raises and the exit code is non-zero:
   1. card          nvidia-smi name and power limit, torch and CUDA versions
   2. build         nvcc builds the seven sources of csrc/ for sm_90a, one
@@ -51,9 +58,13 @@ Phases, in order; any failure raises and the exit code is non-zero:
   7. main          the genotyper stage at HLA scale (24 genes x 240
                    alleles, 12,000 read pairs of 100 bp) through
                    t1k_tpu_torch.cli.genotype --backend gpu --emBackend
-                   gpu, byte-compared with the native route of t1k_tpu;
-                   both kernels' launch counts over the run must be > 0;
-                   the EM problem its genotyper solves is kept
+                   gpu, byte-compared with the port's own native route
+                   (--backend native --emBackend native, the host engine,
+                   in a child process, which also writes the read
+                   assignment the candidates phase holds the pruned
+                   genotyper against); both kernels' launch counts over
+                   the run must be > 0; the EM problem its genotyper
+                   solves is kept
   8. distributed   the host-sharded genotyper on main's panel and reads:
                    t1k_tpu_torch.parallel.distributed's
                    run_genotyper_distributed at 3 shards (an engine a
@@ -64,7 +75,7 @@ Phases, in order; any failure raises and the exit code is non-zero:
                    outputs; each shard's fragments, deferred items, band
                    launches and host seconds; the band kernel and the
                    EM kernel must launch.  Then t1k_tpu_torch.cli.run on
-                   the first 2,000 of those pairs (cut from 12,000 for
+                   the first 1,000 of those pairs (cut from 12,000 for
                    the time limit) as one process and as two processes
                    under T1K_NUM_PROCESSES=2 on the one card, each a
                    child process with its launch counts printed: every
@@ -100,15 +111,16 @@ Phases, in order; any failure raises and the exit code is non-zero:
                    fails; generate (one host wait a chunk and two at the
                    end, or it fails) and set_candidates timed;
                    t1k_tpu_torch.cli.genotype
-                   --backend gpu --emBackend gpu --outputReadAssignment in
-                   child processes without, then with
-                   --deviceCandidates (cut from four runs in turns for
-                   the time limit; launch counts set to 0 before each
-                   and printed after it): the pruned run's outputs equal
-                   main's native route's and its _assign.tsv the unpruned
-                   run's, probe, census, bucket chain, band and EM
+                   --backend gpu --emBackend gpu --outputReadAssignment
+                   --deviceCandidates in a child process (cut from four
+                   runs in turns, then from a run without and one with
+                   the flag, for the time limit; launch counts set to 0
+                   before it and printed after it): every output, the
+                   _assign.tsv included, equal to main's native route's,
+                   probe, census, bucket chain, band and EM
                    kernels launched and the dense chain not, the card
-                   deciding reads; each run's read_assignment seconds; on
+                   deciding reads; its read_assignment seconds beside
+                   main's unpruned card route's (in process); on
                    main's chunk with the most hits, the census kernel (at
                    its default keys a pass and at FORCED_BINS) and the
                    bucket chain against their plain versions on the
@@ -145,27 +157,28 @@ Phases, in order; any failure raises and the exit code is non-zero:
                    slot counts of its warps) and how the narrow and wide
                    thread kernels overlapped on their two streams
  14. extract       the FASTQ extraction stage on the same panel (k = 13,
-                   hashed table): 100,000 read pairs of 2 x 100 bp
-                   (2,000 simulated on-panel pairs, 8,000 near-miss
-                   pairs, 90,000 random pairs, shuffled; cut from 200,000
+                   hashed table): 25,000 read pairs of 2 x 100 bp
+                   (500 simulated on-panel pairs, 2,000 near-miss
+                   pairs, 22,500 random pairs, shuffled; cut from 200,000
                    to keep the smoke inside its time limit) through
                    t1k_tpu_torch.cli.extract --backend gpu in this process
                    (its stage time is a warm one), byte-compared with
-                   t1k_tpu.cli.extract --backend native run in a child
+                   the same CLI's --backend native run in a child
                    process; both phase-A kernels must launch and the
                    device must decide a share of the screened reads
  15. screen_timing probe and chain kernels vs their plain versions, in
                    turns, on one full 1024-row chunk of the extract inputs
  16. run           the run-t1k chain (extract -> genotype -> analyze) on
-                   the same panel: 250,000 read pairs built as extract's
-                   (10,000 simulated, 40,000 near-miss, 200,000 random),
+                   the same panel: 150,000 read pairs built as extract's
+                   (10,000 simulated, 40,000 near-miss, 100,000 random),
                    the simulated pairs of two genes drawn from copies of
                    an allele with three seeded substitutions, and a cell
-                   barcode per pair: t1k_tpu.cli.run --backend native
-                   --emBackend native, then t1k_tpu_torch.cli.run
-                   --backend gpu --emBackend gpu, each in a child process
-                   of its own (the port's with its kernels' launch counts
-                   set to 0 before the run and printed after it); every
+                   barcode per pair: t1k_tpu_torch.cli.run --backend
+                   native --emBackend native, then --backend gpu
+                   --emBackend gpu, each in a child process
+                   of its own (the gpu route's with its kernels' launch
+                   counts set to 0 before the run and printed after it;
+                   each child's start-up apart); every
                    output byte-compared (candidate reads, genotype,
                    alleles, aligned reads, VCF with at least one record,
                    barcode matrix); both phase-A kernels, the EM kernel
@@ -178,7 +191,7 @@ Phases, in order; any failure raises and the exit code is non-zero:
                    centre-canonical table) and 15, 16 (hashed), build
                    seconds printed, and the kernel and its first design
                    exact against classify_plain on the card's tensors on
-                   the run phase's 250,000 mate-1 reads and on edge reads
+                   the run phase's 150,000 mate-1 reads and on edge reads
                    (lengths 0, k - 1, k, k + 1, N at the first, a middle
                    and the last base, a reverse complement, all-T, all-A);
                    a batch narrower than k gives zeros; at the extractor's
@@ -191,16 +204,17 @@ Phases, in order; any failure raises and the exit code is non-zero:
                    gathers)
  18. bam_run       the run-t1k chain on a BAM (-b, with -c the coordinate
                    fasta: every panel allele on its gene's interval of
-                   chr6): 250,000 pairs of 2 x 100 bp (BAM_PAIRS:
+                   chr6): 150,000 pairs of 2 x 100 bp (BAM_PAIRS:
                    10,000 on-panel pairs in their gene's interval, 1,000
                    on an alt contig, 50,000 unaligned templates, 5,000
                    pairs within 5 kb of an interval, the rest off target
                    on chr1), CB and UB tags on every record, written by a
                    packer that writes BamWriter's bytes (held against it
-                   on 1,000 aligned and 1,000 unaligned records): t1k_tpu.cli.run -b --backend native
-                   --emBackend native with T1K_BACKEND=native, then
-                   t1k_tpu_torch.cli.run -b --backend gpu --emBackend gpu,
-                   as the run phase runs them; every output byte-compared
+                   on 1,000 aligned and 1,000 unaligned records):
+                   t1k_tpu_torch.cli.run -b --backend native --emBackend
+                   native with T1K_BACKEND=native, then --backend gpu
+                   --emBackend gpu, as the run phase runs them; every
+                   output byte-compared
                    (the UMI file too), VCF records >= 1, the same kernels
                    launched, the device deciding reads; extraction timed
                    from the child's start to the genotyper's first line;
@@ -214,22 +228,22 @@ Phases, in order; any failure raises and the exit code is non-zero:
  20. analyzer_timing  the thread band kernels vs their plain version on
                    that batch, exact and in turns, with its shape and
                    the two streams' overlap
- 21. smartseq      one SMART-seq2 plate of one donor: 12 cells of 4,000
+ 21. smartseq      one SMART-seq2 plate of one donor: 4 cells of 4,000
                    pairs of 2 x 100 bp (800 simulated from the donor's
                    two alleles of 6 of 8 panel genes, drawn per cell, at
                    a ratio drawn from [0.1, 0.9]; 800 near-miss and 2,400
-                   random pairs): t1k_tpu.tools.smartseq --workers 8
-                   with T1K_BACKEND=native (per-cell native EM), then
-                   t1k_tpu_torch.tools.smartseq --workers 8 --cohortEm
+                   random pairs): t1k_tpu_torch.tools.smartseq
+                   --workers 8 with T1K_BACKEND=native (the host engine,
+                   per-cell native EM), then --workers 8 --cohortEm
                    on the card, each in a child process and a work
-                   directory of its own (the port's with its kernels'
-                   launch counts, its pool workers' included, set to 0
+                   directory of its own (the card route's with its
+                   kernels' launch counts, its pool workers' included, set to 0
                    before the run and printed after it); the plate
                    files, each cell's first-pass outputs and each cell's
                    second-pass genotyper outputs byte-compared; probe,
                    chain, band and the batched EM must launch; each
-                   route's wall and pass walls, and a spawn pool's
-                   start-up
+                   route's wall, start-up and pass walls, and a spawn
+                   pool's start-up
  22. cohort_em_timing  the EM kernel's cohort form alone on (a) the
                    problems the port's second pass solved and (b) 384
                    cells of benchmarks/cohort_em.py's default shape: the
@@ -348,10 +362,14 @@ EM_LARGE = (54_210, 10_700)   # about 10x the HLA problem's incidences
 RANDOM_ITEMS = 100_000
 V1_PAIRS = 65_536
 # the run phase's depth (cut from 500,000 pairs to keep the smoke well
-# inside its time limit as phases are added)
-EXTRACT_PAIRS = (10_000, 40_000, 200_000)   # simulated, near-miss, random
-# the extract phase's depth: the run phase extracts EXTRACT_PAIRS
-EXTRACT_SMOKE_PAIRS = (2_000, 8_000, 90_000)
+# inside its time limit as phases are added, then from 250,000, random
+# pairs only, when the native baselines became the port's, whose child
+# processes each import torch: 967.7-1,113.2 s of phases on H100 80GB
+# HBM3 at 700 W, one host 1.35 times slower than another)
+EXTRACT_PAIRS = (10_000, 40_000, 100_000)   # simulated, near-miss, random
+# the extract phase's depth: the run phase extracts EXTRACT_PAIRS (cut
+# from 100,000 pairs for the same reason)
+EXTRACT_SMOKE_PAIRS = (500, 2_000, 22_500)
 SNP_GENES = 2                    # genes whose reads carry seeded SNPs
 SNP_POSITIONS = (300, 700, 1100)  # 0-based, in each such allele's copy
 READ_LEN = 100
@@ -430,7 +448,7 @@ def build_panel(path: str, n_genes: int = PANEL_GENES,
 def simulate_reads(panel: str, prefix: str, n_pairs: int = SIM_PAIRS,
                    n_genes: int = 8, snp_genes: int = 0) -> None:
     """Two alleles from each of `n_genes` genes, fixed seeds, through the
-    shared simulator's command line.  With `snp_genes`, the first chosen
+    port's simulator's command line.  With `snp_genes`, the first chosen
     allele of that many genes is replaced by a copy carrying substitutions
     at SNP_POSITIONS (not in the panel), so the analyzer calls variants."""
     recs = read_fasta(panel)
@@ -457,8 +475,8 @@ def simulate_reads(panel: str, prefix: str, n_pairs: int = SIM_PAIRS,
                     chosen[i] = name
                 f.write(f">{name} {comment}\n{seq}\n")
     subprocess.run(
-        [sys.executable, "-m", "t1k_tpu.tools.simulate", "-f", source,
-         "-o", prefix, "-n", str(n_pairs), "--seed", "3", "--alleles",
+        [sys.executable, "-m", "t1k_tpu_torch.tools.simulate", "-f",
+         source, "-o", prefix, "-n", str(n_pairs), "--seed", "3", "--alleles",
          *chosen, "--abundances", *map(str, abund)],
         check=True, cwd=ROOT, env=child_env())
 
@@ -1182,9 +1200,10 @@ def phase_em_timing(dev, hla: dict, sizes: dict, info: dict):
 
 def phase_main(dev, work: str, n_genes: int, copies: int, n_pairs: int,
                info: dict, em_problems: list) -> None:
-    """Port CLI vs native CLI on the HLA-scale panel; each kernel must
-    launch over the port's run.  Appends the EM problem the port's
-    genotyper solved to `em_problems`."""
+    """The port's CLI on `dev` in this process vs its native route in a
+    child process on the HLA-scale panel; each kernel must launch over the
+    card route's run.  Appends the EM problem the card route's genotyper
+    solved to `em_problems`."""
     import inspect
 
     from t1k_tpu_torch.cli import genotype as cli
@@ -1196,15 +1215,13 @@ def phase_main(dev, work: str, n_genes: int, copies: int, n_pairs: int,
     build_panel(panel, n_genes, copies)
     simulate_reads(panel, os.path.join(work, "r"), n_pairs)
     fq1, fq2 = os.path.join(work, "r_1.fq"), os.path.join(work, "r_2.fq")
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "t1k_tpu.cli.genotype", "-f", panel,
-         "-1", fq1, "-2", fq2, "-o", os.path.join(work, "native"),
-         "--backend", "native", "--emBackend", "native"],
-        cwd=ROOT, env=child_env(), capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"native route failed:\n{proc.stderr[-4000:]}")
-    t_native = time.perf_counter() - t0
+    # its read assignment (_assign.tsv) is the candidates phase's
+    # reference for the pruned genotyper
+    out, _, native_s = timed_chain(
+        native_cmd("cli.genotype", "-f", panel, "-1", fq1, "-2", fq2,
+                   "-o", os.path.join(work, "native"), "--backend",
+                   "native", "--emBackend", "native",
+                   "--outputReadAssignment"), (STARTUP,))
     # keep the EM problem the genotyper passes (for em_timing)
     em_call = tg.em_quantify_gpu
     em_args = inspect.signature(em_call)
@@ -1259,7 +1276,9 @@ def phase_main(dev, work: str, n_genes: int, copies: int, n_pairs: int,
     info["alleles"] = n_genes * copies * 120
     info["pairs"] = n_pairs
     info["port_s"] = f"{t_port:.2f}"
-    info["native_s"] = f"{t_native:.2f}"
+    info["native_s"] = f"{native_s['process']:.2f}"
+    info["native_startup_s"] = f"{native_s['startup']:.2f}"
+    info["native_cuda_context"] = cuda_context(out)
     info["deferred_item_count"] = ra["deferred_item_count"]
     info["band_kernel_launches"] = launches["band_stats"]
     info["em_kernel_launches"] = launches["em_squarem"]
@@ -1274,8 +1293,8 @@ def phase_main(dev, work: str, n_genes: int, copies: int, n_pairs: int,
 DIST_SHARDS = 3
 # the multi-process flavour's read pairs: the first of main's, cut from
 # its 12,000 for the time limit (4,000 took two chains of 29.6-37.4 s,
-# H100 80GB HBM3 at 700 W)
-MP_PAIRS = 2_000
+# 2,000 of 22.9-33.0 s, H100 80GB HBM3 at 700 W)
+MP_PAIRS = 1_000
 MP_OUTPUTS = ("_candidate_1.fq", "_candidate_2.fq", "_genotype.tsv",
               "_allele.tsv", "_aligned_1.fa", "_aligned_2.fa",
               "_allele.vcf")
@@ -1908,26 +1927,16 @@ def phase_candidates(dev, work: str, info: dict) -> dict:
         set_s.append(time.perf_counter() - t0)
     info["set_candidates_s"] = " ".join(f"{t:.3f}" for t in set_s)
 
-    # end to end: the genotyper without, then with pruning; every output
-    # of the pruned run equal to the native route's and to the unpruned
-    # port run's
-    runs = {}
-    for name, flags in (("cand_plain_a", []),
-                        ("cand_pruned_a", ["--deviceCandidates"])):
-        runs[name] = genotype_child(dev, work, name, flags)
-    pruned, launches, metrics, _ = runs["cand_pruned_a"]
-    plain = runs["cand_plain_a"][0]
-    for suffix in ("_genotype.tsv", "_allele.tsv", "_aligned_1.fa",
-                   "_aligned_2.fa", "_assign.tsv"):
-        with open(pruned + suffix, "rb") as f:
-            got = f.read()
-        refs = [plain] + ([os.path.join(work, "native")]
-                          if suffix != "_assign.tsv" else [])
-        for ref in refs:
-            with open(ref + suffix, "rb") as f:
-                if f.read() != got:
-                    raise AssertionError(f"pruned {suffix} differs from "
-                                         f"{os.path.basename(ref)}")
+    # end to end: the genotyper with pruning in a child process, every
+    # output, _assign.tsv included, equal to main's native route's; the
+    # unpruned card route is main's (in process)
+    pruned, launches, metrics, secs = genotype_child(
+        dev, work, "cand_pruned_a", ["--deviceCandidates"])
+    same_files(os.path.join(work, "native"), pruned,
+               ("_genotype.tsv", "_allele.tsv", "_aligned_1.fa",
+                "_aligned_2.fa", "_assign.tsv"), "the pruned genotyper")
+    with open(os.path.join(work, "port_metrics.json")) as f:
+        runs = {"main_port": json.load(f), "cand_pruned_a": metrics}
     ra = metrics["read_assignment"]
     # the pruned route runs the census and bucket chain kernels and no
     # dense chain tile (the genotyper runs no screen)
@@ -1937,12 +1946,10 @@ def phase_candidates(dev, work: str, info: dict) -> dict:
         raise AssertionError(f"the pruned route's launches: {launches}")
     if ra["device_decided_reads"] <= 0:
         raise AssertionError("the card decided no read of the genotyper")
-    for name, (_, _, m, secs) in runs.items():
-        r = m["read_assignment"]
-        info[f"{name}_read_assignment_s"] = r["seconds"]
-        info[f"{name}_process_s"] = f"{secs:.2f}"
-        if "candidate_seconds" in r:
-            info[f"{name}_candidate_s"] = r["candidate_seconds"]
+    for name, m in runs.items():
+        info[f"{name}_read_assignment_s"] = m["read_assignment"]["seconds"]
+    info["cand_pruned_a_process_s"] = f"{secs:.2f}"
+    info["cand_pruned_a_candidate_s"] = ra["candidate_seconds"]
     info["pruned_decided_reads"] = ra["device_decided_reads"]
     info["pruned_candidates"] = ra["candidate_count"]
     info["pruned_launches"] = " ".join(f"{kn}:{v}"
@@ -2043,7 +2050,7 @@ def phase_candidates(dev, work: str, info: dict) -> dict:
                   generate_s=float(np.mean(gen_s)),
                   read_assignment_s={
                       name: m["read_assignment"]["seconds"]
-                      for name, (_, _, m, _) in runs.items()})
+                      for name, m in runs.items()})
     return {"cand_census": (
                 (ms["census"], plain["census"], b_census),
                 launches["cand_census"],
@@ -2757,7 +2764,7 @@ def off_panel_pairs(rng, panel: str, n_near: int, n_rand: int):
 def extract_inputs(work: str, panel: str, counts=EXTRACT_PAIRS,
                    tag: str = "x", snp_genes: int = 0,
                    barcodes: bool = False) -> str:
-    """Read pairs of 2 x 100 bp with qualities, fixed seeds (250,000 at
+    """Read pairs of 2 x 100 bp with qualities, fixed seeds (150,000 at
     EXTRACT_PAIRS): simulated on-panel pairs (two alleles from each of 8
     genes, `snp_genes` of them with seeded SNPs), near-miss pairs cut from
     panel alleles with 25-35% substitutions, and uniform random pairs (1%
@@ -2807,9 +2814,9 @@ def stage_line(text: str, name: str) -> dict:
 
 
 def phase_extract(dev, work: str, info: dict, counts=EXTRACT_PAIRS):
-    """Port CLI in this process vs native CLI in a child process; both
-    phase-A kernels must launch over the port's run.  Returns the prefix
-    of the inputs."""
+    """The port's CLI on `dev` in this process vs its native route in a
+    child process; both phase-A kernels must launch over the card route's
+    run.  Returns the prefix of the inputs."""
     import io
 
     from t1k_tpu_torch.cli import extract as cli
@@ -2820,15 +2827,13 @@ def phase_extract(dev, work: str, info: dict, counts=EXTRACT_PAIRS):
     prefix = extract_inputs(work, panel, counts)
     info["inputs_s"] = f"{time.perf_counter() - t0:.1f}"
     args = ["-f", panel, "-1", prefix + "_1.fq", "-2", prefix + "_2.fq"]
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "t1k_tpu.cli.extract", *args, "-o",
-         os.path.join(work, "xnative"), "--backend", "native"],
-        cwd=ROOT, env=child_env(), capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"native extraction failed:\n{proc.stderr[-4000:]}")
-    native = stage_line(proc.stderr, "extraction_screen")
-    info["native_process_s"] = f"{time.perf_counter() - t0:.2f}"
+    out, err, secs = timed_chain(
+        native_cmd("cli.extract", *args, "-o", os.path.join(work, "xnative"),
+                   "--backend", "native"), (STARTUP,))
+    native = stage_line(err, "extraction_screen")
+    info["native_process_s"] = f"{secs['process']:.2f}"
+    info["native_startup_s"] = f"{secs['startup']:.2f}"
+    info["native_cuda_context"] = cuda_context(out)
 
     log = io.StringIO()
     pa.launch_counts.update(phase_a_probe=0, phase_a_chain=0)
@@ -3220,9 +3225,14 @@ CHAIN_OUTPUTS = ("_candidate_1.fq", "_candidate_2.fq", "_candidate_bc.fa",
                  "_genotype.tsv", "_allele.tsv", "_aligned_1.fa",
                  "_aligned_2.fa", "_aligned_bc.fa", "_allele.vcf",
                  "_barcode_expr.tsv")
+# the line PORT_RUN, PORT_SMARTSEQ and PORT_NATIVE write to standard error
+# once their imports are done: a child's start-up, from its start to there
+READY = "t1k_tpu_torch imported"
+STARTUP = ("startup", None, READY)
 # each stage of a run-t1k chain between two lines of its log, which both
-# packages' cli.run write
-STAGE_MARKS = (("extraction", "Start to extract candidate reads",
+# routes of cli.run write, after the child's start-up
+STAGE_MARKS = (STARTUP,
+               ("extraction", "Start to extract candidate reads",
                 "Finish extracting reads."),
                ("genotyper", "Finish extracting reads.",
                 "Genotyping finishes."),
@@ -3233,6 +3243,7 @@ STAGE_MARKS = (("extraction", "Start to extract candidate reads",
 PORT_RUN = ("import json, sys\n"
             "from t1k_tpu_torch.cli import run\n"
             "from t1k_tpu_torch.ops import align_band, em, kmer, phase_a\n"
+            f"print({READY!r}, file=sys.stderr, flush=True)\n"
             "counts = (align_band.launch_counts, em.launch_counts,\n"
             "          kmer.launch_counts, phase_a.launch_counts)\n"
             "for c in counts:\n"
@@ -3247,20 +3258,47 @@ PORT_GENOTYPE = PORT_RUN.replace("from t1k_tpu_torch.cli import run",
                                  "from t1k_tpu_torch.cli import genotype") \
     .replace("run.main(", "genotype.main(")
 
+# the native baselines: a module of the port (t1k_tpu_torch.<pkg>.<leaf>,
+# filled in by native_cmd) as `python -m` runs it, READY once imported and,
+# as the last line of its standard output after it, whether the process
+# made a CUDA context (the host engine needs none)
+PORT_NATIVE = ("import json, sys\n"
+               "import torch\n"
+               "from t1k_tpu_torch.{pkg} import {leaf} as tool\n"
+               f"print({READY!r}, file=sys.stderr, flush=True)\n"
+               "rc = tool.main(sys.argv[1:])\n"
+               "print(json.dumps({{'cuda_context': "
+               "torch.cuda.is_initialized()}}))\n"
+               "sys.exit(rc)\n")
 
-def timed_chain(cmd, stage_marks=STAGE_MARKS, env=None) -> tuple:
+
+def native_cmd(module: str, *args) -> list:
+    """The command of a native baseline: `python -m t1k_tpu_torch.<module>
+    args` through PORT_NATIVE."""
+    pkg, leaf = module.split(".")
+    return [sys.executable, "-c", PORT_NATIVE.format(pkg=pkg, leaf=leaf),
+            *args]
+
+
+def cuda_context(stdout: str) -> bool:
+    """Whether a PORT_NATIVE child made a CUDA context (its last line)."""
+    return json.loads(stdout.splitlines()[-1])["cuda_context"]
+
+
+def timed_chain(cmd, stage_marks=STAGE_MARKS, env=None, cwd=ROOT) -> tuple:
     """Runs a run-t1k chain `cmd` in a child process (environment `env`,
-    child_env() by default).  Returns its standard output, its standard
-    error and {stage: seconds, "process": seconds}: each stage of
-    `stage_marks` from the arrival of the first log line on the child's
-    standard error that holds its opening mark (the child's start where
-    that is None) to the arrival of the first that holds its closing
-    one (host clock), the process from its start to its exit."""
+    child_env() by default; working directory `cwd`).  Returns its
+    standard output, its standard error and {stage: seconds, "process":
+    seconds}: each stage of `stage_marks` from the arrival of the first
+    log line on the child's standard error that holds its opening mark
+    (the child's start where that is None) to the arrival of the first
+    that holds its closing one (host clock), the process from its start
+    to its exit."""
     marks = {None: 0.0}
     err = []
     with tempfile.TemporaryFile("w+") as out:
         t0 = time.perf_counter()
-        proc = subprocess.Popen(cmd, cwd=ROOT, env=env or child_env(),
+        proc = subprocess.Popen(cmd, cwd=cwd, env=env or child_env(),
                                 stdout=out, stderr=subprocess.PIPE,
                                 text=True)
         for line in proc.stderr:
@@ -3300,12 +3338,13 @@ def device_busy_ms(trace: str) -> float:
 
 def phase_run(dev, work: str, info: dict, counts=EXTRACT_PAIRS) -> dict:
     """t1k_tpu_torch.cli.run (extract -> genotype -> analyze, every route
-    on `dev`) against t1k_tpu.cli.run --backend native --emBackend native,
-    each in a child process of its own, on read pairs whose simulated
-    share carries seeded SNPs in SNP_GENES genes, with cell barcodes.
-    Every output byte-compared, the VCF non-empty; returns the kernels'
-    launch counts over the port's run, the band kernel's split into
-    band_stats (the genotyper's launches) and band_stats_analyzer."""
+    on `dev`) against its native route (--backend native --emBackend
+    native), each in a child process of its own, on read pairs whose
+    simulated share carries seeded SNPs in SNP_GENES genes, with cell
+    barcodes.  Every output byte-compared, the VCF non-empty; returns the
+    kernels' launch counts over the card route's run, the band kernel's
+    split into band_stats (the genotyper's launches) and
+    band_stats_analyzer."""
     panel = os.path.join(work, "panel.fa")
     t0 = time.perf_counter()
     prefix = extract_inputs(work, panel, counts, tag="run",
@@ -3314,10 +3353,10 @@ def phase_run(dev, work: str, info: dict, counts=EXTRACT_PAIRS) -> dict:
     args = ["-f", panel, "-1", prefix + "_1.fq", "-2", prefix + "_2.fq",
             "--barcode", prefix + "_bc.fq", "-o", "run"]
     secs = {}
-    *_, secs["native"] = timed_chain(
-        [sys.executable, "-m", "t1k_tpu.cli.run", *args, "--od",
-         os.path.join(work, "rnative"), "--backend", "native",
-         "--emBackend", "native"])
+    native, _, secs["native"] = timed_chain(
+        native_cmd("cli.run", *args, "--od", os.path.join(work, "rnative"),
+                   "--backend", "native", "--emBackend", "native"))
+    info["native_cuda_context"] = cuda_context(native)
     out, _, secs["port"] = timed_chain(
         [sys.executable, "-c", PORT_RUN, *args, "--od",
          os.path.join(work, "rport"), "--backend", "gpu", "--emBackend",
@@ -3395,23 +3434,26 @@ def check_chain(dev, native: str, port: str, outputs, port_stdout: str,
 # aligned inside their gene's interval and on the alt contig, unaligned
 # templates (on-panel, near-miss, random), pairs within 5 kb of an
 # interval on chr6, and off-target pairs on chr1
-# 250,000 pairs, cut from 500,000 as the run phase's
+# 150,000 pairs, cut from 500,000 as the run phase's, then from 250,000
+# (off target only) when the native baseline became the port's, whose
+# child processes each import torch
 BAM_PAIRS = dict(region=10_000, alt=1_000, unaligned_panel=4_000,
                  unaligned_near=16_000, unaligned_random=30_000,
-                 near_edge=5_000, off_target=184_000)
+                 near_edge=5_000, off_target=84_000)
 BAM_CONTIGS = (("chr1", 200_000_000), ("chr6", 171_000_000),
                ("chr6_GL000251v2_alt", 4_700_000))
 # gene g of the panel lies on chr6 at [GENE_START + GENE_STEP g,
 # GENE_START + GENE_STEP g + GENE_SPAN]
 GENE_START, GENE_STEP, GENE_SPAN = 1_000_000, 200_000, 12_000
 # The reference's BAM chain writes no line around its extraction: there
-# it runs from the child's start to the genotyper's first line after
-# loading its reads, which both packages write
-BAM_STAGE_MARKS = ((("extraction", None,
+# it runs from the child's start (its start-up included) to the
+# genotyper's first line after loading its reads, which both routes write
+BAM_STAGE_MARKS = ((STARTUP,
+                    ("extraction", None,
                      "read fragments. Start read assignment."),
                     ("genotyper", "read fragments. Start read assignment.",
                      "Genotyping finishes."))
-                   + STAGE_MARKS[2:])
+                   + STAGE_MARKS[3:])
 BAM_OUTPUTS = CHAIN_OUTPUTS + ("_candidate_umi.fa",)
 BAM_HEADER = "@HD\tVN:1.6\tSO:coordinate\n"
 # BAM 4-bit codes of A, C, G, T, N ("=ACMGRSVTWYHKDBN")
@@ -3650,12 +3692,13 @@ def bam_inputs(work: str, panel: str, counts: dict, info: dict):
 def phase_bam_run(dev, work: str, info: dict, counts=BAM_PAIRS) -> dict:
     """t1k_tpu_torch.cli.run -b (BAM scan -> selection -> the device
     screen -> native re-screen -> mate recovery -> genotype -> analyze,
-    every route on `dev`) against t1k_tpu.cli.run -b --backend native
-    --emBackend native with T1K_BACKEND=native (which pins the JAX
-    package's BAM screen to the host engine), each in a child process of
-    its own, on the bam_inputs BAM with CB barcodes and UB UMIs.  Every
-    output byte-compared, as check_chain holds them; the device must
-    decide reads.  Returns the launch counts as check_chain does."""
+    every route on `dev`) against its native route (--backend native
+    --emBackend native, which the BAM screen takes too, and
+    T1K_BACKEND=native, which pins any "auto" left to the host engine),
+    each in a child process of its own, on the bam_inputs BAM with CB
+    barcodes and UB UMIs.  Every output byte-compared, as check_chain
+    holds them; the device must decide reads.  Returns the launch counts
+    as check_chain does."""
     panel = os.path.join(work, "panel.fa")
     t0 = time.perf_counter()
     bam, coord = bam_inputs(work, panel, counts, info)
@@ -3663,11 +3706,11 @@ def phase_bam_run(dev, work: str, info: dict, counts=BAM_PAIRS) -> dict:
     args = ["-f", panel, "-b", bam, "-c", coord, "--barcode", "CB",
             "--UMI", "UB", "-o", "bam"]
     secs = {}
-    *_, secs["native"] = timed_chain(
-        [sys.executable, "-m", "t1k_tpu.cli.run", *args, "--od",
-         os.path.join(work, "bnative"), "--backend", "native",
-         "--emBackend", "native"], BAM_STAGE_MARKS,
-        dict(child_env(), T1K_BACKEND="native"))
+    native, _, secs["native"] = timed_chain(
+        native_cmd("cli.run", *args, "--od", os.path.join(work, "bnative"),
+                   "--backend", "native", "--emBackend", "native"),
+        BAM_STAGE_MARKS, dict(child_env(), T1K_BACKEND="native"))
+    info["native_cuda_context"] = cuda_context(native)
     out, err, secs["port"] = timed_chain(
         [sys.executable, "-c", PORT_RUN, *args, "--od",
          os.path.join(work, "bport"), "--backend", "gpu", "--emBackend",
@@ -3812,12 +3855,14 @@ def phase_analyzer_timing(dev, check: Checker, batch, info: dict):
 # ------------------------------------------------------ SMART-seq plate
 
 # one plate of one donor: cells, and per cell its on-panel pairs (the
-# donor's alleles), near-miss and random pairs.  12 cells, an eighth of
-# a 96-well plate, so the smoke stays inside its time limit on a slow
-# host (H100 80GB HBM3 at 700 W: a full plate took 296 s of 1,170 s of
-# phases on one; 48 cells 154.6 s of 888.4; 24 cells 103.7 s of 947.4
-# with the distributed phase's 93.5)
-PLATE_CELLS = 12
+# donor's alleles), near-miss and random pairs.  4 cells, so the smoke
+# stays inside its time limit on a slow host (H100 80GB HBM3 at 700 W: a
+# full plate took 296 s of 1,170 s of phases on one; 48 cells 154.6 s of
+# 888.4; 24 cells 103.7 s of 947.4 with the distributed phase's 93.5;
+# with the port's native route as the baseline, whose spawn workers each
+# import torch, 12 cells 115.9 s of 967.7, 8 cells 93.6 s of 1,010.0 and
+# 6 cells 105.3 s of 1,113.2)
+PLATE_CELLS = 4
 PLATE_PAIRS = (800, 800, 2_400)
 PLATE_GENES, PLATE_EXPRESSED = 8, 6   # donor genes; expressed per cell
 PLATE_WORKERS = 8
@@ -3839,6 +3884,7 @@ PORT_SMARTSEQ = (
     "import json, pickle, sys\n"
     "from t1k_tpu_torch.ops import align, align_band, em, phase_a\n"
     "from t1k_tpu_torch.tools import smartseq\n"
+    f"print({READY!r}, file=sys.stderr, flush=True)\n"
     "counts = (align.launch_counts, align_band.launch_counts,\n"
     "          em.launch_counts, phase_a.launch_counts)\n"
     "batched = em.em_quantify_batched\n"
@@ -3917,24 +3963,19 @@ def plate_inputs(work: str, panel: str, n_cells: int, counts) -> tuple:
 def smartseq_route(cmd, workdir: str, env: dict) -> tuple:
     """Runs a smartseq command (output prefix "plate") in a child process
     in `workdir`.  Returns its standard output and walls (host clock):
-    the process, and from the output files' times the first pass (start
-    to the genotype list), the vote (to the reduced reference) and the
-    second pass (to the reduced genotype list)."""
+    the process, its start-up, and from the output files' times the first
+    pass (start to the genotype list), the vote (to the reduced
+    reference) and the second pass (to the reduced genotype list)."""
     os.makedirs(workdir)
     t0 = time.time()
-    proc = subprocess.run(cmd, cwd=workdir, env=env, capture_output=True,
-                          text=True)
-    secs = {"process": time.time() - t0}
-    if proc.returncode != 0:
-        raise RuntimeError(f"{cmd[1:3]} exited {proc.returncode}:\n"
-                           + proc.stderr[-4000:])
+    stdout, _, secs = timed_chain(cmd, (STARTUP,), env, workdir)
     mtime = {s: os.path.getmtime(os.path.join(workdir, "plate" + s))
              for s in PLATE_OUTPUTS}
     secs["pass1"] = mtime["_genotype_list.out"] - t0
     secs["vote"] = mtime["_reduced_ref.fa"] - mtime["_genotype_list.out"]
     secs["pass2"] = (mtime["_reduced_genotype_list.out"]
                      - mtime["_reduced_ref.fa"])
-    return proc.stdout, secs
+    return stdout, secs
 
 
 def worker_ready(dev_name: str) -> float:
@@ -3965,15 +4006,15 @@ def worker_startup(dev, workers: int) -> tuple:
 
 
 def phase_smartseq(dev, work: str, info: dict, plate: tuple) -> tuple:
-    """The SMART-seq plate through both packages' smartseq tools, each in
-    a child process with `workers` spawn workers and its own work
-    directory: t1k_tpu.tools.smartseq with T1K_BACKEND=native (per-cell
-    native EM), then t1k_tpu_torch.tools.smartseq --cohortEm on `dev`
-    (the second pass's EM batched).  Every plate file, each cell's
-    first-pass outputs and each cell's second-pass genotyper outputs
-    byte-compared; probe, chain, band and the batched EM must launch.
-    Returns (launch counts over the port's run, its pickled batched-EM
-    arguments' path)."""
+    """The SMART-seq plate through the port's smartseq tool on two
+    routes, each in a child process with `workers` spawn workers and its
+    own work directory: the native route (T1K_BACKEND=native: the host
+    engine and the per-cell native EM), then --cohortEm on `dev` (the
+    second pass's EM batched).  Every plate file, each cell's first-pass
+    outputs and each cell's second-pass genotyper outputs byte-compared;
+    probe, chain, band and the batched EM must launch.  Returns (launch
+    counts over the card route's run, its pickled batched-EM arguments'
+    path)."""
     import pickle
 
     n_cells, counts, workers = plate
@@ -3985,9 +4026,10 @@ def phase_smartseq(dev, work: str, info: dict, plate: tuple) -> tuple:
             "--workers", str(workers)]
     secs, dirs = {}, {r: os.path.join(work, f"ss{r}")
                       for r in ("native", "port")}
-    _, secs["native"] = smartseq_route(
-        [sys.executable, "-m", "t1k_tpu.tools.smartseq", *args],
-        dirs["native"], dict(child_env(), T1K_BACKEND="native"))
+    native, secs["native"] = smartseq_route(
+        native_cmd("tools.smartseq", *args), dirs["native"],
+        dict(child_env(), T1K_BACKEND="native"))
+    info["native_cuda_context"] = cuda_context(native)
     problems = os.path.join(work, "plate_em.pkl")
     out, secs["port"] = smartseq_route(
         [sys.executable, "-c", PORT_SMARTSEQ, problems, *args, "--cohortEm",

@@ -39,6 +39,9 @@ from ..core.genotyper import Genotyper
 from ..device import NoCardError, resolve_backend, resolve_device
 from . import fold_negative_values
 
+# run-t1k's presets (run-t1k:289-314; PipelineConfig.apply_preset)
+PRESETS = ("hla", "hla-wgs", "kir-wgs", "kir-wes")
+
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
@@ -83,7 +86,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--abnormalUnmapFlag", action="store_true")
     ap.add_argument("--relaxIntronAlign", action="store_true")
     ap.add_argument("--preset", default="",
-                    choices=["", "hla", "hla-wgs", "kir-wgs", "kir-wes"])
+                    choices=["", *PRESETS])
     ap.add_argument("--noExtraction", action="store_true")
     ap.add_argument("--skipPostAnalysis", action="store_true")
     ap.add_argument("--outputReadAssignment", action="store_true")
@@ -118,10 +121,13 @@ def resolve_preset(preset: str, similarity: Optional[float],
                    relax: bool = False):
     """(genotyper -s, extractor -s, relaxIntronAlign) for a preset
     (run-t1k:289-314): PipelineConfig.apply_preset over -s (default 0.8)
-    and --relaxIntronAlign."""
+    and --relaxIntronAlign.  Any other name leaves those as they are, as
+    run-t1k does (apply_preset itself raises on it)."""
     sim = similarity if similarity is not None else 0.8
     cfg = PipelineConfig(similarity=sim, extractor_similarity=sim,
-                         relax_intron_align=relax).apply_preset(preset)
+                         relax_intron_align=relax)
+    if preset in PRESETS:
+        cfg.apply_preset(preset)
     return cfg.similarity, cfg.extractor_similarity, cfg.relax_intron_align
 
 

@@ -463,6 +463,20 @@ def test_apply_preset_matches_jax_and_run_cli(preset):
     assert resolve_preset(preset, None) == resolve_preset(preset, 0.8)
 
 
+@pytest.mark.parametrize("preset", PRESETS[1:] + ["wgs"])
+def test_resolve_preset_matches_jax(preset):
+    """cli/run.py's resolve_preset against t1k_tpu's on each preset and on
+    a name outside them (the defaults, as run-t1k), at every -s and
+    --relaxIntronAlign; apply_preset still raises on that name (above)."""
+    from t1k_tpu.cli.run import resolve_preset as host_resolve
+    from t1k_tpu_torch.cli.run import resolve_preset
+
+    for sim in (None, 0.85):
+        for relax in (False, True):
+            assert resolve_preset(preset, sim, relax) == host_resolve(
+                preset, sim, relax)
+
+
 def test_make_deferred_desc_service_scores_as_the_host_engine():
     """ops.align_band.make_deferred_desc_service: a descriptor service on
     the device asked for, whose scores through the engine's deferred

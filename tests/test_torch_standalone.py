@@ -3,8 +3,10 @@ chip_smoke.py) loads nothing of the JAX package and no jax, and the
 port's copies of the native engine's oracles equal the originals."""
 
 import ast
+import glob
 import os
 import pkgutil
+import re
 import subprocess
 import sys
 
@@ -95,6 +97,28 @@ def test_chip_smoke_imports_without_the_jax_package():
                 top = m.split(".")[0]
                 assert top not in ("t1k_tpu", "jax", "importlib"), \
                     f"{path}: imports {m}"
+
+
+def test_card_scripts_name_no_module_of_the_jax_package():
+    """No string in chip_smoke.py or scripts/*.py names a module of
+    t1k_tpu as a dotted name: not as a `-m` argument, not in `-c` code,
+    not in a docstring.  So no baseline on the card runs the JAX package.
+    Slash paths (t1k_tpu/ops/em.py:213) name the source a kernel
+    replaces and stay allowed."""
+    dotted = re.compile(r"\bt1k_tpu\.[A-Za-z_]")
+    files = [os.path.join(REPO, "chip_smoke.py")] + sorted(
+        glob.glob(os.path.join(REPO, "scripts", "*.py")))
+    assert len(files) > 1
+    found = []
+    for path in files:
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if (isinstance(node, ast.Constant) and isinstance(node.value, str)
+                    and dotted.search(node.value)):
+                found.append(f"{os.path.relpath(path, REPO)}:{node.lineno}: "
+                             f"{dotted.search(node.value).group()}")
+    assert not found, found
 
 
 def test_align_global_copy_matches_the_original_on_the_golden_cases():
