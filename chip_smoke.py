@@ -169,8 +169,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
  15. screen_timing probe and chain kernels vs their plain versions, in
                    turns, on one full 1024-row chunk of the extract inputs
  16. run           the run-t1k chain (extract -> genotype -> analyze) on
-                   the same panel: 150,000 read pairs built as extract's
-                   (10,000 simulated, 40,000 near-miss, 100,000 random),
+                   the same panel: 50,000 read pairs built as extract's
+                   (5,000 simulated, 15,000 near-miss, 30,000 random),
                    the simulated pairs of two genes drawn from copies of
                    an allele with three seeded substitutions, and a cell
                    barcode per pair: t1k_tpu_torch.cli.run --backend
@@ -191,7 +191,7 @@ Phases, in order; any failure raises and the exit code is non-zero:
                    centre-canonical table) and 15, 16 (hashed), build
                    seconds printed, and the kernel and its first design
                    exact against classify_plain on the card's tensors on
-                   the run phase's 150,000 mate-1 reads and on edge reads
+                   the run phase's 50,000 mate-1 reads and on edge reads
                    (lengths 0, k - 1, k, k + 1, N at the first, a middle
                    and the last base, a reverse complement, all-T, all-A);
                    a batch narrower than k gives zeros; at the extractor's
@@ -204,9 +204,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
                    gathers)
  18. bam_run       the run-t1k chain on a BAM (-b, with -c the coordinate
                    fasta: every panel allele on its gene's interval of
-                   chr6): 150,000 pairs of 2 x 100 bp (BAM_PAIRS:
-                   10,000 on-panel pairs in their gene's interval, 1,000
-                   on an alt contig, 50,000 unaligned templates, 5,000
+                   chr6): 50,000 pairs of 2 x 100 bp (BAM_PAIRS:
+                   5,000 on-panel pairs in their gene's interval, 500
+                   on an alt contig, 25,000 unaligned templates, 2,500
                    pairs within 5 kb of an interval, the rest off target
                    on chr1), CB and UB tags on every record, written by a
                    packer that writes BamWriter's bytes (held against it
@@ -228,7 +228,34 @@ Phases, in order; any failure raises and the exit code is non-zero:
  20. analyzer_timing  the thread band kernels vs their plain version on
                    that batch, exact and in turns, with its shape and
                    the two streams' overlap
- 21. smartseq      one SMART-seq2 plate of one donor: 4 cells of 4,000
+ 21. wgs           the run-t1k chain on WGS/WES configurations: a .dat of
+                   KIR's shape (make_ipd_dat at 40 genes x 120 records,
+                   9 exons of 36-300 bp, introns of 300-3,000 bp, the
+                   generator's partials and duplicates; 16 genes came to
+                   7.4 Mbp and k = 13, as the build keeps 200 bp of each
+                   intron's ends) through python -m
+                   t1k_tpu_torch.db.build into its dna fasta (17.7 Mbp,
+                   3,694 alleles: the extractor's k = 14, checked); 50,000
+                   read pairs of 2 x 100 bp (10,000 simulated by the
+                   port's simulator from 1-2 alleles of each of 16 genes
+                   at error rate 0.004, so they cross exon-intron
+                   junctions, 10,000 near-miss, 30,000 random); one child
+                   of the port's native route (--backend native
+                   --emBackend native) and one of its card route
+                   (--backend gpu --emBackend gpu), each running
+                   t1k_tpu_torch.cli.run three times: --preset kir-wgs
+                   -t 8 on -1/-2, --preset hla-wgs -t 8 on -u (mate 1),
+                   --preset kir-wes -t 1 on -i (the first 10,000 pairs
+                   interleaved), the card's kir-wes run under
+                   torch.profiler; every output of each configuration
+                   byte-compared between the routes; in each card run the
+                   band kernel in the genotyper and the analyzer, both
+                   phase-A kernels and the EM kernel must launch, in the
+                   native child nothing, and it makes no CUDA context;
+                   each run's stage seconds, deferred items and launches,
+                   the reference's size and k, and the card's busy share
+                   of the profiled run's two read assignments
+ 22. smartseq      one SMART-seq2 plate of one donor: 4 cells of 4,000
                    pairs of 2 x 100 bp (800 simulated from the donor's
                    two alleles of 6 of 8 panel genes, drawn per cell, at
                    a ratio drawn from [0.1, 0.9]; 800 near-miss and 2,400
@@ -244,7 +271,7 @@ Phases, in order; any failure raises and the exit code is non-zero:
                    chain, band and the batched EM must launch; each
                    route's wall, start-up and pass walls, and a spawn
                    pool's start-up
- 22. cohort_em_timing  the EM kernel's cohort form alone on (a) the
+ 23. cohort_em_timing  the EM kernel's cohort form alone on (a) the
                    problems the port's second pass solved and (b) 384
                    cells of benchmarks/cohort_em.py's default shape: the
                    batched launches at the cells' widths, the same cells
@@ -255,7 +282,7 @@ Phases, in order; any failure raises and the exit code is non-zero:
                    native loop; per launch its kernel's registers, local
                    bytes, resident blocks an SM and waves (local bytes in
                    a launch at the cells' widths fail)
- 23. sharded_em    the sharded EM (t1k_tpu_torch/parallel/mesh.py and
+ 24. sharded_em    the sharded EM (t1k_tpu_torch/parallel/mesh.py and
                    multihost.py; the sharded form of em_squarem.cu) on
                    one card: em_quantify_sharded_squarem over [card] x n,
                    n = 1, 2, 4, on the main phase's HLA problem and the
@@ -294,7 +321,10 @@ and ring batches (its three paths summed, and per path in
 launches_by_path, beside the ring kernel's, the narrow and the wide
 pairs' times and bounds), the
 batched EM's over the smartseq phase's port run, launches_bam_run over
-the bam_run phase's chain and launches_smartseq over the plate; the
+the bam_run phase's chain, launches_wgs over the wgs phase's three card
+runs (the band kernel's genotyper and analyzer launches apart, probe,
+chain and EM; null for the others) and launches_smartseq over the
+plate; the
 band kernel's thread kernels as two entries, band_stats timed on the
 genotyper's chunk with the genotyper's launches and band_stats_analyzer
 on the analyzer's batch with the analyzer's; band_stats_group, the
@@ -365,8 +395,10 @@ V1_PAIRS = 65_536
 # inside its time limit as phases are added, then from 250,000, random
 # pairs only, when the native baselines became the port's, whose child
 # processes each import torch: 967.7-1,113.2 s of phases on H100 80GB
-# HBM3 at 700 W, one host 1.35 times slower than another)
-EXTRACT_PAIRS = (10_000, 40_000, 100_000)   # simulated, near-miss, random
+# HBM3 at 700 W, one host 1.35 times slower than another; then to
+# 50,000, every share, for the wgs phase: 941.7 s of phases with it at
+# 150,000)
+EXTRACT_PAIRS = (5_000, 15_000, 30_000)   # simulated, near-miss, random
 # the extract phase's depth: the run phase extracts EXTRACT_PAIRS (cut
 # from 100,000 pairs for the same reason)
 EXTRACT_SMOKE_PAIRS = (500, 2_000, 22_500)
@@ -1460,8 +1492,10 @@ def _dat_record(f, allele, seq, features):
     f.write("//\n")
 
 
-def make_ipd_dat(rng, path, n_genes=DB_GENES, alleles_per_gene=DB_RECORDS):
-    """hla.dat-shaped: 6-8 exons/gene, ~1-3kb alleles, 18% exon-only
+def make_ipd_dat(rng, path, n_genes=DB_GENES, alleles_per_gene=DB_RECORDS,
+                 exons=(6, 8), exon_len=(90, 360), intron_len=(80, 250)):
+    """hla.dat-shaped: 6-8 exons/gene (`exons`, each `exon_len` bp apart
+    from introns of `intron_len` bp), ~1-3kb alleles, 18% exon-only
     (rna-style) partial records, 12% block-dropped partials, 5% exact
     duplicates.  Returns the gene names."""
     genes = []
@@ -1469,10 +1503,10 @@ def make_ipd_dat(rng, path, n_genes=DB_GENES, alleles_per_gene=DB_RECORDS):
         for g in range(n_genes):
             gene = f"IP{chr(65 + g // 4)}{g % 4 + 1}"
             genes.append(gene)
-            n_ex = rng.randint(6, 8)
+            n_ex = rng.randint(*exons)
             utr5, utr3 = rng.choice([30, 50, 80]), rng.choice([30, 50, 80])
-            ex_lens = [rng.randint(90, 360) for _ in range(n_ex)]
-            in_lens = [rng.randint(80, 250) for _ in range(n_ex - 1)]
+            ex_lens = [rng.randint(*exon_len) for _ in range(n_ex)]
+            in_lens = [rng.randint(*intron_len) for _ in range(n_ex - 1)]
             exons_t = [_dat_seq(rng, n) for n in ex_lens]
             introns_t = [_dat_seq(rng, n) for n in in_lens]
             dup_from = None
@@ -2763,10 +2797,11 @@ def off_panel_pairs(rng, panel: str, n_near: int, n_rand: int):
 
 def extract_inputs(work: str, panel: str, counts=EXTRACT_PAIRS,
                    tag: str = "x", snp_genes: int = 0,
-                   barcodes: bool = False) -> str:
-    """Read pairs of 2 x 100 bp with qualities, fixed seeds (150,000 at
+                   barcodes: bool = False, simulate=None) -> str:
+    """Read pairs of 2 x 100 bp with qualities, fixed seeds (50,000 at
     EXTRACT_PAIRS): simulated on-panel pairs (two alleles from each of 8
-    genes, `snp_genes` of them with seeded SNPs), near-miss pairs cut from
+    genes, `snp_genes` of them with seeded SNPs; or what `simulate(prefix,
+    n)` writes to <prefix>_1.fq / <prefix>_2.fq), near-miss pairs cut from
     panel alleles with 25-35% substitutions, and uniform random pairs (1%
     of them low-complexity or N-rich), shuffled.  Returns the prefix of
     <prefix>_1.fq / <prefix>_2.fq (prefix <work>/<tag>); with `barcodes`,
@@ -2775,7 +2810,10 @@ def extract_inputs(work: str, panel: str, counts=EXTRACT_PAIRS,
     rng = np.random.default_rng(99)
     acgt = np.frombuffer(b"ACGTN", np.uint8)
     sim = os.path.join(work, tag + "sim")
-    simulate_reads(panel, sim, n_sim, snp_genes=snp_genes)
+    if simulate is None:
+        simulate_reads(panel, sim, n_sim, snp_genes=snp_genes)
+    else:
+        simulate(sim, n_sim)
     m1 = np.stack([encode(s.decode()) for s in
                    read_fastq_seqs(sim + "_1.fq", n_sim)])
     m2 = np.stack([encode(s.decode()) for s in
@@ -3238,19 +3276,39 @@ STAGE_MARKS = (STARTUP,
                 "Genotyping finishes."),
                ("analyzer", "Genotyping finishes.",
                 "Post analysis finishes."))
+# a child's arguments may hold several runs of its CLI, one after another
+# in the one process, parted by THEN; RUN_MARK i on its standard error
+# opens run i
+THEN = "--then"
+RUN_MARK = "t1k_tpu_torch run"
+_RUNS = ("counts = (align_band.launch_counts, em.launch_counts,\n"
+         "          kmer.launch_counts, phase_a.launch_counts)\n"
+         "runs = [[]]\n"
+         "for a in sys.argv[1:]:\n"
+         f"    runs.append([]) if a == {THEN!r} else runs[-1].append(a)\n")
 # t1k_tpu_torch.cli.run as `python -m` runs it, with the kernels' launch
-# counts set to 0 just before it and printed as the last line after it
-PORT_RUN = ("import json, sys\n"
+# counts set to 0 just before each run and printed as a line of their own
+# after it (the last line after the last run); `--profileDir DIR` among a
+# run's arguments sets T1K_PROFILE_DIR for that run alone
+PORT_RUN = ("import json, os, sys\n"
             "from t1k_tpu_torch.cli import run\n"
             "from t1k_tpu_torch.ops import align_band, em, kmer, phase_a\n"
             f"print({READY!r}, file=sys.stderr, flush=True)\n"
-            "counts = (align_band.launch_counts, em.launch_counts,\n"
-            "          kmer.launch_counts, phase_a.launch_counts)\n"
-            "for c in counts:\n"
-            "    c.update(dict.fromkeys(c, 0))\n"
-            "rc = run.main(sys.argv[1:])\n"
-            "print(json.dumps({k: v for c in counts for k, v in c.items()}))\n"
-            "sys.exit(rc)\n")
+            + _RUNS +
+            "for i, argv in enumerate(runs):\n"
+            "    if '--profileDir' in argv:\n"
+            "        j = argv.index('--profileDir')\n"
+            "        os.environ['T1K_PROFILE_DIR'] = argv.pop(j + 1)\n"
+            "        del argv[j]\n"
+            "    for c in counts:\n"
+            "        c.update(dict.fromkeys(c, 0))\n"
+            f"    print({RUN_MARK!r}, i, file=sys.stderr, flush=True)\n"
+            "    rc = run.main(argv)\n"
+            "    os.environ.pop('T1K_PROFILE_DIR', None)\n"
+            "    print(json.dumps({k: v for c in counts\n"
+            "                      for k, v in c.items()}), flush=True)\n"
+            "    if rc:\n"
+            "        sys.exit(rc)\n")
 
 # t1k_tpu_torch.cli.genotype as `python -m` runs it, with the kernels' launch
 # counts set to 0 just before it and printed as the last line after it
@@ -3259,17 +3317,26 @@ PORT_GENOTYPE = PORT_RUN.replace("from t1k_tpu_torch.cli import run",
     .replace("run.main(", "genotype.main(")
 
 # the native baselines: a module of the port (t1k_tpu_torch.<pkg>.<leaf>,
-# filled in by native_cmd) as `python -m` runs it, READY once imported and,
-# as the last line of its standard output after it, whether the process
-# made a CUDA context (the host engine needs none)
+# filled in by native_cmd) as `python -m` runs it, once per run (THEN),
+# READY once imported and, as the last line of its standard output after
+# the last run, whether the process made a CUDA context (the host engine
+# needs none) and the kernels' launches over all its runs
 PORT_NATIVE = ("import json, sys\n"
                "import torch\n"
                "from t1k_tpu_torch.{pkg} import {leaf} as tool\n"
+               "from t1k_tpu_torch.ops import align_band, em, kmer, phase_a\n"
                f"print({READY!r}, file=sys.stderr, flush=True)\n"
-               "rc = tool.main(sys.argv[1:])\n"
+               + _RUNS +
+               "for c in counts:\n"
+               "    c.update(dict.fromkeys(c, 0))\n"
+               "for i, argv in enumerate(runs):\n"
+               f"    print({RUN_MARK!r}, i, file=sys.stderr, flush=True)\n"
+               "    rc = tool.main(argv)\n"
+               "    if rc:\n"
+               "        sys.exit(rc)\n"
                "print(json.dumps({{'cuda_context': "
-               "torch.cuda.is_initialized()}}))\n"
-               "sys.exit(rc)\n")
+               "torch.cuda.is_initialized(), 'launches': {{\n"
+               "    k: v for c in counts for k, v in c.items()}}}}))\n")
 
 
 def native_cmd(module: str, *args) -> list:
@@ -3285,39 +3352,65 @@ def cuda_context(stdout: str) -> bool:
     return json.loads(stdout.splitlines()[-1])["cuda_context"]
 
 
-def timed_chain(cmd, stage_marks=STAGE_MARKS, env=None, cwd=ROOT) -> tuple:
-    """Runs a run-t1k chain `cmd` in a child process (environment `env`,
-    child_env() by default; working directory `cwd`).  Returns its
-    standard output, its standard error and {stage: seconds, "process":
-    seconds}: each stage of `stage_marks` from the arrival of the first
-    log line on the child's standard error that holds its opening mark
-    (the child's start where that is None) to the arrival of the first
-    that holds its closing one (host clock), the process from its start
-    to its exit."""
-    marks = {None: 0.0}
-    err = []
+def stamped_child(cmd, env=None, cwd=ROOT) -> tuple:
+    """Runs `cmd` in a child process (environment `env`, child_env() by
+    default; working directory `cwd`).  Returns its standard output, the
+    lines of its standard error, each with its arrival in seconds after
+    the child's start (host clock), and the seconds to its exit."""
+    stamped = []
     with tempfile.TemporaryFile("w+") as out:
         t0 = time.perf_counter()
         proc = subprocess.Popen(cmd, cwd=cwd, env=env or child_env(),
                                 stdout=out, stderr=subprocess.PIPE,
                                 text=True)
         for line in proc.stderr:
-            now = time.perf_counter() - t0
-            err.append(line)
-            for _, *bounds in stage_marks:
-                for mark in bounds:
-                    if mark is not None and mark in line:
-                        marks.setdefault(mark, now)
+            stamped.append((time.perf_counter() - t0, line))
         proc.wait()
-        secs = {"process": time.perf_counter() - t0}
+        process = time.perf_counter() - t0
         out.seek(0)
         stdout = out.read()
     if proc.returncode != 0:
         raise RuntimeError(f"{cmd[1:3]} exited {proc.returncode}:\n"
-                           + "".join(err)[-4000:])
-    for name, start, end in stage_marks:
-        secs[name] = marks[end] - marks[start]
-    return stdout, "".join(err), secs
+                           + "".join(line for _, line in stamped)[-4000:])
+    return stdout, stamped, process
+
+
+def stage_seconds(stamped, stage_marks) -> dict:
+    """{stage: seconds} of `stage_marks` over stamped log lines: each stage
+    from the first line that holds its opening mark (the child's start
+    where that is None) to the first that holds its closing one."""
+    marks = {None: 0.0}
+    for now, line in stamped:
+        for _, *bounds in stage_marks:
+            for mark in bounds:
+                if mark is not None and mark in line:
+                    marks.setdefault(mark, now)
+    return {name: marks[end] - marks[start]
+            for name, start, end in stage_marks}
+
+
+def timed_chain(cmd, stage_marks=STAGE_MARKS, env=None, cwd=ROOT) -> tuple:
+    """Runs a run-t1k chain `cmd` in a child process (stamped_child).
+    Returns its standard output, its standard error and {stage: seconds,
+    "process": seconds}: each stage of `stage_marks` by stage_seconds,
+    the process from its start to its exit."""
+    stdout, stamped, process = stamped_child(cmd, env, cwd)
+    secs = {"process": process, **stage_seconds(stamped, stage_marks)}
+    return stdout, "".join(line for _, line in stamped), secs
+
+
+def timed_runs(cmd, env=None, cwd=ROOT) -> tuple:
+    """Runs a child of several run-t1k chains (THEN) through stamped_child.
+    Returns its standard output, {"process", "startup": seconds} and, for
+    each run, {stage: seconds} by STAGE_MARKS between its RUN_MARK and
+    the next."""
+    stdout, stamped, process = stamped_child(cmd, env, cwd)
+    starts = [i for i, (_, line) in enumerate(stamped)
+              if line.startswith(RUN_MARK)]
+    runs = [stage_seconds(stamped[a:b], STAGE_MARKS[1:])
+            for a, b in zip(starts, starts[1:] + [len(stamped)])]
+    return stdout, {"process": process,
+                    **stage_seconds(stamped, (STARTUP,))}, runs
 
 
 def device_busy_ms(trace: str) -> float:
@@ -3434,12 +3527,13 @@ def check_chain(dev, native: str, port: str, outputs, port_stdout: str,
 # aligned inside their gene's interval and on the alt contig, unaligned
 # templates (on-panel, near-miss, random), pairs within 5 kb of an
 # interval on chr6, and off-target pairs on chr1
-# 150,000 pairs, cut from 500,000 as the run phase's, then from 250,000
+# 50,000 pairs, cut from 500,000 as the run phase's, then from 250,000
 # (off target only) when the native baseline became the port's, whose
-# child processes each import torch
-BAM_PAIRS = dict(region=10_000, alt=1_000, unaligned_panel=4_000,
-                 unaligned_near=16_000, unaligned_random=30_000,
-                 near_edge=5_000, off_target=84_000)
+# child processes each import torch, then with the run phase's for the
+# wgs phase (every share halved, then the off-target pairs cut)
+BAM_PAIRS = dict(region=5_000, alt=500, unaligned_panel=2_000,
+                 unaligned_near=8_000, unaligned_random=15_000,
+                 near_edge=2_500, off_target=17_000)
 BAM_CONTIGS = (("chr1", 200_000_000), ("chr6", 171_000_000),
                ("chr6_GL000251v2_alt", 4_700_000))
 # gene g of the panel lies on chr6 at [GENE_START + GENE_STEP g,
@@ -3850,6 +3944,221 @@ def phase_analyzer_timing(dev, check: Checker, batch, info: dict):
     b = dp_bound(t_len, p_len, 40 * desc.shape[1])
     info["bound_ms"] = f"{b[0]:.4f}"
     return float(np.mean(thread_ms)), float(np.mean(plain_ms)), b
+
+
+# ------------------------------------------------------- WGS/WES chains
+
+# the genomic cell: a .dat of KIR's shape (9 exons of 36-300 bp, introns
+# of 300-3,000 bp, the generator's partial records and duplicates) built
+# into its dna fasta by the port's database build, which keeps 200 bp of
+# each intron's ends: 16 genes x 120 records came to 7.4 Mbp (k = 13),
+# so the panel has 40 genes (17.7 Mbp, 3,694 alleles: the extractor's
+# k = 14, its screen on the hashed table; 48 genes took the phase 155.3 s
+# on H100 80GB HBM3 at 700 W, over its 150, and 96 genes of 60 records
+# longer, as the reference's gene similarity grows with the genes'
+# square).  Reads as benchmarks/kir_scale.py makes them (1-2 alleles of
+# each of its first WGS_READ_GENES genes, error rate 0.004), near-miss
+# and random pairs
+WGS_GENES, WGS_RECORDS, WGS_READ_GENES = 40, 120, 16
+WGS_DAT = dict(exons=(9, 9), exon_len=(36, 300), intron_len=(300, 3_000))
+WGS_PAIRS = (10_000, 10_000, 30_000)   # simulated, near-miss, random
+WGS_INTERLEAVED = 10_000               # the first pairs, one file
+WGS_K = 14
+# (name, run-t1k flags, input)
+WGS_CONFIGS = (("kir-wgs", ("--preset", "kir-wgs", "-t", "8"), "paired"),
+               ("hla-wgs", ("--preset", "hla-wgs", "-t", "8"), "single"),
+               ("kir-wes", ("--preset", "kir-wes", "-t", "1"),
+                "interleaved"))
+_WGS_PAIRED = ("_candidate_1.fq", "_candidate_2.fq", "_aligned_1.fa",
+               "_aligned_2.fa")
+# the configuration whose card route runs under torch.profiler (the
+# card's busy share of its read assignments): the smallest, as the
+# profiler slows the stages it traces
+WGS_PROFILED = "kir-wes"
+WGS_OUTPUTS = {"paired": _WGS_PAIRED, "interleaved": _WGS_PAIRED,
+               "single": ("_candidate.fq", "_aligned.fa")}
+WGS_STAGE_OUTPUTS = ("_genotype.tsv", "_allele.tsv", "_allele.vcf")
+
+
+def wgs_reference(work: str, n_genes: int, records: int, info: dict) -> str:
+    """The genomic cell's .dat through `python -m t1k_tpu_torch.db.build`
+    in a child process; returns its dna fasta."""
+    db_dir = os.path.join(work, "wgs_db")
+    os.makedirs(db_dir)
+    dat = os.path.join(db_dir, "kir.dat")
+    t0 = time.perf_counter()
+    make_ipd_dat(random.Random(22), dat, n_genes, records, **WGS_DAT)
+    info["dat_bytes"] = os.path.getsize(dat)
+    info["dat_s"] = f"{time.perf_counter() - t0:.2f}"
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "t1k_tpu_torch.db.build", "-d", dat,
+         "-o", db_dir, "--prefix", "kir"],
+        cwd=ROOT, env=child_env(), capture_output=True, text=True)
+    info["build_s"] = f"{time.perf_counter() - t0:.2f}"
+    if proc.returncode != 0:
+        raise RuntimeError("the database build failed:\n"
+                           + proc.stderr[-4000:])
+    return os.path.join(db_dir, "kir_dna_seq.fa")
+
+
+def wgs_simulate(dna: str, n_genes: int):
+    """simulate(prefix, n) for extract_inputs: n pairs of 2 x 100 bp from
+    1-2 alleles of each of the first `n_genes` genes of `dna` at weights
+    in [0.1, 1), error rate 0.004 (benchmarks/kir_scale.py's recipe,
+    seeds 23 and 5), through the port's simulator's command line."""
+    by_gene = {}
+    for name, _, _ in read_fasta(dna):
+        by_gene.setdefault(name.split("*")[0], []).append(name)
+    rng = np.random.default_rng(23)
+    alleles, weights = [], []
+    for gene in sorted(by_gene)[:n_genes]:
+        for i in rng.choice(len(by_gene[gene]), int(rng.integers(1, 3)),
+                            replace=False):
+            alleles.append(by_gene[gene][i])
+            weights.append(float(rng.random() * 0.9 + 0.1))
+
+    def simulate(prefix: str, n: int) -> None:
+        subprocess.run(
+            [sys.executable, "-m", "t1k_tpu_torch.tools.simulate", "-f", dna,
+             "-o", prefix, "-n", str(n), "--seed", "5", "--errorRate",
+             "0.004", "--alleles", *alleles,
+             "--abundances", *map(str, weights)],
+            check=True, cwd=ROOT, env=child_env())
+    return simulate
+
+
+def interleave(prefix: str, n: int) -> str:
+    """<prefix>_il.fq: the first n pairs of <prefix>_1.fq and _2.fq, mate
+    after mate."""
+    path = prefix + "_il.fq"
+    with open(prefix + "_1.fq") as f1, open(prefix + "_2.fq") as f2, \
+            open(path, "w") as out:
+        for _ in range(n):
+            out.writelines(f1.readline() for _ in range(4))
+            out.writelines(f2.readline() for _ in range(4))
+    return path
+
+
+def phase_wgs(dev, work: str, info: dict, sizes: dict) -> dict:
+    """The run-t1k chain on the genomic cell under WGS_CONFIGS: one child
+    of the port's native route (--backend native --emBackend native,
+    through PORT_NATIVE) and one of its card route (--backend gpu
+    --emBackend gpu, through PORT_RUN), each running the three
+    configurations one after another; every output of each configuration
+    byte-identical between the two; on the card route the band kernel
+    (genotyper and analyzer), probe, chain and EM launched in each, on the
+    native route nothing launched and no CUDA context.  Returns the card
+    route's launches summed over the configurations, the band kernel's
+    split as band_stats (genotypers) and band_stats_analyzer."""
+    from t1k_tpu_torch.io.refset import RefSet
+
+    dna = wgs_reference(work, sizes["genes"], sizes["records"], info)
+    refset = RefSet(digit_units=-1, delimiter="")
+    for name, comment, seq in read_fasta(dna):
+        refset.add_allele(name, seq, comment)
+    info["dna_alleles"] = len(refset.alleles)
+    info["dna_bases"] = sum(a.length for a in refset.alleles)
+    info["k"] = refset.infer_kmer_length()
+    if sizes["k"] and info["k"] != sizes["k"]:
+        raise AssertionError(f"the genomic reference gives k = {info['k']}")
+    t0 = time.perf_counter()
+    prefix = extract_inputs(work, dna, sizes["pairs"], tag="wgs",
+                            simulate=wgs_simulate(dna, sizes["read_genes"]))
+    inputs = {"paired": ["-1", prefix + "_1.fq", "-2", prefix + "_2.fq"],
+              "single": ["-u", prefix + "_1.fq"],
+              "interleaved": ["-i", interleave(prefix,
+                                               sizes["interleaved"])]}
+    info["inputs_s"] = f"{time.perf_counter() - t0:.1f}"
+    routes = {"native": ["--backend", "native", "--emBackend", "native"],
+              "card": ["--backend", "gpu", "--emBackend", "gpu",
+                       "--device", str(dev)]}
+    out = {route: os.path.join(work, "wgs_" + route) for route in routes}
+    trace = os.path.join(work, "wgs_trace")
+    args = {route: [] for route in routes}
+    for i, (name, flags, kind) in enumerate(WGS_CONFIGS):
+        for route, route_flags in routes.items():
+            args[route] += [*([THEN] if i else []), "-f", dna,
+                            *inputs[kind], *flags, *route_flags,
+                            "--od", os.path.join(out[route], name), "-o", "w",
+                            *(["--profileDir", trace] if route == "card"
+                              and name == WGS_PROFILED else [])]
+    stdout, secs, runs = {}, {}, {}
+    stdout["native"], secs["native"], runs["native"] = timed_runs(
+        native_cmd("cli.run", *args["native"]))
+    native_end = json.loads(stdout["native"].splitlines()[-1])
+    if native_end["cuda_context"] or any(native_end["launches"].values()):
+        raise AssertionError(f"the native route made a CUDA context or "
+                             f"launched a kernel: {native_end}")
+    stdout["card"], secs["card"], runs["card"] = timed_runs(
+        [sys.executable, "-c", PORT_RUN, *args["card"]])
+    card_launches = [json.loads(line) for line in
+                     stdout["card"].splitlines()[-len(WGS_CONFIGS):]]
+    total = {}
+    for i, (name, _, kind) in enumerate(WGS_CONFIGS):
+        files = {route: sorted(n for n in os.listdir(os.path.join(
+            out[route], name)) if not n.endswith(".json"))
+            for route in routes}
+        want = {"w" + s for s in WGS_OUTPUTS[kind] + WGS_STAGE_OUTPUTS}
+        if files["card"] != files["native"] or not want <= set(
+                files["card"]):
+            raise AssertionError(f"wgs {name}: the routes wrote {files}")
+        for fname in files["card"]:
+            with open(os.path.join(out["native"], name, fname), "rb") as f:
+                a = f.read()
+            with open(os.path.join(out["card"], name, fname), "rb") as f:
+                b = f.read()
+            if a != b:
+                raise AssertionError(f"wgs {name}: {fname} differs from the "
+                                     "native route")
+        with open(os.path.join(out["card"], name, "w_metrics.json")) as f:
+            geno = json.load(f)["read_assignment"]
+        with open(os.path.join(out["card"], name,
+                               "w_analyzer_metrics.json")) as f:
+            ana = json.load(f)["analyzer_read_assignment"]
+        launches = dict(card_launches[i],
+                        band_stats=geno["band_kernel_launches"],
+                        band_stats_analyzer=ana["band_kernel_launches"])
+        if (launches["band_stats"] + launches["band_stats_analyzer"]
+                != card_launches[i]["band_stats"]):
+            raise AssertionError(f"wgs {name}: metrics and wrapper disagree "
+                                 f"on launches: {launches}")
+        path = ("band_stats", "band_stats_analyzer", "phase_a_probe",
+                "phase_a_chain", "em_squarem")
+        if dev.type == "cuda" and min(launches[k] for k in path) <= 0:
+            raise AssertionError(f"wgs {name}: a kernel of the chain never "
+                                 f"launched: {launches}")
+        if launches["band_stats_warp"] or launches["band_stats_group"]:
+            raise AssertionError(f"wgs {name}: a wide-window band kernel "
+                                 "launched")
+        if min(geno["deferred_item_count"], ana["deferred_item_count"]) <= 0:
+            raise AssertionError(f"wgs {name}: a stage deferred no DP item")
+        for k in path:
+            total[k] = total.get(k, 0) + launches[k]
+        info[f"{name}_files"] = len(files["card"])
+        print(f"  wgs {name} ({kind}, {' '.join(WGS_CONFIGS[i][1])}): "
+              f"deferred items genotyper {geno['deferred_item_count']} "
+              f"analyzer {ana['deferred_item_count']}; launches "
+              + json.dumps({k: launches[k] for k in path})
+              + "; stage seconds (child processes, host clock) "
+              + json.dumps({route: {k: round(v, 3) for k, v in
+                                    runs[route][i].items()}
+                            for route in routes}), flush=True)
+    for route in routes:
+        info[f"{route}_s"] = f"{secs[route]['process']:.3f}"
+        info[f"{route}_startup_s"] = f"{secs[route]['startup']:.3f}"
+    # the card's busy share of the profiled run's two read assignments
+    for stage, metrics in (("read_assignment", "w_metrics.json"),
+                           ("analyzer_read_assignment",
+                            "w_analyzer_metrics.json")):
+        with open(os.path.join(out["card"], WGS_PROFILED, metrics)) as f:
+            wall = json.load(f)[stage]["seconds"] * 1e3
+        busy = device_busy_ms(os.path.join(trace, stage + ".json"))
+        info[f"{WGS_PROFILED}_{stage}_busy_ms"] = f"{busy:.3f}"
+        info[f"{WGS_PROFILED}_{stage}_idle"] = (
+            f"{1 - busy / wall:.6f}" if wall else "n/a")
+    info["pairs"] = sum(sizes["pairs"])
+    return total
 
 
 # ------------------------------------------------------ SMART-seq plate
@@ -4917,6 +5226,8 @@ def run(dev, sizes: dict) -> list:
         with phase("analyzer_timing") as info:
             times["band_stats_analyzer"] = phase_analyzer_timing(
                 dev, checks["band_stats_analyzer"], batch, info)
+        with phase("wgs") as info:
+            wgs_launches = phase_wgs(dev, work, info, sizes["wgs"])
         with phase("smartseq") as info:
             plate_launches, plate_em = phase_smartseq(dev, work, info,
                                                       sizes["plate"])
@@ -4967,6 +5278,7 @@ def run(dev, sizes: dict) -> list:
                 "replaces": replaces[name], "launches": launches[name],
                 "launches_bam_run": bam_launches.get(name),
                 "launches_smartseq": plate_launches.get(name),
+                "launches_wgs": wgs_launches.get(name),
                 "max_abs_err": errs[name], "ms": times[name][0],
                 "plain_ms": times[name][1], "bound_ms": times[name][2][0],
                 "bound_by": times[name][2][1], "library_ms": None}
@@ -5009,6 +5321,9 @@ FULL_SIZES = dict(random_items=RANDOM_ITEMS, em=(EM_RG, EM_EC),
                   db=DB_PAIRS,
                   extract=EXTRACT_SMOKE_PAIRS, run=EXTRACT_PAIRS,
                   bam=BAM_PAIRS,
+                  wgs=dict(genes=WGS_GENES, records=WGS_RECORDS,
+                           read_genes=WGS_READ_GENES, pairs=WGS_PAIRS,
+                           interleaved=WGS_INTERLEAVED, k=WGS_K),
                   plate=(PLATE_CELLS, PLATE_PAIRS, PLATE_WORKERS),
                   cohort=COHORT_CELLS, scaling=(SCALING_RG, SCALING_EC))
 

@@ -3,8 +3,8 @@
 
   python3 scripts/smoke_phases.py [v1] [main] [distributed] [db]
                                   [candidates] [em_timing] [composite]
-                                  [kmer] [smartseq] [cohort_em_timing]
-                                  [sharded_em]
+                                  [kmer] [wgs] [smartseq]
+                                  [cohort_em_timing] [sharded_em]
 
 Builds the kernels (the smoke's `build` phase, with the compiler's
 register and spill lines), then runs the named phases in the smoke's
@@ -14,11 +14,11 @@ its EM problem) and run main first; kmer takes the run phase's reads, which it
 writes as that phase does (without running the chains); cohort_em_timing
 takes smartseq's problems and runs smartseq first; sharded_em takes both
 and runs both (its multi-process ranks in child processes); without
-main, the HLA-scale panel is built on its own (v1 and db need none: db
-builds its own database with the port's build).  Prints each phase's
-line, the card line, and as JSON the v1 aligner's per-path launches and
-times, the distributed and db phases' band and EM launches and the
-smartseq plate's launches.
+main, the HLA-scale panel is built on its own (v1, db and wgs need none:
+db and wgs build their own databases with the port's build).  Prints
+each phase's line, the card line, and as JSON the v1 aligner's per-path
+launches and times, the distributed and db phases' band and EM launches,
+the wgs chains' launches and the smartseq plate's launches.
 """
 
 from __future__ import annotations
@@ -34,7 +34,8 @@ sys.path.insert(0, ROOT)
 import chip_smoke as cs  # noqa: E402
 
 PHASES = ("v1", "main", "distributed", "db", "candidates", "em_timing",
-          "composite", "kmer", "smartseq", "cohort_em_timing", "sharded_em")
+          "composite", "kmer", "wgs", "smartseq", "cohort_em_timing",
+          "sharded_em")
 
 
 def main(argv) -> int:
@@ -82,7 +83,7 @@ def main(argv) -> int:
             with cs.phase("main") as info:
                 cs.phase_main(dev, work, cs.PANEL_GENES, cs.PANEL_COPIES,
                               sizes["sim_pairs"], info, em_problems)
-        elif wanted - {"v1", "db"}:
+        elif wanted - {"v1", "db", "wgs"}:
             cs.build_panel(os.path.join(work, "panel.fa"))
         if "distributed" in wanted:
             with cs.phase("distributed") as info:
@@ -118,6 +119,10 @@ def main(argv) -> int:
                 extras, ms=timed[0], plain_ms=timed[1], bound_ms=timed[2][0],
                 bound_by=timed[2][1], launches_kmer_phase=launches)}),
                 flush=True)
+        if "wgs" in wanted:
+            with cs.phase("wgs") as info:
+                launches = cs.phase_wgs(dev, work, info, sizes["wgs"])
+            print(json.dumps({"wgs_launches": launches}), flush=True)
         if "smartseq" in wanted:
             with cs.phase("smartseq") as info:
                 launches, plate_em = cs.phase_smartseq(dev, work, info,

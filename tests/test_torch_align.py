@@ -20,6 +20,17 @@ from t1k_tpu_torch.ops import align_band as ab
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The plain versions run as many small tensor operations: on one
+    thread, so that the suite's test processes running side by side do
+    not wait on each other's thread pools."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _golden_batch():
     """The 400 scored cases of golden/align_global.tsv as padded windows."""
     cases = []

@@ -26,6 +26,17 @@ SNP_POSITIONS = (300, 700, 1100)   # 0-based, in the copy of GENA*83
 BARCODES = ("ACGTAC", "CCTTGA", "GATTCA")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The plain versions run as many small tensor operations: on one
+    thread, so that the suite's test processes running side by side do
+    not wait on each other's thread pools."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _read(path):
     with open(path) as f:
         return f.read()

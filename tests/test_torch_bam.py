@@ -10,6 +10,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from t1k_tpu.constants import revcomp_str
 from t1k_tpu.io import bam as host_bam
@@ -26,6 +27,17 @@ CONTIGS = (["chr1", "chr6", "chr6_GL000251v2_alt"], [1_000_000, 1_000_000,
 GENE_START, GENE_STEP, GENE_SPAN = 100_000, 20_000, 2_000
 OUTPUTS = ("_1.fq", "_2.fq", ".fq", "_bc.fa", "_umi.fa")
 HEADER = "@HD\tVN:1.6\tSO:coordinate\n"
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The plain versions run as many small tensor operations: on one
+    thread, so that the suite's test processes running side by side do
+    not wait on each other's thread pools."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _alleles():

@@ -4,22 +4,20 @@ the JAX package's (t1k_tpu.parallel.distributed) and against the port's
 single-process genotyper (cli.genotype) on the same input: the same set
 of files, each byte for byte, paired and single-end, at 2 and 3 workers
 and with more workers than fragments, on the gpu route through the band
-kernel's plain version on the CPU and on the host engine.  Then the
-shared band-kernel service (one for every shard, one panel upload, one
-read batch a shard) and the card routing of the entry point."""
+kernel's plain version on the CPU and on the host engine (the shared
+band-kernel service and the card routing of the entry point:
+test_torch_distributed_service.py)."""
 
 import os
 
 import pytest
+import torch
 
 from t1k_tpu.core.pipeline import GenotypeOptions as HostOptions
 from t1k_tpu.parallel.distributed import \
     run_genotyper_distributed as host_distributed
-from t1k_tpu_torch import device as tdev
 from t1k_tpu_torch.cli.genotype import main as genotype_main
-from t1k_tpu_torch.core import pipeline
 from t1k_tpu_torch.core.pipeline import GenotypeOptions
-from t1k_tpu_torch.ops import align_band
 from t1k_tpu_torch.parallel import distributed
 from t1k_tpu_torch.parallel.distributed import run_genotyper_distributed
 from t1k_tpu_torch.utils.observability import metrics
@@ -42,6 +40,17 @@ def _read(path):
 
 def _listing(out):
     return sorted(os.listdir(out))
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The plain band kernel runs as many small tensor operations: on one
+    thread, so that the suite's test processes running side by side do
+    not wait on each other's thread pools."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -129,63 +138,3 @@ def test_sharded_genotyper_matches_jax_and_single_process(
             sum(s["fragment_count"] for s in shards), workers)]
     items = sum(s["deferred_item_count"] for s in shards)
     assert (items > 0) == (route == "gpu")
-
-
-def test_shards_share_one_band_kernel_service(inputs, tmp_path,
-                                              monkeypatch):
-    """On the gpu route every shard scores on the one service the entry
-    point builds: the panel uploaded once, one read batch a shard, and
-    the shards' items summing to the service's."""
-    services = []
-    uploads = []
-
-    class Recording(align_band.DeferredDescService):
-        def __init__(self, device="cuda"):
-            super().__init__(device)
-            services.append(self)
-
-        def set_ref(self, codes):
-            key = self._ref_key
-            super().set_ref(codes)
-            uploads.append(("ref", key != self._ref_key))
-
-        def begin_batch(self, read_codes):
-            uploads.append(("reads", len(read_codes)))
-            return super().begin_batch(read_codes)
-
-    monkeypatch.setattr(pipeline, "DeferredDescService", Recording)
-    monkeypatch.setattr(distributed, "DeferredDescService", Recording)
-    launches0 = align_band.launch_counts["band_stats"]
-    run_genotyper_distributed(REF, *inputs["paired"], str(tmp_path / "x"),
-                              GenotypeOptions(**ROUTES["gpu"]), n_workers=3)
-    assert len(services) == 1
-    assert [u for u in uploads if u[0] == "ref"] == [
-        ("ref", True), ("ref", False), ("ref", False)]
-    assert len([u for u in uploads if u[0] == "reads"]) == 3
-    shards = [metrics().stages[f"shard_{w}"] for w in range(3)]
-    assert all(s["deferred_item_count"] > 0 for s in shards)
-    assert sum(s["deferred_item_count"] for s in shards) == \
-        services[0].items_scored
-    # on the CPU the wrapper runs the plain version: no kernel launched
-    assert align_band.launch_counts["band_stats"] == launches0
-    assert sum(s["band_kernel_launches"] for s in shards) == 0
-
-
-@pytest.mark.parametrize("opts", [dict(), dict(backend="gpu"),
-                                  dict(backend="native", em_backend="gpu")],
-                         ids=["auto", "gpu", "em_gpu"])
-def test_card_routes_without_a_card_raise_before_any_output(
-        inputs, tmp_path, monkeypatch, opts):
-    """The entry point runs on the card by default: without one, "auto"
-    raises NoCardError and an explicit gpu route on "cuda" raises,
-    before any file is written."""
-    monkeypatch.setattr(tdev.torch.cuda, "is_available", lambda: False)
-    for var in ("T1K_BACKEND", "T1K_GPU_PRESENT", "T1K_EM_BACKEND"):
-        monkeypatch.delenv(var, raising=False)
-    assert GenotypeOptions().device == "cuda"
-    error = tdev.NoCardError if not opts else RuntimeError
-    with pytest.raises(error, match="--device cpu"):
-        run_genotyper_distributed(REF, *inputs["paired"],
-                                  str(tmp_path / "x"),
-                                  GenotypeOptions(**opts))
-    assert not os.listdir(tmp_path)

@@ -10,6 +10,17 @@ from t1k_tpu_torch.ops import em as tem
 from t1k_tpu_torch.ops.em import em_quantify_gpu, incidence_lists
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The plain versions run as many small tensor operations: on one
+    thread, so that the suite's test processes running side by side do
+    not wait on each other's thread pools."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _em_problem(rg_cnt, ec_cnt, seed, n_alleles, n_genes, n_majors, max_k):
     """The seeded EM problems of test_device_ops (_em_inputs) and
     test_routing (_em_inputs), by their constants."""

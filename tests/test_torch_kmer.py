@@ -33,6 +33,17 @@ KS = (11, 12, 13, 14, 15, 16)
 PAIR_KS = (11, 12, 13)      # the pair table; 14 the centre-canonical one
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The plain versions run as many small tensor operations: on one
+    thread, so that the suite's test processes running side by side do
+    not wait on each other's thread pools."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _packed(panel, jax_package=False):
     if jax_package:
         from t1k_tpu.io.refset import RefSet as JaxRefSet

@@ -19,6 +19,17 @@ from t1k_tpu_torch.parallel import mesh as tmesh
 CPU = torch.device("cpu")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The plain versions run as many small tensor operations: on one
+    thread, so that the suite's test processes running side by side do
+    not wait on each other's thread pools."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _em_inputs():
     """tests/test_device_ops.py's _em_inputs, copied."""
     rng = np.random.default_rng(3)

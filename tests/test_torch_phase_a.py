@@ -22,6 +22,17 @@ from t1k_tpu_torch.ops import phase_a as tpa
 BASES = "ACGT"
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The plain versions run as many small tensor operations: on one
+    thread, so that the suite's test processes running side by side do
+    not wait on each other's thread pools."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def rand_seq(rng, n):
     return "".join(BASES[i] for i in rng.integers(0, 4, n))
 

@@ -26,6 +26,17 @@ MULTIGENE = (os.path.join(DATA_DIR, "multigene_rna.fa"),
              os.path.join(DATA_DIR, "multigene_2.fq"))
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The plain versions run as many small tensor operations: on one
+    thread, so that the suite's test processes running side by side do
+    not wait on each other's thread pools."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _read(path, mode="r"):
     with open(path, mode) as f:
         return f.read()

@@ -1,11 +1,10 @@
 """The port's SMART-seq pipeline (t1k_tpu_torch.tools.smartseq) against
 the JAX package's (t1k_tpu.tools.smartseq) on its native route, on a
 plate of four cells of one donor simulated from the multigene panel with
-t1k_tpu.tools.simulate: every output byte for byte; the port's
---cohortEm pass (one batched EM) byte-identical to its per-cell pass;
-and the JAX package's --cohortEm (f32 on the CPU) to its own test's
-contract.  The port's gpu routes run on the CPU through the kernels'
-plain versions (device "cpu")."""
+t1k_tpu.tools.simulate: every output byte for byte, in one process and
+in a pool of workers (the --cohortEm pass: test_torch_smartseq_cohort.py).
+The port's gpu routes run on the CPU through the kernels' plain versions
+(device "cpu")."""
 
 import os
 
@@ -36,6 +35,17 @@ CELL_OUTPUTS = (("_candidate_1.fq", "_candidate_2.fq") + PASS_OUTPUTS
 def _read(path):
     with open(path, "rb") as f:
         return f.read()
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The plain versions run as many small tensor operations: on one
+    thread, so that the suite's test processes running side by side do
+    not wait on each other's thread pools."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -87,13 +97,6 @@ def port_plate(plate, tmp_path_factory):
                 device="cpu")
 
 
-@pytest.fixture(scope="module")
-def port_cohort(plate, tmp_path_factory):
-    return _run(smartseq.run_smartseq, plate,
-                tmp_path_factory.mktemp("cohort"), cohort_em=True,
-                device="cpu")
-
-
 def _plate_file(workdir, suffix):
     return os.path.join(workdir, "SS" + suffix)
 
@@ -126,58 +129,6 @@ def test_plate_has_calls_and_a_monoallelic_cell(port_plate):
     assert len(rows) == CELLS + 1
     with open(_plate_file(port_plate, "_merged_genotype.tsv")) as f:
         assert any(line.rstrip("\n").split("\t")[-1] for line in f)
-
-
-def test_cohort_em_is_byte_identical_to_per_cell(port_plate, port_cohort):
-    """--cohortEm (one batched EM for the second pass) writes the per-cell
-    pass's bytes: the matrices, the list files and every second-pass
-    genotyper output."""
-    for suffix in PLATE_OUTPUTS:
-        assert _read(_plate_file(port_cohort, suffix)) == \
-            _read(_plate_file(port_plate, suffix)), suffix
-    for suffix in ("_reduced_genotype.tsv", "_reduced_allele.tsv",
-                   "_reduced_aligned_1.fa", "_reduced_aligned_2.fa"):
-        for got, want in zip(_cell_files(port_cohort, suffix),
-                             _cell_files(port_plate, suffix)):
-            assert _read(got) == _read(want), got
-
-
-def test_cohort_em_over_a_device_list(plate, port_cohort, tmp_path):
-    """--cohortEm with its cells dealt over a mesh of three devices (the
-    CPU thrice here; every card of a machine with more than one) writes
-    the one-device bytes."""
-    dealt = _run(smartseq.run_smartseq, plate, tmp_path / "mesh",
-                 cohort_em=True, device="cpu",
-                 mesh=[torch.device("cpu")] * 3)
-    for suffix in PLATE_OUTPUTS:
-        assert _read(_plate_file(dealt, suffix)) == \
-            _read(_plate_file(port_cohort, suffix)), suffix
-    for got, want in zip(_cell_files(dealt, "_reduced_genotype.tsv"),
-                         _cell_files(port_cohort, "_reduced_genotype.tsv")):
-        assert _read(got) == _read(want)
-
-
-def test_cohort_em_matches_jax_cohort_contract(plate, port_cohort,
-                                               tmp_path):
-    """The JAX package's --cohortEm (its batched EM in f32 on the CPU)
-    against the port's, to tests/test_tools.py's own contract: the same
-    header and inconsistency columns, abundances within max(1e-2, 1e-3
-    |a|)."""
-    host = _run(host_smartseq.run_smartseq, plate, tmp_path / "hc",
-                t1k_args={"--backend": "native"}, cohort_em=True)
-    with open(_plate_file(host, "_final_genotype.tsv")) as f:
-        a = f.read().splitlines()
-    with open(_plate_file(port_cohort, "_final_genotype.tsv")) as f:
-        b = f.read().splitlines()
-    assert a[0] == b[0]
-    assert len(a) == len(b)
-    for la, lb in zip(a[1:], b[1:]):
-        ca, cb = la.split("\t"), lb.split("\t")
-        assert os.path.basename(ca[0]) == os.path.basename(cb[0])
-        assert ca[-1] == cb[-1]
-        for va, vb in zip(ca[1:-1], cb[1:-1]):
-            assert abs(float(va) - float(vb)) <= max(
-                1e-2, 1e-3 * abs(float(va)))
 
 
 def test_pool_workers_match_one_process(plate, port_plate, tmp_path):
