@@ -169,8 +169,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
  15. screen_timing probe and chain kernels vs their plain versions, in
                    turns, on one full 1024-row chunk of the extract inputs
  16. run           the run-t1k chain (extract -> genotype -> analyze) on
-                   the same panel: 50,000 read pairs built as extract's
-                   (5,000 simulated, 15,000 near-miss, 30,000 random),
+                   the same panel: 12,500 read pairs built as extract's
+                   (1,250 simulated, 3,750 near-miss, 7,500 random),
                    the simulated pairs of two genes drawn from copies of
                    an allele with three seeded substitutions, and a cell
                    barcode per pair: t1k_tpu_torch.cli.run --backend
@@ -191,7 +191,7 @@ Phases, in order; any failure raises and the exit code is non-zero:
                    centre-canonical table) and 15, 16 (hashed), build
                    seconds printed, and the kernel and its first design
                    exact against classify_plain on the card's tensors on
-                   the run phase's 50,000 mate-1 reads and on edge reads
+                   the run phase's 12,500 mate-1 reads and on edge reads
                    (lengths 0, k - 1, k, k + 1, N at the first, a middle
                    and the last base, a reverse complement, all-T, all-A);
                    a batch narrower than k gives zeros; at the extractor's
@@ -204,11 +204,12 @@ Phases, in order; any failure raises and the exit code is non-zero:
                    gathers)
  18. bam_run       the run-t1k chain on a BAM (-b, with -c the coordinate
                    fasta: every panel allele on its gene's interval of
-                   chr6): 50,000 pairs of 2 x 100 bp (BAM_PAIRS:
-                   5,000 on-panel pairs in their gene's interval, 500
-                   on an alt contig, 25,000 unaligned templates, 2,500
+                   chr6): 16,875 pairs of 2 x 100 bp (BAM_PAIRS:
+                   2,500 on-panel pairs in their gene's interval, 250
+                   on an alt contig, 8,750 unaligned templates, 1,250
                    pairs within 5 kb of an interval, the rest off target
-                   on chr1), CB and UB tags on every record, written by a
+                   on chr1; cut from 50,000 for the time limit), CB and
+                   UB tags on every record, written by a
                    packer that writes BamWriter's bytes (held against it
                    on 1,000 aligned and 1,000 unaligned records):
                    t1k_tpu_torch.cli.run -b --backend native --emBackend
@@ -235,17 +236,18 @@ Phases, in order; any failure raises and the exit code is non-zero:
                    7.4 Mbp and k = 13, as the build keeps 200 bp of each
                    intron's ends) through python -m
                    t1k_tpu_torch.db.build into its dna fasta (17.7 Mbp,
-                   3,694 alleles: the extractor's k = 14, checked); 50,000
+                   3,694 alleles: the extractor's k = 14, checked); 30,000
                    read pairs of 2 x 100 bp (10,000 simulated by the
                    port's simulator from 1-2 alleles of each of 16 genes
                    at error rate 0.004, so they cross exon-intron
-                   junctions, 10,000 near-miss, 30,000 random); one child
+                   junctions, 5,000 near-miss, 15,000 random; cut from
+                   50,000 for the time limit); one child
                    of the port's native route (--backend native
                    --emBackend native) and one of its card route
                    (--backend gpu --emBackend gpu), each running
                    t1k_tpu_torch.cli.run three times: --preset kir-wgs
                    -t 8 on -1/-2, --preset hla-wgs -t 8 on -u (mate 1),
-                   --preset kir-wes -t 1 on -i (the first 10,000 pairs
+                   --preset kir-wes -t 1 on -i (the first 6,000 pairs
                    interleaved), the card's kir-wes run under
                    torch.profiler; every output of each configuration
                    byte-compared between the routes; in each card run the
@@ -267,7 +269,7 @@ Phases, in order; any failure raises and the exit code is non-zero:
                    kernels' launch counts, its pool workers' included, set to 0
                    before the run and printed after it); the plate
                    files, each cell's first-pass outputs and each cell's
-                   second-pass genotyper outputs byte-compared; probe,
+                   second-pass outputs byte-compared; probe,
                    chain, band and the batched EM must launch; each
                    route's wall, start-up and pass walls, and a spawn
                    pool's start-up
@@ -315,6 +317,24 @@ Phases, in order; any failure raises and the exit code is non-zero:
                    EM on its 200,000 x 4,096 problem, the dry run four
                    times) over [card] x 1, 2, 4, their launch counts set
                    to 0 before and read after, their times printed
+ 25. fuzz          the differential fuzz layer (scripts/fuzz_torch.py,
+                   the cases of scripts/fuzz_cases.py, copies of the JAX
+                   package's tests/fuzz_*.py generators) on fixed seeds:
+                   16 driver, 16 genotyper, 8 analyzer, 8 extractor and 8
+                   BAM cases, a SMART-seq plate and 2 driver cases on the
+                   HLA-scale panel at 2,000 pairs, every case generated,
+                   then all run in one child on the card route (--backend
+                   gpu --emBackend gpu --device cuda, a quarter on the
+                   defaults, the plate with --cohortEm) and one on the
+                   native route (under T1K_BACKEND=native), side by side,
+                   each case through its module's main; every output of
+                   every run byte-compared (_assign.tsv as sorted lines,
+                   provenance files left out), a run failing on one
+                   route only fails; the card child's launches of probe,
+                   chain, band and EM, K10 in the --deviceCandidates cases
+                   and the cohort EM in the plate must be > 0, the native
+                   child launches nothing and makes no CUDA context;
+                   each fuzzer's ok/both_failed/fail counts and seconds
 Then the card line, one JSON line describing the kernels (times; launches
 over the run phase's chain, the v1 aligner's over its own phase's seeded
 and ring batches (its three paths summed, and per path in
@@ -323,8 +343,9 @@ pairs' times and bounds), the
 batched EM's over the smartseq phase's port run, launches_bam_run over
 the bam_run phase's chain, launches_wgs over the wgs phase's three card
 runs (the band kernel's genotyper and analyzer launches apart, probe,
-chain and EM; null for the others) and launches_smartseq over the
-plate; the
+chain and EM; null for the others), launches_smartseq over the
+plate and launches_fuzz over the fuzz phase's card child (null for the
+band kernel's analyzer entry, the v1 aligner and the sharded EM); the
 band kernel's thread kernels as two entries, band_stats timed on the
 genotyper's chunk with the genotyper's launches and band_stats_analyzer
 on the analyzer's batch with the analyzer's; band_stats_group, the
@@ -397,8 +418,10 @@ V1_PAIRS = 65_536
 # processes each import torch: 967.7-1,113.2 s of phases on H100 80GB
 # HBM3 at 700 W, one host 1.35 times slower than another; then to
 # 50,000, every share, for the wgs phase: 941.7 s of phases with it at
-# 150,000)
-EXTRACT_PAIRS = (5_000, 15_000, 30_000)   # simulated, near-miss, random
+# 150,000; then to 12,500, every share, for the fuzz phase: 981.26-1,002.52
+# s of phases with it at 50,000 and 900.53 s at 25,000, on hosts 1.1-1.2
+# times slower than the 834.73 s one)
+EXTRACT_PAIRS = (1_250, 3_750, 7_500)     # simulated, near-miss, random
 # the extract phase's depth: the run phase extracts EXTRACT_PAIRS (cut
 # from 100,000 pairs for the same reason)
 EXTRACT_SMOKE_PAIRS = (500, 2_000, 22_500)
@@ -1207,7 +1230,7 @@ def phase_em_timing(dev, hla: dict, sizes: dict, info: dict):
         info["terms_per_ns"] = f"{probe[1]:.3f}"
     out = None
     for name, problem, reps in (
-            ("hla", hla, 20), ("micro", em_microcell(*sizes["em"]), 20),
+            ("hla", hla, 10), ("micro", em_microcell(*sizes["em"]), 10),
             ("large", em_large(*sizes["em_large"]), 3)):
         ms, b, tables, opts = em_case(dev, name, problem, reps, probe, info)
         segment_case(dev, name, problem, tables, opts, info)
@@ -2798,7 +2821,7 @@ def off_panel_pairs(rng, panel: str, n_near: int, n_rand: int):
 def extract_inputs(work: str, panel: str, counts=EXTRACT_PAIRS,
                    tag: str = "x", snp_genes: int = 0,
                    barcodes: bool = False, simulate=None) -> str:
-    """Read pairs of 2 x 100 bp with qualities, fixed seeds (50,000 at
+    """Read pairs of 2 x 100 bp with qualities, fixed seeds (12,500 at
     EXTRACT_PAIRS): simulated on-panel pairs (two alleles from each of 8
     genes, `snp_genes` of them with seeded SNPs; or what `simulate(prefix,
     n)` writes to <prefix>_1.fq / <prefix>_2.fq), near-miss pairs cut from
@@ -3527,13 +3550,15 @@ def check_chain(dev, native: str, port: str, outputs, port_stdout: str,
 # aligned inside their gene's interval and on the alt contig, unaligned
 # templates (on-panel, near-miss, random), pairs within 5 kb of an
 # interval on chr6, and off-target pairs on chr1
-# 50,000 pairs, cut from 500,000 as the run phase's, then from 250,000
+# 16,875 pairs, cut from 500,000 as the run phase's, then from 250,000
 # (off target only) when the native baseline became the port's, whose
 # child processes each import torch, then with the run phase's for the
-# wgs phase (every share halved, then the off-target pairs cut)
-BAM_PAIRS = dict(region=5_000, alt=500, unaligned_panel=2_000,
-                 unaligned_near=8_000, unaligned_random=15_000,
-                 near_edge=2_500, off_target=17_000)
+# wgs phase (every share halved, then the off-target pairs cut), then
+# from 50,000 for the fuzz phase (the random unaligned templates and the
+# off-target pairs halved, then every share)
+BAM_PAIRS = dict(region=2_500, alt=250, unaligned_panel=1_000,
+                 unaligned_near=4_000, unaligned_random=3_750,
+                 near_edge=1_250, off_target=4_250)
 BAM_CONTIGS = (("chr1", 200_000_000), ("chr6", 171_000_000),
                ("chr6_GL000251v2_alt", 4_700_000))
 # gene g of the panel lies on chr6 at [GENE_START + GENE_STEP g,
@@ -3961,8 +3986,12 @@ def phase_analyzer_timing(dev, check: Checker, batch, info: dict):
 # and random pairs
 WGS_GENES, WGS_RECORDS, WGS_READ_GENES = 40, 120, 16
 WGS_DAT = dict(exons=(9, 9), exon_len=(36, 300), intron_len=(300, 3_000))
-WGS_PAIRS = (10_000, 10_000, 30_000)   # simulated, near-miss, random
-WGS_INTERLEAVED = 10_000               # the first pairs, one file
+# 30,000 (cut from 50,000 for the fuzz phase): at 15,000 the hla-wgs
+# run's screen chained no chunk, and its chain kernel must launch
+WGS_PAIRS = (10_000, 5_000, 15_000)    # simulated, near-miss, random
+# the first pairs, one file: 2,000 of them on-panel (the pairs are
+# shuffled), as the first 10,000 of the earlier 50,000 were
+WGS_INTERLEAVED = 6_000
 WGS_K = 14
 # (name, run-t1k flags, input)
 WGS_CONFIGS = (("kir-wgs", ("--preset", "kir-wgs", "-t", "8"), "paired"),
@@ -4178,13 +4207,12 @@ PLATE_WORKERS = 8
 PLATE_OUTPUTS = ("_genotype_list.out", "_merged_genotype.tsv",
                  "_reduced_ref.fa", "_reduced_genotype_list.out",
                  "_final_genotype.tsv")
-# each cell's first-pass outputs, then its second pass's (the port's
-# --cohortEm pass runs no analyzer, so no second-pass VCF)
+# each cell's first-pass outputs, then its second pass's
 CELL_OUTPUTS = ("_candidate_1.fq", "_candidate_2.fq", "_genotype.tsv",
                 "_allele.tsv", "_aligned_1.fa", "_aligned_2.fa",
                 "_allele.vcf", "_reduced_genotype.tsv",
                 "_reduced_allele.tsv", "_reduced_aligned_1.fa",
-                "_reduced_aligned_2.fa")
+                "_reduced_aligned_2.fa", "_reduced_allele.vcf")
 # t1k_tpu_torch.tools.smartseq as `python -m` runs it (arguments after
 # the first), with the kernels' launch counts set to 0 just before the
 # run and printed after it as the last line, its pool workers' added;
@@ -4320,7 +4348,7 @@ def phase_smartseq(dev, work: str, info: dict, plate: tuple) -> tuple:
     own work directory: the native route (T1K_BACKEND=native: the host
     engine and the per-cell native EM), then --cohortEm on `dev` (the
     second pass's EM batched).  Every plate file, each cell's first-pass
-    outputs and each cell's second-pass genotyper outputs byte-compared;
+    outputs and each cell's second-pass outputs byte-compared;
     probe, chain, band and the batched EM must launch.  Returns (launch
     counts over the card route's run, its pickled batched-EM arguments'
     path)."""
@@ -5135,6 +5163,84 @@ def phase_sharded_em(dev, hla: dict, plate_em: str, sizes: dict, work: str,
     return timed, sum(launches[k] for k in em.ESTEP_KERNELS), extras
 
 
+# ------------------------------------------------------------ fuzz
+
+# scripts/fuzz_torch.py's fuzzers and their cases, seeds FUZZ_SEED on:
+# hla is the driver's case on this smoke's HLA-scale panel
+FUZZ_PLAN = (("driver", 16), ("genotyper", 16), ("analyzer", 8),
+             ("extractor", 8), ("bam", 8), ("smartseq", 1), ("hla", 2))
+FUZZ_SEED = 0
+FUZZ_HLA_PAIRS = 2_000
+# kernel record -> the fuzz phase's counter
+FUZZ_COUNTERS = {"band_stats": "band_stats",
+                 "band_stats_group": "band_stats_group",
+                 "band_stats_warp": "band_stats_warp",
+                 "em_squarem": "em_squarem",
+                 "em_squarem_batched": "em_squarem_batched",
+                 "phase_a_probe": "phase_a_probe",
+                 "phase_a_chain": "phase_a_chain",
+                 "cand_census": "cand_census",
+                 "device_candidates": "cand_chain",
+                 "kmer_classify": "kmer_classify"}
+
+
+def phase_fuzz(dev, work: str, info: dict) -> dict:
+    """The differential fuzz layer (scripts/fuzz_torch.py) on fixed seeds:
+    every case generated, then run in one card child (--backend gpu
+    --emBackend gpu --device `dev`; seeds 3 mod 4 on the defaults) and
+    one native child (--backend native --emBackend native under
+    T1K_BACKEND=native) side by side, every output compared.  Any
+    failing case fails; the native child must make no CUDA context and
+    launch nothing; the card child must launch the probe, chain, band and
+    EM kernels, K10 (census and bucket chain) in the --deviceCandidates
+    cases and the cohort EM (K6) in the plate.  Returns the card child's
+    launches over the phase."""
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import fuzz_torch
+
+    fz = os.path.join(work, "fuzz")
+    os.makedirs(fz)
+    got = fuzz_torch.run_fuzz(FUZZ_PLAN, FUZZ_SEED, fz, str(dev),
+                              hla_panel=os.path.join(work, "panel.fa"),
+                              hla_pairs=FUZZ_HLA_PAIRS)
+    summary = got["summary"]
+    if got["failures"]:
+        raise AssertionError(f"{len(got['failures'])} fuzz cases failed:\n"
+                             + "\n".join(got["failures"]))
+    if got["native_cuda_context"] or any(got["native_launches"].values()):
+        raise AssertionError(f"the native child made a CUDA context or "
+                             f"launched: {got['native_launches']}")
+    total = {}
+    for s in summary.values():
+        for k, v in s["launches"].items():
+            total[k] = total.get(k, 0) + v
+    pruned = {k: sum(launches.get(k, 0) for _, _, _, argv, launches
+                     in got["case_launches"] if "--deviceCandidates" in argv)
+              for k in ("cand_census", "cand_chain")}
+    if dev.type == "cuda":
+        need = {k: total.get(k, 0) for k in (
+            "phase_a_probe", "phase_a_chain", "band_stats", "em_squarem")}
+        need.update(pruned, em_squarem_batched=summary["smartseq"][
+            "launches"].get("em_squarem_batched", 0))
+        if min(need.values()) <= 0:
+            raise AssertionError(f"a kernel of the fuzz cases never "
+                                 f"launched: {need}")
+    for name, s in summary.items():
+        info[name] = f"{s['ok']}/{s['both_failed']}/{s['fail']}"
+    info["cases_s"] = f"{got['cases_s']:.1f}"
+    info["children_s"] = f"{got['children_s']:.1f}"
+    print("  fuzz (ok/both_failed/fail; card child's seconds a fuzzer, "
+          "host clock): " + json.dumps({
+              "summary": {k: {n: v for n, v in s.items() if n != "launches"}
+                          for k, s in summary.items()},
+              "seconds": {k: round(v, 3) for k, v in got["seconds"].items()},
+              "card_startup_s": round(got["card_startup_s"], 3),
+              "native_startup_s": round(got["native_startup_s"], 3),
+              "native_cuda_context": got["native_cuda_context"],
+              "launches": total, "launches_pruned": pruned}), flush=True)
+    return total
+
+
 SOURCES = ("band_stats", "em_squarem", "align_full", "phase_a_probe",
            "phase_a_chain", "cand_census", "kmer_classify")
 # kernel record -> its source under t1k_tpu_torch/csrc/
@@ -5238,6 +5344,8 @@ def run(dev, sizes: dict) -> list:
             times["em_sharded"], sharded_launches, sharded_extras = \
                 phase_sharded_em(dev, em_problems[0], plate_em, sizes, work,
                                  info)
+        with phase("fuzz") as info:
+            fuzz_launches = phase_fuzz(dev, work, info)
     # launches over the run-t1k chain, the path users call (the band
     # kernel's as band_stats in the genotyper, band_stats_analyzer in the
     # analyzer); the v1 aligner (on no stage) over its own phase; the
@@ -5279,6 +5387,8 @@ def run(dev, sizes: dict) -> list:
                 "launches_bam_run": bam_launches.get(name),
                 "launches_smartseq": plate_launches.get(name),
                 "launches_wgs": wgs_launches.get(name),
+                "launches_fuzz": fuzz_launches.get(FUZZ_COUNTERS[name], 0)
+                if name in FUZZ_COUNTERS else None,
                 "max_abs_err": errs[name], "ms": times[name][0],
                 "plain_ms": times[name][1], "bound_ms": times[name][2][0],
                 "bound_by": times[name][2][1], "library_ms": None}

@@ -4,7 +4,7 @@
   python3 scripts/smoke_phases.py [v1] [main] [distributed] [db]
                                   [candidates] [em_timing] [composite]
                                   [kmer] [wgs] [smartseq]
-                                  [cohort_em_timing] [sharded_em]
+                                  [cohort_em_timing] [sharded_em] [fuzz]
 
 Builds the kernels (the smoke's `build` phase, with the compiler's
 register and spill lines), then runs the named phases in the smoke's
@@ -13,12 +13,14 @@ candidates and em_timing take main's panel, reads and outputs (em_timing
 its EM problem) and run main first; kmer takes the run phase's reads, which it
 writes as that phase does (without running the chains); cohort_em_timing
 takes smartseq's problems and runs smartseq first; sharded_em takes both
-and runs both (its multi-process ranks in child processes); without
-main, the HLA-scale panel is built on its own (v1, db and wgs need none:
-db and wgs build their own databases with the port's build).  Prints
-each phase's line, the card line, and as JSON the v1 aligner's per-path
-launches and times, the distributed and db phases' band and EM launches,
-the wgs chains' launches and the smartseq plate's launches.
+and runs both (its multi-process ranks in child processes); fuzz runs
+the fixed seeds of scripts/fuzz_torch.py (its HLA-scale driver cases on
+the panel); without main, the HLA-scale panel is built on its own (v1,
+db and wgs need none: db and wgs build their own databases with the
+port's build).  Prints each phase's line, the card line, and as JSON the
+v1 aligner's per-path launches and times, the distributed and db phases'
+band and EM launches, the wgs chains' launches, the smartseq plate's
+launches and the fuzz cases' launches.
 """
 
 from __future__ import annotations
@@ -35,7 +37,7 @@ import chip_smoke as cs  # noqa: E402
 
 PHASES = ("v1", "main", "distributed", "db", "candidates", "em_timing",
           "composite", "kmer", "wgs", "smartseq", "cohort_em_timing",
-          "sharded_em")
+          "sharded_em", "fuzz")
 
 
 def main(argv) -> int:
@@ -139,6 +141,10 @@ def main(argv) -> int:
             print(json.dumps({"em_sharded": dict(
                 extras, ms=timed[0], plain_ms=timed[1], bound_ms=timed[2][0],
                 bound_by=timed[2][1], launches=launches)}), flush=True)
+        if "fuzz" in wanted:
+            with cs.phase("fuzz") as info:
+                launches = cs.phase_fuzz(dev, work, info)
+            print(json.dumps({"fuzz_launches": launches}), flush=True)
     print(cs.card_line())
     return 0
 

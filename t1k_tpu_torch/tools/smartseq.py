@@ -109,8 +109,10 @@ def _run_cells_cohort(jobs: list, device="cuda", mesh=None) -> List[str]:
     problem then goes to em_quantify_batched on `device`, or dealt over
     the devices of `mesh`; selection and outputs finish per cell.  Each
     cell's options carry the run's --backend, --emBackend and `device`,
-    as cli.run's do."""
+    as cli.run's do, and each cell's post analysis runs as cli.run's
+    stage 2 runs it, so the pass writes the per-cell pass's files."""
     from ..cli.run import resolve_preset
+    from ..core.analyzer import AnalyzerOptions, run_analyzer
     from ..core.pipeline import (GenotypeOptions, finish_genotyper,
                                  prepare_genotyper)
     from ..device import resolve_device
@@ -119,11 +121,11 @@ def _run_cells_cohort(jobs: list, device="cuda", mesh=None) -> List[str]:
     from ..ops.em import em_quantify_batched
 
     refset = service = None
-    preps, prefixes = [], []
+    preps, prefixes, analyses = [], [], []
     for t1k_args, ref, f1, f2, outdir, prefix, _no_extraction in jobs:
+        preset = t1k_args.get("--preset", "")
         geno_sim, _, relax = resolve_preset(
-            t1k_args.get("--preset", ""),
-            float(t1k_args["-s"]) if "-s" in t1k_args else None,
+            preset, float(t1k_args["-s"]) if "-s" in t1k_args else None,
             "--relaxIntronAlign" in t1k_args)
         if refset is None:
             refset = RefSet.from_fasta(ref)
@@ -139,6 +141,13 @@ def _run_cells_cohort(jobs: list, device="cuda", mesh=None) -> List[str]:
                                        opts, refset=refset,
                                        desc_service=service))
         prefixes.append(os.path.join(outdir, prefix))
+        # cli.run gives the analyzer --relaxIntronAlign only through the
+        # kir-wgs and kir-wes presets
+        analyses.append((ref, f2 is not None, AnalyzerOptions(
+            ref_seq_similarity=geno_sim,
+            relax_intron_align=preset in ("kir-wgs", "kir-wes"),
+            threads=opts.threads, backend=opts.backend,
+            em_backend=opts.em_backend, device=device)))
 
     g0 = preps[0].genotyper
     results = em_quantify_batched(
@@ -150,8 +159,13 @@ def _run_cells_cohort(jobs: list, device="cuda", mesh=None) -> List[str]:
         devices=mesh)
 
     out = []
-    for prep, res, prefix in zip(preps, results, prefixes):
+    for prep, res, prefix, (ref, paired, aopts) in zip(preps, results,
+                                                        prefixes, analyses):
         finish_genotyper(prep, prefix, em_result=res)
+        aligned = ([f"{prefix}_aligned_1.fa"], [f"{prefix}_aligned_2.fa"])
+        run_analyzer(ref, f"{prefix}_allele.tsv",
+                     aligned[0] if paired else [f"{prefix}_aligned.fa"],
+                     aligned[1] if paired else None, prefix, aopts)
         out.append(f"{prefix}_genotype.tsv")
     return out
 

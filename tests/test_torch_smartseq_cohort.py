@@ -112,12 +112,13 @@ def test_cohort_em_is_byte_identical_to_per_cell(per_cell_plate,
                                                  port_cohort):
     """--cohortEm (one batched EM for the second pass) writes the per-cell
     pass's bytes: the matrices, the list files and every second-pass
-    genotyper output."""
+    output, the post analysis's VCF included."""
     for suffix in PLATE_OUTPUTS:
         assert _read(_plate_file(port_cohort, suffix)) == \
             _read(_plate_file(per_cell_plate, suffix)), suffix
     for suffix in ("_reduced_genotype.tsv", "_reduced_allele.tsv",
-                   "_reduced_aligned_1.fa", "_reduced_aligned_2.fa"):
+                   "_reduced_aligned_1.fa", "_reduced_aligned_2.fa",
+                   "_reduced_allele.vcf"):
         for got, want in zip(_cell_files(port_cohort, suffix),
                              _cell_files(per_cell_plate, suffix)):
             assert _read(got) == _read(want), got
