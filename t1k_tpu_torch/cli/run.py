@@ -37,6 +37,7 @@ from typing import List, Optional
 from ..config import PipelineConfig
 from ..core.genotyper import Genotyper
 from ..device import NoCardError, resolve_backend, resolve_device
+from ..utils.observability import metrics_run
 from . import fold_negative_values
 
 # run-t1k's presets (run-t1k:289-314; PipelineConfig.apply_preset)
@@ -217,8 +218,11 @@ def main(argv: Optional[List[str]] = None) -> int:
     )
     if pid == 0:  # one writer when running distributed
         cfg.save(f"{prefix}_config.json")
-    return _run(args, prefix, first, paired, geno_sim, extract_sim, relax,
-                nproc, pid)
+    # one set of stage records for the chain, extraction's included, in
+    # <prefix>_metrics.json
+    with metrics_run():
+        return _run(args, prefix, first, paired, geno_sim, extract_sim,
+                    relax, nproc, pid)
 
 
 def _run(args, prefix: str, first: List[str], paired: bool,

@@ -27,11 +27,11 @@ from ..io.refset import RefSet
 from ..native import NativeEngine, align_global_batch
 from ..ops import align_band
 from ..ops.align_band import DeferredDescService
-from ..utils.observability import metrics, stage
+from ..utils.observability import metrics, span, stage, traced_range
 from .fragment import RefContext, fragment_assign, set_read_assignments
 from .genotyper import Genotyper, GenotyperConfig, pack_assignments
-from .pipeline import (assign_unique_reads, load_reads, log,
-                       overlap_lists_from_records)
+from .pipeline import (assign_unique_reads, engine_stage_counters,
+                       load_reads, log, overlap_lists_from_records)
 from .variant import BarcodeSummary, VariantCaller
 
 
@@ -115,6 +115,7 @@ def _add_alignment_info_batch(frags_lists, refset) -> None:
         o.align = edits
 
 
+@traced_range("analyze")
 def run_analyzer(
     ref_fasta: str,
     allele_file: str,
@@ -171,12 +172,14 @@ def run_analyzer(
     with stage("analyzer_read_assignment", read_count=read_cnt) as st:
         uniq, group_of, rec, off = assign_unique_reads(
             engine, all_seqs, backend, desc_service, zero_weights=True)
-        overlap_lists = overlap_lists_from_records(rec, off)
+        with span("finish"):
+            overlap_lists = overlap_lists_from_records(rec, off)
         st["unique_read_count"] = len(uniq)
         st["deferred_item_count"] = (desc_service.items_scored
                                      if desc_service is not None else 0)
         st["band_kernel_launches"] = (align_band.launch_counts["band_stats"]
                                       - launches0)
+        st.update(engine_stage_counters(engine, backend))
     log("Finish read end assignments.")
 
     ctx = RefContext(refset, hit_len_required=31,

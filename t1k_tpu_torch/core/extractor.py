@@ -37,7 +37,7 @@ from ..io.reads import SeqRecord, read_seq_file, read_seq_files
 from ..io.refset import RefSet
 from ..native import NativeEngine
 from ..ops.phase_a import DeviceScreen
-from ..utils.observability import stage
+from ..utils.observability import stage, traced_range
 from .barcode import BarcodeCorrector, format_barcode
 
 
@@ -155,6 +155,7 @@ def _slice(seq: Optional[str], start: int, end: int) -> Optional[str]:
     return seq[start:e + 1]
 
 
+@traced_range("extract")
 def run_extractor(
     ref_fasta: str,
     reads1: List[str],

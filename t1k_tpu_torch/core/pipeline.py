@@ -32,7 +32,8 @@ from ..native import NativeEngine
 from ..ops import align_band
 from ..ops.align_band import DeferredDescService
 from ..ops.phase_a import DeviceCandidates
-from ..utils.observability import metrics, reset_metrics, stage
+from ..utils.observability import (metrics, span, stage, start_metrics,
+                                   tracing)
 from .fragment import OverlapRec
 from .genotyper import Genotyper, GenotyperConfig
 
@@ -126,37 +127,42 @@ def assign_unique_reads(
     With backend "gpu" the gap-fill and overhang alignments go to
     `desc_service` through the engine's deferred descriptor mode.  With
     `device_candidates` (a DeviceCandidates) the engine collects hits
-    only for the buckets it keeps, on either backend."""
-    order = sorted(range(len(seqs)), key=lambda i: seqs[i])
-    uniq: List[str] = []
-    weights: List[int] = []
-    group_of = np.zeros(len(seqs), dtype=np.int64)
-    i = 0
-    while i < len(order):
-        j = i + 1
-        while j < len(order) and seqs[order[j]] == seqs[order[i]]:
-            j += 1
-        for k in range(i, j):
-            group_of[order[k]] = len(uniq)
-        uniq.append(seqs[order[i]])
-        weights.append(0 if zero_weights else j - i)
-        i = j
+    only for the buckets it keeps, on either backend.
 
-    if uniq:
-        codes = np.concatenate([encode_seq(s) for s in uniq])
-    else:
-        codes = np.zeros(0, dtype=np.int8)
-    lens = np.array([len(s) for s in uniq], dtype=np.int32)
-    starts = np.zeros(len(lens), dtype=np.int64)
-    if len(lens):
-        starts[1:] = np.cumsum(lens[:-1])
-    w = np.array(weights, dtype=np.int32)
-    prune = device_candidates is not None and len(uniq) > 0
-    if prune:
-        padded = np.full((len(uniq), int(lens.max())), 4, dtype=np.int8)
-        padded[np.arange(padded.shape[1])[None, :] < lens[:, None]] = codes
-        engine.set_candidates(len(uniq), *device_candidates.generate(padded,
-                                                                     lens))
+    Inside a tracing stage the grouping, encoding and candidate set-up
+    are the span `prepare`, and the gpu backend's passes the spans of
+    assign_batch_deferred."""
+    with span("prepare"):
+        order = sorted(range(len(seqs)), key=lambda i: seqs[i])
+        uniq: List[str] = []
+        weights: List[int] = []
+        group_of = np.zeros(len(seqs), dtype=np.int64)
+        i = 0
+        while i < len(order):
+            j = i + 1
+            while j < len(order) and seqs[order[j]] == seqs[order[i]]:
+                j += 1
+            for k in range(i, j):
+                group_of[order[k]] = len(uniq)
+            uniq.append(seqs[order[i]])
+            weights.append(0 if zero_weights else j - i)
+            i = j
+
+        if uniq:
+            codes = np.concatenate([encode_seq(s) for s in uniq])
+        else:
+            codes = np.zeros(0, dtype=np.int8)
+        lens = np.array([len(s) for s in uniq], dtype=np.int32)
+        starts = np.zeros(len(lens), dtype=np.int64)
+        if len(lens):
+            starts[1:] = np.cumsum(lens[:-1])
+        w = np.array(weights, dtype=np.int32)
+        prune = device_candidates is not None and len(uniq) > 0
+        if prune:
+            padded = np.full((len(uniq), int(lens.max())), 4, dtype=np.int8)
+            padded[np.arange(padded.shape[1])[None, :] < lens[:, None]] = codes
+            engine.set_candidates(len(uniq), *device_candidates.generate(
+                padded, lens))
     if backend == "gpu":
         if desc_service is None:
             raise ValueError("the gpu backend needs a desc_service")
@@ -172,6 +178,16 @@ def assign_unique_reads(
     if prune:
         engine.set_candidates(0, None, None, None, None)  # clear
     return uniq, group_of, rec, off
+
+
+def engine_stage_counters(engine, backend: str) -> dict:
+    """What a read-assignment stage records of the engine's pass: the
+    gpu backend's begin passes, and while the stage traces the engine's
+    counters and phase times (NativeEngine.trace_counters)."""
+    out = {"chunk_count": engine.last_chunk_count} if backend == "gpu" else {}
+    if tracing():
+        out.update(engine.trace_counters())
+    return out
 
 
 def overlap_lists_from_records(rec: np.ndarray,
@@ -292,7 +308,7 @@ def prepare_genotyper(
     genotyper = new_genotyper(refset, opts, device, max_read_length)
     whitelist = genotyper.whitelist if opts.allele_whitelist else None
 
-    reset_metrics()
+    start_metrics()
     log(f"Found {read_cnt} read fragments. Start read assignment.")
     all_seqs = seqs1 + seqs2
     dev_cand = None
@@ -314,6 +330,7 @@ def prepare_genotyper(
             if backend == "gpu" else 0)
         ctx["band_kernel_launches"] = (align_band.launch_counts["band_stats"]
                                        - launches0)
+        ctx.update(engine_stage_counters(engine, backend))
         if dev_cand is not None:
             ctx["candidate_count"] = dev_cand.kept
             ctx["device_decided_reads"] = dev_cand.decided

@@ -27,6 +27,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from ..constants import encode_seq
+from ..utils.observability import traced_range
 from .reads import read_seq_file
 
 
@@ -165,6 +166,7 @@ class RefSet:
 
     # ---------------------------------------------------------------- load
     @classmethod
+    @traced_range("refset_load")
     def from_fasta(
         cls,
         path: str,

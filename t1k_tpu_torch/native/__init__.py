@@ -27,6 +27,8 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
+from ..utils.observability import no_rate, span, tracing
+
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _SOURCES = [os.path.join(_DIR, f)
             for f in ("engine.cc", "em.cc", "bamscan.cc", "variant.cc")]
@@ -117,6 +119,11 @@ _lib.t1k_engine_create.argtypes = [
 _lib.t1k_engine_destroy.argtypes = [ct.c_void_p]
 _lib.t1k_engine_set_threads.argtypes = [ct.c_void_p, ct.c_int32]
 _lib.t1k_engine_set_hit_len.argtypes = [ct.c_void_p, ct.c_int32]
+_lib.t1k_engine_set_trace.argtypes = [ct.c_void_p, ct.c_int32]
+_lib.t1k_engine_trace_name.restype = ct.c_char_p
+_lib.t1k_engine_trace_name.argtypes = [ct.c_int32]
+_lib.t1k_engine_trace_fetch.restype = ct.c_int32
+_lib.t1k_engine_trace_fetch.argtypes = [ct.c_void_p, _c_i64p, ct.c_int32]
 _lib.t1k_assign_batch.restype = ct.c_int64
 _lib.t1k_assign_batch.argtypes = [
     ct.c_void_p, _c_i8p, _c_i64p, _c_i32p, _c_i32p, ct.c_int64,
@@ -402,6 +409,26 @@ class BamScan:
         return self._text_views(len(idxs))
 
 
+def _trace_fields() -> Tuple[str, ...]:
+    """The engine's counter block, named by the engine (TraceField)."""
+    names = []
+    while (name := _lib.t1k_engine_trace_name(len(names))) is not None:
+        names.append(name.decode())
+    odd = [n for n in names if not n.endswith(("_count", "_ns"))]
+    if odd:
+        raise RuntimeError(f"trace fields of no known kind: {odd}")
+    return tuple(names)
+
+
+# the block's fields in its order: counts (TRACE_COUNTS) as they are,
+# phase thread-nanoseconds as <phase>_seconds (TRACE_PHASES)
+_TRACE_FIELDS = _trace_fields()
+TRACE_COUNTS = tuple(n for n in _TRACE_FIELDS if n.endswith("_count"))
+TRACE_PHASES = tuple(n[:-3] + "_seconds" for n in _TRACE_FIELDS
+                     if n.endswith("_ns"))
+no_rate(*TRACE_COUNTS, "chunk_count")
+
+
 class NativeEngine:
     """Read-assignment engine bound to one packed reference."""
 
@@ -442,6 +469,25 @@ class NativeEngine:
     def set_threads(self, n: int) -> None:
         _lib.t1k_engine_set_threads(self._handle, n)
 
+    def _trace_pass(self) -> None:
+        """The next pass counts and times its phases only while the
+        enclosing stage traces (utils/observability.py)."""
+        _lib.t1k_engine_set_trace(self._handle, int(tracing()))
+
+    def trace_counters(self) -> dict:
+        """The last assignment pass's counters (TRACE_COUNTS) and phase
+        thread-seconds (TRACE_PHASES); zeros where the pass did not
+        trace."""
+        out = np.zeros(len(_TRACE_FIELDS), np.int64)
+        _lib.t1k_engine_trace_fetch(self._handle, out, len(out))
+        counts = {}
+        for name, v in zip(_TRACE_FIELDS, out):
+            if name.endswith("_ns"):
+                counts[name[:-3] + "_seconds"] = float(v) / 1e9
+            else:
+                counts[name] = int(v)
+        return counts
+
     def assign_batch(
         self,
         read_codes: np.ndarray,
@@ -457,6 +503,7 @@ class NativeEngine:
         pos_weight) and (None, None) is returned."""
         n = len(read_lens)
         _lib.t1k_engine_set_store_results(self._handle, int(store_results))
+        self._trace_pass()
         total = _lib.t1k_assign_batch(
             self._handle,
             np.ascontiguousarray(read_codes, dtype=np.int8),
@@ -511,20 +558,29 @@ class NativeEngine:
         chunk_size > 0 processes reads in bounded chunks while
         accumulating assignments engine-side; requires
         store_results=False.
+
+        Inside a tracing stage the spans `prepare` (the service's
+        reference, layout and read upload), `begin`, `dispatch` (the
+        descriptor fetch and the scorer's launch), `wait` (the host
+        blocked on the counts) and `finish` (the finish passes and the
+        result copy) bracket the work, and the engine counts and times
+        its passes (trace_counters).  `last_chunk_count` is the number of
+        begin passes.
         """
-        read_codes = np.ascontiguousarray(read_codes, dtype=np.int8)
-        read_starts = np.ascontiguousarray(read_starts, dtype=np.int64)
-        read_lens = np.ascontiguousarray(read_lens, dtype=np.int32)
-        weights = np.ascontiguousarray(weights, dtype=np.int32)
-        n = len(read_lens)
-        total_len = int(read_codes.shape[0])
-        if desc_service is not None:
-            desc_service.set_ref(
-                np.ascontiguousarray(self._packed.seq_codes, dtype=np.int8))
-            desc_service.set_layout(read_starts, read_lens)
-            # the service pads the device tensor; its padded length is
-            # the rc-half base the engine must emit in descriptors
-            total_len = int(desc_service.begin_batch(read_codes))
+        with span("prepare"):
+            read_codes = np.ascontiguousarray(read_codes, dtype=np.int8)
+            read_starts = np.ascontiguousarray(read_starts, dtype=np.int64)
+            read_lens = np.ascontiguousarray(read_lens, dtype=np.int32)
+            weights = np.ascontiguousarray(weights, dtype=np.int32)
+            n = len(read_lens)
+            total_len = int(read_codes.shape[0])
+            if desc_service is not None:
+                desc_service.set_ref(np.ascontiguousarray(
+                    self._packed.seq_codes, dtype=np.int8))
+                desc_service.set_layout(read_starts, read_lens)
+                # the service pads the device tensor; its padded length
+                # is the rc-half base the engine must emit in descriptors
+                total_len = int(desc_service.begin_batch(read_codes))
 
         def dispatch(slot):
             """Fetch the slot's items and launch scoring; returns a
@@ -567,33 +623,43 @@ class NativeEngine:
         if chunk < n and store_results:
             raise ValueError("chunked deferral keeps results engine-side: "
                              "pass store_results=False")
+        self._trace_pass()
         _lib.t1k_defer_reserve(self._handle, n)
         bounds = ([(lo, min(lo + chunk, n)) for lo in range(0, n, chunk)]
                   if n else [(0, 0)])
         pending = []  # (slot, lo, materializer)
         total = 0
         slot = 0
+
+        def finish(s0, lo0, fut0):
+            with span("wait"):
+                match = fut0()
+            with span("finish"):
+                _lib.t1k_defer_set_base(self._handle, lo0)
+                return int(_lib.t1k_defer2_finish(self._handle, s0, match))
+
         for lo, hi in bounds:
             # the begin pass finds a read's candidate buckets (set_candidates)
             # at base + i; the finish of the chunk before resets the base
-            _lib.t1k_defer_set_base(self._handle, lo)
-            _lib.t1k_defer2_begin(self._handle, slot, read_codes,
-                                  read_starts[lo:hi], read_lens[lo:hi],
-                                  weights[lo:hi], hi - lo, total_len)
-            pending.append((slot, lo, dispatch(slot)))
+            with span("begin"):
+                _lib.t1k_defer_set_base(self._handle, lo)
+                _lib.t1k_defer2_begin(self._handle, slot, read_codes,
+                                      read_starts[lo:hi], read_lens[lo:hi],
+                                      weights[lo:hi], hi - lo, total_len)
+            with span("dispatch"):
+                pending.append((slot, lo, dispatch(slot)))
             slot ^= 1
             if len(pending) == 2:
-                s0, lo0, fut0 = pending.pop(0)
-                _lib.t1k_defer_set_base(self._handle, lo0)
-                total += int(_lib.t1k_defer2_finish(self._handle, s0, fut0()))
-        for s0, lo0, fut0 in pending:
-            _lib.t1k_defer_set_base(self._handle, lo0)
-            total += int(_lib.t1k_defer2_finish(self._handle, s0, fut0()))
-        _lib.t1k_defer_end_chunked(self._handle)
-        self.last_assign_count = int(total)
-        if not store_results:
-            return None, None
-        return self._results(total, n)
+                total += finish(*pending.pop(0))
+        for pend in pending:
+            total += finish(*pend)
+        with span("finish"):
+            _lib.t1k_defer_end_chunked(self._handle)
+            self.last_assign_count = int(total)
+            self.last_chunk_count = len(bounds)
+            if not store_results:
+                return None, None
+            return self._results(total, n)
 
     def _fragments(self, uid1, uid2, has_n, paired, max_assign_cnt,
                    whitelist) -> int:

@@ -17,7 +17,6 @@
 // Build: see Makefile (produces libt1k_native.so, loaded via ctypes).
 
 #include <array>
-#include <atomic>
 #include <cassert>
 #include <chrono>
 #include <cstdint>
@@ -52,10 +51,6 @@ inline bool BaseEq(int8_t t, int8_t p) {
   return t == p || t == 4 || p == 4;
 }
 
-// Profile counter for the all-match diagonal DP shortcut (defined here
-// because the DP kernels precede EngineProfile).
-static std::atomic<int64_t> gDiagFast{0};
-
 // Banded global alignment with affine gaps.
 //
 // Semantics contract (reference AlignAlgo.hpp:215-421): band of `band`
@@ -88,8 +83,6 @@ static int BandedGlobalAlign(const int8_t* t, int lent, const int8_t* p,
     while (i < lent && BaseEq(t[i], p[i])) ++i;
     if (i == lent) {
       edits->assign(lent, kEditMatch);
-      static const bool prof = std::getenv("T1K_ENGINE_PROFILE") != nullptr;
-      if (prof) gDiagFast.fetch_add(1, std::memory_order_relaxed);
       return lent * kMatch;
     }
   }
@@ -342,8 +335,6 @@ static EditStats BandedGlobalAlignStats(const int8_t* t, int lent,
     while (i < lent && BaseEq(t[i], p[i])) ++i;
     if (i == lent) {
       st.match = lent;
-      static const bool prof = std::getenv("T1K_ENGINE_PROFILE") != nullptr;
-      if (prof) gDiagFast.fetch_add(1, std::memory_order_relaxed);
       return st;
     }
   }
@@ -559,6 +550,64 @@ inline void AtomicAdd(int32_t* p, int32_t v) {
   __atomic_fetch_add(p, v, __ATOMIC_RELAXED);
 }
 
+// Trace counters of the read-assignment passes (t1k_engine_set_trace,
+// t1k_engine_trace_fetch): counts, and thread-nanoseconds of each phase.
+// Kept only while the engine's trace is on; each worker fills a block of
+// its own and the blocks are summed into the engine's when the workers
+// join, so the hot loops take no atomics.  The fetch order is the order
+// of TraceField.
+enum TraceField {
+  kTrReads,       // reads handed to the engine
+  kTrHits,        // CollectHitsSorted's hits
+  kTrOverlaps,    // overlaps that survive chaining and scoring
+  kTrGapItems,    // deferred gap-fill items emitted (fresh windows)
+  kTrSpecItems,   // deferred speculative extension items emitted
+  kTrSpecUsed,    // distinct speculative items the finish replay reads
+  kTrHitNs,       // hit collection
+  kTrChainNs,     // clustering and chaining
+  kTrScoreNs,     // gap fill (inline DP, or item emission when deferred)
+  kTrSpecNs,      // speculative extension item emission
+  kTrReplayNs,    // finish: count fold, similarity, sort, extension replay
+  kTrFullspanNs,  // near-best full-span walks and coverage scatter
+  kTrExtendNs,    // inline path: sort and extension with the overhang DP
+  kTrFields
+};
+
+// The fields' names, in TraceField order (t1k_engine_trace_name): a count
+// ends in _count, a phase's thread-nanoseconds in _ns.
+constexpr const char* kTraceNames[] = {
+    "engine_read_count", "hit_count", "overlap_count", "gap_item_count",
+    "spec_item_count", "spec_item_used_count", "hit_ns", "chain_ns",
+    "score_ns", "spec_ns", "replay_ns", "fullspan_ns", "extend_ns"};
+static_assert(sizeof(kTraceNames) / sizeof(kTraceNames[0]) == kTrFields,
+              "one name a TraceField");
+
+// aligned so that no two workers' blocks share a cache line
+struct alignas(64) TraceBlock {
+  int64_t v[kTrFields] = {};
+  void Add(const TraceBlock& o) {
+    for (int f = 0; f < kTrFields; ++f) v[f] += o.v[f];
+  }
+};
+
+inline int64_t TraceNowNs() {
+  return std::chrono::duration_cast<std::chrono::nanoseconds>(
+             std::chrono::steady_clock::now().time_since_epoch())
+      .count();
+}
+
+// Adds the scope's nanoseconds to one field of `tb`; a null block (trace
+// off) reads no clock.
+struct PhaseTimer {
+  int64_t* acc;
+  int64_t t0;
+  PhaseTimer(TraceBlock* tb, TraceField f)
+      : acc(tb ? &tb->v[f] : nullptr), t0(tb ? TraceNowNs() : 0) {}
+  ~PhaseTimer() {
+    if (acc) *acc += TraceNowNs() - t0;
+  }
+};
+
 struct DeferState;
 
 struct Engine {
@@ -567,6 +616,11 @@ struct Engine {
   // Deferred-DP chunk slots (owned); two so the driver can pipeline
   // device scoring of one chunk against host begin-work on the next.
   DeferState* defer2[2] = {nullptr, nullptr};
+  // Trace counters (TraceBlock): on only when the caller traces; zeroed
+  // at the start of each assignment pass (t1k_defer_reserve,
+  // t1k_assign_batch).
+  bool trace = false;
+  TraceBlock traceSum;
   // Chunked deferral: lastAssign pre-reserved for the full unique-read
   // set; each begin/counts/finish cycle fills [deferBase, base+n).
   int64_t deferBase = -1;
@@ -640,50 +694,6 @@ struct Engine {
     for (; p != q; ++p)
       if (*p >= s && *p <= e) return true;
     return false;
-  }
-};
-
-// Optional per-phase wall-clock accounting for the assignment pipeline,
-// enabled with T1K_ENGINE_PROFILE=1 (printed by t1k_assign_batch).
-struct EngineProfile {
-  std::atomic<int64_t> hits{0}, chain{0}, score{0}, finish{0};
-  std::atomic<int64_t> extLoop{0}, fullSpan{0}, sortT{0};
-  // diagnostic counters (also profile-gated)
-  std::atomic<int64_t> nExtIter{0}, nOverhangDP{0}, nFullspan{0},
-      walkHits{0}, walkComputes{0}, scatterOps{0}, nHits{0}, nGroups{0},
-      extMemoHits{0};
-  // rdtsc sub-phase cycles inside the extension loop
-  std::atomic<int64_t> cycGeom{0}, cycStats{0}, cycCombine{0};
-  // StatsMemo internals: hashing vs miss-DP split + hashed-window bytes
-  std::atomic<int64_t> cycMemoHash{0}, cycMemoMissDP{0}, memoBytes{0};
-  // rdtsc sub-phase cycles inside BuildOverlaps
-  std::atomic<int64_t> cycMemoProbe{0}, cycReplay{0}, cycCluster{0},
-      cycRecord{0};
-  // rdtsc sub-phase cycles inside the deferred speculative-extension loop
-  std::atomic<int64_t> cycSpecSep{0}, cycSpecGeom{0}, cycSpecMemo{0},
-      cycSpecPush{0};
-  std::atomic<int64_t> nSpec{0};
-  static bool Enabled() {
-    static bool on = std::getenv("T1K_ENGINE_PROFILE") != nullptr;
-    return on;
-  }
-};
-static EngineProfile gProf;
-
-struct ScopedNs {
-  std::atomic<int64_t>* acc;
-  std::chrono::steady_clock::time_point t0;
-  explicit ScopedNs(std::atomic<int64_t>* a) : acc(nullptr) {
-    if (EngineProfile::Enabled()) {
-      acc = a;
-      t0 = std::chrono::steady_clock::now();
-    }
-  }
-  ~ScopedNs() {
-    if (acc)
-      *acc += std::chrono::duration_cast<std::chrono::nanoseconds>(
-                  std::chrono::steady_clock::now() - t0)
-                  .count();
   }
 };
 
@@ -951,10 +961,6 @@ static void BuildOverlaps(Engine& eng, const std::vector<Hit>& hits,
       i = j;
       continue;
     }
-    const bool bprof = EngineProfile::Enabled();
-    if (bprof) ++gProf.nGroups;
-    int64_t bt0 = bprof ? (int64_t)__builtin_ia32_rdtsc() : 0;
-
     // ---- group memo probe
     const int32_t base = hits[i].soff;
     const uint64_t gh = GroupMemo::Hash(&hits[i], j - i, base);
@@ -1013,15 +1019,9 @@ static void BuildOverlaps(Engine& eng, const std::vector<Hit>& hits,
         if (++probes > memo.slots.size() / 2) break;  // saturated: compute
       }
       if (replayed) {
-        if (bprof) gProf.cycReplay += (int64_t)__builtin_ia32_rdtsc() - bt0;
         i = j;
         continue;
       }
-    }
-    if (bprof) {
-      int64_t t = (int64_t)__builtin_ia32_rdtsc();
-      gProf.cycMemoProbe += t - bt0;
-      bt0 = t;
     }
     const size_t ovBefore = overlaps->size();
     diag.clear();
@@ -1111,11 +1111,6 @@ static void BuildOverlaps(Engine& eng, const std::vector<Hit>& hits,
       s = e;
     }
 
-    if (bprof) {
-      int64_t t = (int64_t)__builtin_ia32_rdtsc();
-      gProf.cycCluster += t - bt0;
-      bt0 = t;
-    }
     // ---- record the group's result (shift-relative) for replay
     if (fill != nullptr) {
       const int cnt = (int)(overlaps->size() - ovBefore);
@@ -1134,7 +1129,6 @@ static void BuildOverlaps(Engine& eng, const std::vector<Hit>& hits,
         }
       }
     }
-    if (bprof) gProf.cycRecord += (int64_t)__builtin_ia32_rdtsc() - bt0;
     i = j;
   }
 }
@@ -1383,18 +1377,11 @@ struct StatsMemo {
     assert(genP == p - pOff &&
            "StatsMemo: p must come from one base buffer per generation");
 #endif
-    const bool prof = EngineProfile::Enabled();
     if (tLen == lastTLen && pOff == lastPOff && pLen == lastPLen &&
         (t == lastT || std::memcmp(t, lastT, tLen) == 0)) {
-      if (prof) ++gProf.extMemoHits;  // front-cache hits count as memo hits
       return lastMatch;
     }
-    int64_t h0 = prof ? (int64_t)__builtin_ia32_rdtsc() : 0;
     uint64_t h = Hash(t, tLen, pOff, pLen);
-    if (prof) {
-      gProf.cycMemoHash += (int64_t)__builtin_ia32_rdtsc() - h0;
-      gProf.memoBytes += tLen;
-    }
     size_t mask = slots.size() - 1;
     size_t i = h & mask;
     size_t probes = 0;
@@ -1407,16 +1394,13 @@ struct StatsMemo {
         e.tLen = tLen;
         e.pOff = pOff;
         e.pLen = pLen;
-        int64_t d0 = prof ? (int64_t)__builtin_ia32_rdtsc() : 0;
         e.match =
             BandedGlobalAlignStats(t, tLen, p, pLen, 5, scratch).match;
-        if (prof) gProf.cycMemoMissDP += (int64_t)__builtin_ia32_rdtsc() - d0;
         Remember(t, tLen, pOff, pLen, e.match);
         return e.match;
       }
       if (e.h == h && e.tLen == tLen && e.pOff == pOff && e.pLen == pLen &&
           (e.t == t || std::memcmp(e.t, t, tLen) == 0)) {
-        if (EngineProfile::Enabled()) ++gProf.extMemoHits;
         Remember(t, tLen, pOff, pLen, e.match);
         return e.match;
       }
@@ -1533,13 +1517,16 @@ static bool ExtendCombine(Engine& eng, const Overlap& o, const ExtGeom& g,
 // overhang DP is abstracted behind extStats(sortedOverlapIdx, overlap,
 // geom, r) -> {leftMatch, rightMatch}; everything downstream of it
 // (including the sequential onlyConsiderClip state machine and the
-// full-span edit walks) runs here.
+// full-span edit walks) runs here.  With a trace block the extension
+// loop's time goes to `loopField` and the full-span walks' to
+// kTrFullspanNs.
 template <class ExtStats>
 static void AssignExtendAndFinish(Engine& eng, const int8_t* read,
                                   const int8_t* rcData, int len, int weight,
                                   std::vector<Overlap>& overlaps,
                                   std::vector<Overlap>* out,
-                                  AlignScratch* scratch, ExtStats&& extStats) {
+                                  AlignScratch* scratch, TraceBlock* tb,
+                                  TraceField loopField, ExtStats&& extStats) {
   if (overlaps.empty()) return;
   const int8_t* r = overlaps[0].strand == 1 ? read : rcData;
 
@@ -1547,10 +1534,7 @@ static void AssignExtendAndFinish(Engine& eng, const int8_t* read,
   ext.reserve(overlaps.size());
   bool onlyConsiderClip = false;
   int goodMatchCnt = -1;
-  ScopedNs extTimer(&gProf.extLoop);
-  const bool extProf = EngineProfile::Enabled();
-  if (extProf) gProf.nExtIter += (int64_t)overlaps.size();
-  int64_t cGeom = 0, cStats = 0, cCombine = 0;
+  const int64_t loopT0 = tb ? TraceNowNs() : 0;
   for (int oi = 0; oi < (int)overlaps.size(); ++oi) {
     const Overlap& o = overlaps[oi];
     if (eng.SeparatorInRange(o.seqStart, o.seqEnd, o.seq)) continue;
@@ -1559,12 +1543,9 @@ static void AssignExtendAndFinish(Engine& eng, const int8_t* read,
     if (onlyConsiderClip && o.matchCnt < goodMatchCnt &&
         (!needClip || o.similarity < 0.95))
       continue;
-    int64_t t0 = extProf ? (int64_t)__builtin_ia32_rdtsc() : 0;
     ExtGeom g = ExtendGeometry(eng, o, len);
-    int64_t t1 = extProf ? (int64_t)__builtin_ia32_rdtsc() : 0;
     int lm = 0, rm = 0;
     extStats(oi, o, g, r, &lm, &rm);
-    int64_t t2 = extProf ? (int64_t)__builtin_ia32_rdtsc() : 0;
     ext.emplace_back();
     if (ExtendCombine(eng, o, g, lm, rm, &ext.back())) {
       if (!onlyConsiderClip && (goodMatchCnt == -1 || o.matchCnt > goodMatchCnt))
@@ -1573,21 +1554,11 @@ static void AssignExtendAndFinish(Engine& eng, const int8_t* read,
       ext.pop_back();
       onlyConsiderClip = true;
     }
-    if (extProf) {
-      int64_t t3 = (int64_t)__builtin_ia32_rdtsc();
-      cGeom += t1 - t0;
-      cStats += t2 - t1;
-      cCombine += t3 - t2;
-    }
   }
-  if (extProf) {
-    gProf.cycGeom += cGeom;
-    gProf.cycStats += cStats;
-    gProf.cycCombine += cCombine;
-  }
+  if (tb) tb->v[loopField] += TraceNowNs() - loopT0;
 
   if (!ext.empty() && weight >= 0) {
-    ScopedNs fsTimer(&gProf.fullSpan);
+    PhaseTimer fullspanTimer(tb, kTrFullspanNs);
     // Full-span alignment for near-best candidates: exon-relaxed match
     // recount and per-base coverage scatter (SeqSet.hpp:2188-2285).
     int bestIdx = 0;
@@ -1629,13 +1600,11 @@ static void AssignExtendAndFinish(Engine& eng, const int8_t* read,
     ++walkGen;
     size_t walkUsed = 0;
 
-    const bool profOn = EngineProfile::Enabled();
     for (Overlap& e : ext) {
       if (e.matchCnt < bestMatch - 10) {
         e.relaxedMatchCnt = 0;
         continue;
       }
-      if (profOn) ++gProf.nFullspan;
       if (!eng.relaxIntron && weight <= 0) {
         // the walk would feed only the coverage scatter (weight) and the
         // exon-relaxed recount (relaxIntron) — neither is active
@@ -1666,14 +1635,12 @@ static void AssignExtendAndFinish(Engine& eng, const int8_t* read,
                             e.readEnd - e.readStart + 1, 5, &wd.edits,
                             scratch);
           widx = sl.walkIdx;
-          if (profOn) ++gProf.walkComputes;
           break;
         }
         if (sl.h == h && sl.tLen == spanT && sl.rs == e.readStart &&
             sl.re == e.readEnd &&
             (sl.t == t || std::memcmp(sl.t, t, spanT) == 0)) {
           widx = sl.walkIdx;
-          if (profOn) ++gProf.walkHits;
           break;
         }
         si = (si + 1) & mask;
@@ -1724,7 +1691,6 @@ static void AssignExtendAndFinish(Engine& eng, const int8_t* read,
         e.relaxedMatchCnt = e.matchCnt;
       }
       if (weight > 0) {
-        if (profOn) gProf.scatterOps += (int64_t)edits.size();
         int32_t* pw = eng.posWeight.data() + 4 * eng.SeqStart(e.seq);
         if (widx >= 0) {
           WalkData& wd = walkArena[widx];
@@ -1781,10 +1747,11 @@ static void AssignExtendAndFinish(Engine& eng, const int8_t* read,
   }
 }
 
-// Full read-end assignment (reference SeqSet.hpp:2119-2303).
+// Full read-end assignment (reference SeqSet.hpp:2119-2303).  `tb`, when
+// not null, takes the read's counts and phase times.
 static void AssignRead(Engine& eng, const int8_t* read, int len, int weight,
                        std::vector<Overlap>* out, AlignScratch* scratch,
-                       const uint64_t* candBits = nullptr) {
+                       const uint64_t* candBits, TraceBlock* tb) {
   out->clear();
   const int k = eng.index.k();
   if (len < k || eng.nSeqs == 0) return;
@@ -1797,38 +1764,37 @@ static void AssignRead(Engine& eng, const int8_t* read, int len, int weight,
 
   static thread_local std::vector<Hit> hits;
   {
-    ScopedNs t(&gProf.hits);
+    PhaseTimer t(tb, kTrHitNs);
     CollectHitsSorted(eng, read, len, rc.data(), 0, &hits, candBits);
   }
-  if (EngineProfile::Enabled()) gProf.nHits += (int64_t)hits.size();
+  if (tb) tb->v[kTrHits] += (int64_t)hits.size();
 
   std::vector<Overlap> overlaps;
   static thread_local SeedSpans seeds;
   seeds.clear();
   {
-    ScopedNs t(&gProf.chain);
+    PhaseTimer t(tb, kTrChainNs);
     BuildOverlaps(eng, hits, eng.hitLenRequired, &overlaps, &seeds);
   }
   {
-    ScopedNs t(&gProf.score);
+    PhaseTimer t(tb, kTrScoreNs);
     ScoreOverlaps(eng, read, rc.data(), len, &overlaps, &seeds, scratch);
   }
+  if (tb) tb->v[kTrOverlaps] += (int64_t)overlaps.size();
   if (overlaps.empty()) return;
 
   {
-    ScopedNs st(&gProf.sortT);
+    PhaseTimer t(tb, kTrExtendNs);
     std::sort(overlaps.begin(), overlaps.end(), OverlapRankLess);
   }
-  ScopedNs t(&gProf.finish);
   static thread_local StatsMemo extMemo;
   extMemo.Clear();
   AssignExtendAndFinish(
-      eng, read, rc.data(), len, weight, overlaps, out, scratch,
+      eng, read, rc.data(), len, weight, overlaps, out, scratch, tb,
+      kTrExtendNs,
       [&](int, const Overlap& o, const ExtGeom& g, const int8_t* r, int* lm,
           int* rm) {
         const int8_t* seq = eng.Seq(o.seq);
-        if (EngineProfile::Enabled())
-          gProf.nOverhangDP += (g.leftOver > 0) + (g.rightOver > 0);
         *lm = g.leftOver <= 0
                   ? 0
                   : extMemo.Get(seq + o.seqStart - g.leftOver, g.leftOver,
@@ -1977,6 +1943,9 @@ struct DeferState {
   std::vector<int32_t> slots;                       // [2 * |ov|] ext slots
   std::vector<std::pair<int32_t, int32_t>> cons;    // (localItem, ovIdx)
   std::vector<DeferItem> items;
+  // Per item, while the engine traces: 1 for a speculative extension
+  // item, 3 once the finish replay has read its count; 0 for gap items.
+  std::vector<uint8_t> itemFlag;
   int64_t totalReadLen = 0;  // caller's flat read array length (rc base)
   int32_t maxTL = 0, maxPL = 0;
 
@@ -1989,6 +1958,7 @@ struct DeferState {
     slots.clear();
     cons.clear();
     items.clear();
+    itemFlag.clear();
     totalReadLen = 0;
     maxTL = maxPL = 0;
   }
@@ -2021,11 +1991,14 @@ static void DeferBegin2(Engine& eng, const int8_t* readCodes,
     std::vector<DeferItem> items;
     std::vector<int32_t> ovCnt, consCnt, itemCnt;  // per read in range
     int32_t maxTL = 0, maxPL = 0;
+    TraceBlock tr;
+    std::vector<uint8_t> itemFlag;  // DeferState::itemFlag, while tracing
   };
   std::vector<Local> locals(nt);
 
   auto worker = [&](int tid) {
     Local& L = locals[tid];
+    TraceBlock* tb = eng.trace ? &L.tr : nullptr;
     AlignScratch scratch;
     static thread_local DeferMemo memo;
     static thread_local std::vector<Hit> hits;
@@ -2035,6 +2008,7 @@ static void DeferBegin2(Engine& eng, const int8_t* readCodes,
     const int k = eng.index.k();
     int64_t lo = nReads / nt * tid;
     int64_t hi = (tid == nt - 1) ? nReads : nReads / nt * (tid + 1);
+    if (tb) tb->v[kTrReads] += hi - lo;
     for (int64_t i = lo; i < hi; ++i) {
       st.meta[i] = {readCodes + readStarts[i], readLens[i], weights[i],
                     readStarts[i]};
@@ -2052,7 +2026,7 @@ static void DeferBegin2(Engine& eng, const int8_t* readCodes,
         overlaps.clear();
         seeds.clear();
         {
-          ScopedNs t(&gProf.hits);
+          PhaseTimer t(tb, kTrHitNs);
           // chunked deferral: global unique-read index = deferBase + i
           const int64_t gi = (eng.deferBase >= 0 ? eng.deferBase : 0) + i;
           CollectHitsSorted(
@@ -2062,13 +2036,14 @@ static void DeferBegin2(Engine& eng, const int8_t* readCodes,
                   ? eng.candBits.data() + gi * eng.candWords
                   : nullptr);
         }
+        if (tb) tb->v[kTrHits] += (int64_t)hits.size();
         {
-          ScopedNs t(&gProf.chain);
+          PhaseTimer t(tb, kTrChainNs);
           BuildOverlaps(eng, hits, eng.hitLenRequired, &overlaps, &seeds);
         }
         memo.Clear();
         {
-          ScopedNs t(&gProf.score);
+          PhaseTimer t(tb, kTrScoreNs);
           ScoreOverlapsCore(
               eng, read, rcBuf.data(), len, &overlaps, &seeds,
               [&](int ov, int seq, int tOff, int tLen, const int8_t* r,
@@ -2108,20 +2083,19 @@ static void DeferBegin2(Engine& eng, const int8_t* readCodes,
               });
         }
         // Speculative extension windows for every surviving overlap.
-        ScopedNs extT(&gProf.extLoop);
-        const bool sp = EngineProfile::Enabled();
-        if (sp) gProf.nSpec += (int64_t)overlaps.size();
+        const size_t specItem0 = L.items.size();
+        if (tb) {
+          tb->v[kTrOverlaps] += (int64_t)overlaps.size();
+          tb->v[kTrGapItems] += (int64_t)(specItem0 - item0);
+          L.itemFlag.resize(specItem0, 0);
+        }
+        const int64_t specT0 = tb ? TraceNowNs() : 0;
         for (int oi = 0; oi < (int)overlaps.size(); ++oi) {
           const Overlap& o = overlaps[oi];
           int32_t sl[2] = {-1, -1};
-          int64_t q0 = sp ? (int64_t)__builtin_ia32_rdtsc() : 0;
           bool sep = eng.SeparatorInRange(o.seqStart, o.seqEnd, o.seq);
-          int64_t q1 = sp ? (int64_t)__builtin_ia32_rdtsc() : 0;
-          if (sp) gProf.cycSpecSep += q1 - q0;
           if (!sep) {
             ExtGeom g = ExtendGeometry(eng, o, len);
-            int64_t q2 = sp ? (int64_t)__builtin_ia32_rdtsc() : 0;
-            if (sp) gProf.cycSpecGeom += q2 - q1;
             const int sides[2] = {g.leftOver, g.rightOver};
             const int8_t* rr = o.strand == 1 ? read : rcBuf.data();
             for (int s = 0; s < 2; ++s) {
@@ -2154,10 +2128,14 @@ static void DeferBegin2(Engine& eng, const int8_t* readCodes,
               }
               sl[s] = local;
             }
-            if (sp) gProf.cycSpecMemo += (int64_t)__builtin_ia32_rdtsc() - q2;
           }
           L.slots.push_back(sl[0]);
           L.slots.push_back(sl[1]);
+        }
+        if (tb) {
+          tb->v[kTrSpecNs] += TraceNowNs() - specT0;
+          tb->v[kTrSpecItems] += (int64_t)(L.items.size() - specItem0);
+          L.itemFlag.resize(L.items.size(), 1);
         }
         L.ov.insert(L.ov.end(), overlaps.begin(), overlaps.end());
       }
@@ -2190,11 +2168,13 @@ static void DeferBegin2(Engine& eng, const int8_t* readCodes,
     st.maxTL = std::max(st.maxTL, L.maxTL);
     st.maxPL = std::max(st.maxPL, L.maxPL);
   }
+  for (const Local& L : locals) eng.traceSum.Add(L.tr);
   if (nt == 1) {
     st.ov = std::move(locals[0].ov);
     st.slots = std::move(locals[0].slots);
     st.cons = std::move(locals[0].cons);
     st.items = std::move(locals[0].items);
+    st.itemFlag = std::move(locals[0].itemFlag);
   } else {
     size_t novTot = 0, nconsTot = 0, nitemTot = 0;
     for (const Local& L : locals) {
@@ -2211,6 +2191,8 @@ static void DeferBegin2(Engine& eng, const int8_t* readCodes,
       st.slots.insert(st.slots.end(), L.slots.begin(), L.slots.end());
       st.cons.insert(st.cons.end(), L.cons.begin(), L.cons.end());
       st.items.insert(st.items.end(), L.items.begin(), L.items.end());
+      st.itemFlag.insert(st.itemFlag.end(), L.itemFlag.begin(),
+                         L.itemFlag.end());
     }
   }
 }
@@ -2232,8 +2214,13 @@ static int64_t DeferFinish2(Engine& eng, const int32_t* match,
   }
   std::vector<std::vector<double>> shardResults(nt);
   std::vector<std::vector<int64_t>> shardCounts(nt);
+  std::vector<TraceBlock> shardTrace(eng.trace ? nt : 0);
+  // the begin pass flagged the speculative items only if it traced
+  uint8_t* itemFlag =
+      st.itemFlag.size() == st.items.size() ? st.itemFlag.data() : nullptr;
 
   auto worker = [&](int tid) {
+    TraceBlock* tb = eng.trace ? &shardTrace[tid] : nullptr;
     AlignScratch scratch;
     static thread_local std::vector<int8_t> rcBuf;
     static thread_local std::vector<Overlap> ovs;
@@ -2246,6 +2233,7 @@ static int64_t DeferFinish2(Engine& eng, const int32_t* match,
       std::vector<Overlap>& assign = eng.lastAssign[base + i];
       int ovCnt = (int)(st.ovOff[i + 1] - st.ovOff[i]);
       if (ovCnt) {
+        const int64_t replayT0 = tb ? TraceNowNs() : 0;
         Overlap* ovp = st.ov.data() + st.ovOff[i];
         int32_t* slp = st.slots.data() + 2 * st.ovOff[i];
         const int64_t itemBase = st.itemOff[i];
@@ -2265,23 +2253,21 @@ static int64_t DeferFinish2(Engine& eng, const int32_t* match,
           // outcomes over logical positions, so the resulting order
           // equals sorting the Overlap array directly (what the inline
           // path does) for this standard library.
-          {
-            ScopedNs sortTimer(&gProf.sortT);
-            perm.resize(w);
-            for (int q = 0; q < w; ++q) perm[q] = q;
-            std::sort(perm.begin(), perm.end(), [&](int a, int b) {
-              return OverlapRankLess(ovp[a], ovp[b]);
-            });
-          }
+          perm.resize(w);
+          for (int q = 0; q < w; ++q) perm[q] = q;
+          std::sort(perm.begin(), perm.end(), [&](int a, int b) {
+            return OverlapRankLess(ovp[a], ovp[b]);
+          });
           ovs.resize(w);
           slts.resize(w);
           for (int q = 0; q < w; ++q) {
             ovs[q] = ovp[perm[q]];
             slts[q] = {slp[2 * perm[q]], slp[2 * perm[q] + 1]};
           }
+          if (tb) tb->v[kTrReplayNs] += TraceNowNs() - replayT0;
           AssignExtendAndFinish(
               eng, M.read, rcBuf.data(), M.len, M.weight, ovs, &assign,
-              &scratch,
+              &scratch, tb, kTrReplayNs,
               [&](int oi, const Overlap& o, const ExtGeom& g, const int8_t* r,
                   int* lm, int* rm) {
                 const int sides[2] = {g.leftOver, g.rightOver};
@@ -2303,6 +2289,10 @@ static int64_t DeferFinish2(Engine& eng, const int32_t* match,
                                  .match;
                   } else {
                     res[s] = match[itemBase + slot];
+                    if (tb && itemFlag && itemFlag[itemBase + slot] == 1) {
+                      itemFlag[itemBase + slot] = 3;
+                      ++tb->v[kTrSpecUsed];
+                    }
                   }
                 }
                 *lm = res[0];
@@ -2310,6 +2300,7 @@ static int64_t DeferFinish2(Engine& eng, const int32_t* match,
               });
         } else {
           ovs.clear();
+          if (tb) tb->v[kTrReplayNs] += TraceNowNs() - replayT0;
         }
       }
       if (!eng.storeResults) {
@@ -2335,6 +2326,7 @@ static int64_t DeferFinish2(Engine& eng, const int32_t* match,
     for (int t = 0; t < nt; ++t) threads.emplace_back(worker, t);
     for (auto& th : threads) th.join();
   }
+  for (const TraceBlock& b : shardTrace) eng.traceSum.Add(b);
 
   eng.results.clear();
   eng.resultOffsets.clear();
@@ -2454,6 +2446,7 @@ void t1k_defer_reserve(void* e, int64_t n_reads) {
   auto& eng = *static_cast<t1k::Engine*>(e);
   eng.lastAssign.assign(n_reads, {});
   eng.deferBase = 0;
+  eng.traceSum = t1k::TraceBlock();
 }
 
 void t1k_defer_set_base(void* e, int64_t base) {
@@ -2464,38 +2457,6 @@ void t1k_defer_end_chunked(void* e) {
   auto& eng = *static_cast<t1k::Engine*>(e);
   eng.deferBase = -1;
   t1k::DeferRelease(eng);
-  if (t1k::EngineProfile::Enabled()) {
-    fprintf(stderr,
-            "[defer] hits=%.2fs chain=%.2fs score=%.2fs sort=%.2fs "
-            "ext=%.2fs fullspan=%.2fs\n",
-            t1k::gProf.hits.load() / 1e9, t1k::gProf.chain.load() / 1e9,
-            t1k::gProf.score.load() / 1e9, t1k::gProf.sortT.load() / 1e9,
-            t1k::gProf.extLoop.load() / 1e9,
-            t1k::gProf.fullSpan.load() / 1e9);
-    fprintf(stderr,
-            "[defer] nHits=%lld nGroups=%lld extIter=%lld fullspan=%lld "
-            "walkHit=%lld walkCompute=%lld scatterOps=%lld\n",
-            (long long)t1k::gProf.nHits.load(),
-            (long long)t1k::gProf.nGroups.load(),
-            (long long)t1k::gProf.nExtIter.load(),
-            (long long)t1k::gProf.nFullspan.load(),
-            (long long)t1k::gProf.walkHits.load(),
-            (long long)t1k::gProf.walkComputes.load(),
-            (long long)t1k::gProf.scatterOps.load());
-    fprintf(stderr,
-            "[defer] nSpec=%lld specCyc sep=%.2fG geom=%.2fG memo=%.2fG\n",
-            (long long)t1k::gProf.nSpec.load(),
-            t1k::gProf.cycSpecSep.load() / 1e9,
-            t1k::gProf.cycSpecGeom.load() / 1e9,
-            t1k::gProf.cycSpecMemo.load() / 1e9);
-    fprintf(stderr,
-            "[defer] chainCyc probe=%.2fG replay=%.2fG cluster=%.2fG "
-            "record=%.2fG\n",
-            t1k::gProf.cycMemoProbe.load() / 1e9,
-            t1k::gProf.cycReplay.load() / 1e9,
-            t1k::gProf.cycCluster.load() / 1e9,
-            t1k::gProf.cycRecord.load() / 1e9);
-  }
 }
 
 // Free the deferral working state (kept across chunks for capacity
@@ -2680,11 +2641,15 @@ int64_t t1k_assign_batch(void* ep, const int8_t* read_codes,
   eng.lastAssign.assign(n_reads, {});
   std::vector<std::vector<double>> shardResults(nt);
   std::vector<std::vector<int64_t>> shardCounts(nt);
+  eng.traceSum = t1k::TraceBlock();
+  std::vector<t1k::TraceBlock> shardTrace(eng.trace ? nt : 0);
 
   auto worker = [&](int tid) {
+    t1k::TraceBlock* tb = eng.trace ? &shardTrace[tid] : nullptr;
     t1k::AlignScratch scratch;
     int64_t start = n_reads / nt * tid;
     int64_t end = (tid == nt - 1) ? n_reads : n_reads / nt * (tid + 1);
+    if (tb) tb->v[t1k::kTrReads] += end - start;
     for (int64_t i = start; i < end; ++i) {
       std::vector<t1k::Overlap>& assign = eng.lastAssign[i];
       t1k::AssignRead(eng, read_codes + read_starts[i], read_lens[i],
@@ -2692,7 +2657,8 @@ int64_t t1k_assign_batch(void* ep, const int8_t* read_codes,
                       (eng.candWords && i < (int64_t)eng.candHas.size() &&
                        eng.candHas[i])
                           ? eng.candBits.data() + i * eng.candWords
-                          : nullptr);
+                          : nullptr,
+                      tb);
       if (!eng.storeResults) {
         shardCounts[tid].push_back((int64_t)assign.size());
         continue;
@@ -2717,6 +2683,7 @@ int64_t t1k_assign_batch(void* ep, const int8_t* read_codes,
     for (int t = 0; t < nt; ++t) threads.emplace_back(worker, t);
     for (auto& th : threads) th.join();
   }
+  for (const t1k::TraceBlock& b : shardTrace) eng.traceSum.Add(b);
 
   eng.results.clear();
   eng.resultOffsets.clear();
@@ -2728,55 +2695,33 @@ int64_t t1k_assign_batch(void* ep, const int8_t* read_codes,
     for (int64_t c : shardCounts[t])
       eng.resultOffsets.push_back(eng.resultOffsets.back() + c);
   }
-  if (t1k::EngineProfile::Enabled()) {
-    fprintf(stderr,
-            "[engine] hits=%.2fs chain=%.2fs score=%.2fs sort=%.2fs "
-            "finish=%.2fs (ext=%.2fs fullspan=%.2fs)\n",
-            t1k::gProf.hits.load() / 1e9, t1k::gProf.chain.load() / 1e9,
-            t1k::gProf.score.load() / 1e9, t1k::gProf.sortT.load() / 1e9,
-            t1k::gProf.finish.load() / 1e9,
-            t1k::gProf.extLoop.load() / 1e9,
-            t1k::gProf.fullSpan.load() / 1e9);
-    fprintf(stderr,
-            "[engine] nHits=%lld nGroups=%lld extIter=%lld overhangDP=%lld "
-            "fullspan=%lld walkHit=%lld walkCompute=%lld scatterOps=%lld\n",
-            (long long)t1k::gProf.nHits.load(),
-            (long long)t1k::gProf.nGroups.load(),
-            (long long)t1k::gProf.nExtIter.load(),
-            (long long)t1k::gProf.nOverhangDP.load(),
-            (long long)t1k::gProf.nFullspan.load(),
-            (long long)t1k::gProf.walkHits.load(),
-            (long long)t1k::gProf.walkComputes.load(),
-            (long long)t1k::gProf.scatterOps.load());
-    fprintf(stderr,
-            "[engine] extMemoHit=%lld/%lld extCyc geom=%.2fG stats=%.2fG "
-            "combine=%.2fG\n",
-            (long long)t1k::gProf.extMemoHits.load(),
-            (long long)t1k::gProf.nOverhangDP.load(),
-            t1k::gProf.cycGeom.load() / 1e9,
-            t1k::gProf.cycStats.load() / 1e9,
-            t1k::gProf.cycCombine.load() / 1e9);
-    fprintf(stderr,
-            "[engine] memoCyc hash=%.2fG missDP=%.2fG bytes=%.2fG "
-            "diagFast=%lld\n",
-            t1k::gProf.cycMemoHash.load() / 1e9,
-            t1k::gProf.cycMemoMissDP.load() / 1e9,
-            t1k::gProf.memoBytes.load() / 1e9,
-            (long long)t1k::gDiagFast.load());
-    fprintf(stderr,
-            "[engine] chainCyc probe=%.2fG replay=%.2fG cluster=%.2fG "
-            "record=%.2fG\n",
-            t1k::gProf.cycMemoProbe.load() / 1e9,
-            t1k::gProf.cycReplay.load() / 1e9,
-            t1k::gProf.cycCluster.load() / 1e9,
-            t1k::gProf.cycRecord.load() / 1e9);
-  }
   return eng.storeResults ? (int64_t)(eng.results.size() / 11)
                         : eng.resultOffsets.back();
 }
 
 void t1k_engine_set_threads(void* ep, int32_t n) {
   static_cast<t1k::Engine*>(ep)->nThreads = n;
+}
+
+// Trace counters of the assignment passes (TraceBlock): on != 0 makes
+// the passes count and time their phases; off, they read no clock.
+void t1k_engine_set_trace(void* ep, int32_t on) {
+  static_cast<t1k::Engine*>(ep)->trace = on != 0;
+}
+
+// The name of the counter block's field f (TraceField order), or null
+// past the last field.
+const char* t1k_engine_trace_name(int32_t f) {
+  return f >= 0 && f < t1k::kTrFields ? t1k::kTraceNames[f] : nullptr;
+}
+
+// Copies up to n fields of the counter block, in TraceField order, into
+// out; returns the number of fields the engine keeps.
+int32_t t1k_engine_trace_fetch(void* ep, int64_t* out, int32_t n) {
+  const auto& eng = *static_cast<t1k::Engine*>(ep);
+  for (int32_t f = 0; f < n && f < t1k::kTrFields; ++f)
+    out[f] = eng.traceSum.v[f];
+  return t1k::kTrFields;
 }
 
 // Disable per-read record staging (t1k_get_results) when the caller only

@@ -44,6 +44,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from ..utils.observability import traced_range
+
 I32MAX = int(np.iinfo(np.int32).max)
 EMPTY_KEY = 0xFFFFFFFF      # hashed-table empty slot
 _DIRECT_MAX_K = 12          # 4^12+1 int32 CSR offsets = 64 MB
@@ -715,6 +717,7 @@ class DeviceScreen:
                         if self.device.type == "cuda" else None)
 
     @classmethod
+    @traced_range("screen_build")
     def build(cls, packed, k: int, hit_len_required: int, ref_sim: float,
               radius: int = 10, device="cuda", **caps) -> "DeviceScreen":
         return cls(PhaseAIndex.build(packed, k, device), hit_len_required,

@@ -40,14 +40,15 @@ import numpy as np
 
 from ..constants import GENOTYPER_KMER_LENGTH
 from ..core.pipeline import (GenotypeOptions, PreparedGenotype,
-                             assign_unique_reads, finish_genotyper,
-                             load_reads, log, new_genotyper, resolve_routes)
+                             assign_unique_reads, engine_stage_counters,
+                             finish_genotyper, load_reads, log,
+                             new_genotyper, resolve_routes)
 from ..device import BACKENDS, resolve_backend, resolve_device
 from ..io.refset import RefSet
 from ..native import NativeEngine
 from ..ops import align_band
 from ..ops.align_band import DeferredDescService
-from ..utils.observability import metrics, reset_metrics, stage
+from ..utils.observability import metrics, stage, start_metrics
 
 
 def shard_bounds(n: int, workers: int) -> List[tuple]:
@@ -93,6 +94,7 @@ def _worker_stage(packed, opts, s1: List[str], s2: List[str],
                                       if service is not None else 0)
         ctx["band_kernel_launches"] = (align_band.launch_counts["band_stats"]
                                        - launches0)
+        ctx.update(engine_stage_counters(engine, backend))
     n = len(s1)
     has_n = np.array(
         [("N" in a) or (has_mate and "N" in b)
@@ -173,7 +175,7 @@ def run_genotyper_distributed(
     read_cnt = len(seqs1)
     log(f"Distributed genotyping over {n_workers} workers, "
         f"{read_cnt} fragments.")
-    reset_metrics()
+    start_metrics()
     shards = []
     for w, (lo, hi) in enumerate(shard_bounds(read_cnt, n_workers)):
         with stage(f"shard_{w}") as ctx:

@@ -119,9 +119,10 @@ def _run_cells_cohort(jobs: list, device="cuda", mesh=None) -> List[str]:
     from ..io.refset import RefSet
     from ..ops.align_band import DeferredDescService
     from ..ops.em import em_quantify_batched
+    from ..utils.observability import metrics_run, reset_metrics
 
     refset = service = None
-    preps, prefixes, analyses = [], [], []
+    preps, prefixes, analyses, cell_sets = [], [], [], []
     for t1k_args, ref, f1, f2, outdir, prefix, _no_extraction in jobs:
         preset = t1k_args.get("--preset", "")
         geno_sim, _, relax = resolve_preset(
@@ -137,9 +138,11 @@ def _run_cells_cohort(jobs: list, device="cuda", mesh=None) -> List[str]:
         if opts.backend == "gpu" and service is None:
             service = DeferredDescService(resolve_device(device))
         os.makedirs(outdir, exist_ok=True)
-        preps.append(prepare_genotyper(ref, [f1], [f2] if f2 else None,
-                                       opts, refset=refset,
-                                       desc_service=service))
+        with metrics_run() as cell_metrics:
+            preps.append(prepare_genotyper(ref, [f1], [f2] if f2 else None,
+                                           opts, refset=refset,
+                                           desc_service=service))
+        cell_sets.append(cell_metrics)
         prefixes.append(os.path.join(outdir, prefix))
         # cli.run gives the analyzer --relaxIntronAlign only through the
         # kir-wgs and kir-wes presets
@@ -159,8 +162,10 @@ def _run_cells_cohort(jobs: list, device="cuda", mesh=None) -> List[str]:
         devices=mesh)
 
     out = []
-    for prep, res, prefix, (ref, paired, aopts) in zip(preps, results,
-                                                        prefixes, analyses):
+    for prep, res, prefix, (ref, paired, aopts), cell_metrics in zip(
+            preps, results, prefixes, analyses, cell_sets):
+        # each cell's metrics files hold its own stage records
+        reset_metrics(cell_metrics)
         finish_genotyper(prep, prefix, em_result=res)
         aligned = ([f"{prefix}_aligned_1.fa"], [f"{prefix}_aligned_2.fa"])
         run_analyzer(ref, f"{prefix}_allele.tsv",

@@ -10,10 +10,12 @@ chain, the BAM chain, bamextract, simulate and the genotyper have their
 native-route cases in test_torch_run.py, test_torch_bam.py,
 test_torch_tools.py and test_torch_pipeline.py.
 
-Also pins the port's copy of the native sources: engine.cc, em.cc and
-variant.cc equal t1k_tpu/native/'s, and bamscan.cc differs by the
-libdeflate null check alone."""
+Also pins the port's copy of the native sources: em.cc and variant.cc
+equal t1k_tpu/native/'s, bamscan.cc differs by the libdeflate null check
+alone, and engine.cc by the trace counters alone (data/engine_trace.diff,
+in place of t1k_tpu's environment-gated profile)."""
 
+import difflib
 import os
 
 import numpy as np
@@ -157,12 +159,24 @@ BAMSCAN_PORT = """\
     }
 """
 NATIVE_SOURCES = ("bamscan.cc", "em.cc", "engine.cc", "variant.cc")
+# the port's engine.cc against t1k_tpu's: the trace block
+# (t1k_engine_set_trace, t1k_engine_trace_fetch) in place of the profile
+# that T1K_ENGINE_PROFILE switched on.  After a change to the port's
+# engine.cc, write the diff again with engine_trace_diff() below.
+ENGINE_DIFF = os.path.join(HERE, "data", "engine_trace.diff")
+
+
+def engine_trace_diff(host: str, port: str) -> str:
+    return "".join(difflib.unified_diff(
+        host.splitlines(True), port.splitlines(True),
+        "t1k_tpu/native/engine.cc", "t1k_tpu_torch/native/engine.cc"))
 
 
 @pytest.mark.parametrize("name", NATIVE_SOURCES)
 def test_native_source_is_the_jax_packages(name):
     """The port's native route is the JAX package's native route: the same
-    C++ sources byte for byte, bamscan.cc with the null-check hunk."""
+    C++ sources byte for byte, bamscan.cc with the null-check hunk and
+    engine.cc with the trace counters' diff."""
     dirs = [os.path.join(REPO, pkg, "native")
             for pkg in ("t1k_tpu", "t1k_tpu_torch")]
     for d in dirs:
@@ -172,4 +186,7 @@ def test_native_source_is_the_jax_packages(name):
     if name == "bamscan.cc":
         assert host.count(BAMSCAN_HOST) == 1
         host = host.replace(BAMSCAN_HOST, BAMSCAN_PORT)
+    if name == "engine.cc":
+        assert engine_trace_diff(host, port) == _read(ENGINE_DIFF).decode()
+        return
     assert port == host
